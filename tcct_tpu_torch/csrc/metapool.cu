@@ -1,13 +1,18 @@
-// MetaPool token mixer, forward, for Hopper (sm_90a).
+// MetaPool token mixer, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel tcct_tpu/ops/pallas/metapool.py::_kernel
-// (pallas_call at metapool.py:64, via metapool_tokens_pallas).
+// Replaces the TPU kernels tcct_tpu/ops/pallas/metapool.py::_kernel and
+// ::_bwd_kernel (both through pallas_call at metapool.py:64, via
+// metapool_tokens_pallas and its custom VJP).
 //
-// Computes, for x of shape [B, N, C] (row-major, C fastest):
+// Forward, for x of shape [B, N, C] (row-major, C fastest):
 //   y = AvgPool2d(3, stride 1, pad 1, count_include_pad=False)(x) - x
 // with the 3x3 window sliding over the (token, channel) axes -- the
-// reference model's quirk, kept on purpose.  Arithmetic is f32 inside and
-// the result is cast to the input type once (f32 or bf16).
+// reference model's quirk, kept on purpose.  Backward, its adjoint for the
+// output gradient g of the same shape:
+//   dx = window_sum(g / count) - g
+// where count is the same valid-element count map (torch's, 1 along an
+// axis of length 1).  Arithmetic is f32 inside and the result is cast to
+// the input type once (f32 or bf16).
 //
 // Bound: bytes.  Each element is read once and written once and costs
 // about eleven f32 operations, far below the card's operations-per-byte
@@ -26,7 +31,10 @@
 // `tile_n` is chosen at launch so that small inputs still spread over the
 // SMs; the halo re-reads 2 of every tile_n + 2 rows.  There is no size
 // budget: every stage of every geometry runs here.  When C is not a
-// multiple of the vector width the loads are scalar.
+// multiple of the vector width the loads are scalar.  The backward is the
+// same kernel (template flag BWD): it divides each staged value by its
+// count instead of dividing the window sum, and subtracts g re-read from
+// global memory (an L1/L2 hit: the block has just staged it).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,9 +74,9 @@ __device__ __forceinline__ float axis_count(int i, int n) {
   return (float)(hi - lo);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BWD>
 __global__ void __launch_bounds__(THREADS)
-metapool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int C, int tile_n) {
+metapool_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int C, int tile_n) {
   using V = typename Vec<T, VEC>::type;
   extern __shared__ __align__(16) float tile[];  // [tile_n + 2][ld], data at columns PAD..
   const int ld = C + 2 * PAD;
@@ -87,6 +95,11 @@ metapool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int C, in
     float v[VEC];
     if (n >= 0 && n < N) {
       unpack<T, VEC>(*reinterpret_cast<const V*>(xb + (size_t)n * C + c), v);
+      if constexpr (BWD) {  // g / count, the count as the plain version forms it
+        const float cn = axis_count(n, N);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[j] = v[j] / (cn * axis_count(c + j, C));
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) v[j] = 0.f;
@@ -125,7 +138,9 @@ metapool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int C, in
       const float* p = col + (r + 2) * ld;
       const float h2 = p[-1] + p[0] + p[1];
       const int n = n0 + r;
-      const float out = (h0 + h1 + h2) / (axis_count(n, N) * cc) - col[(r + 1) * ld];
+      float out;
+      if constexpr (BWD) out = (h0 + h1 + h2) - to_f32(xb[(size_t)n * C + c]);
+      else out = (h0 + h1 + h2) / (axis_count(n, N) * cc) - col[(r + 1) * ld];
       yb[(size_t)n * C + c] = from_f32<T>(out);
       h0 = h1;
       h1 = h2;
@@ -133,28 +148,28 @@ metapool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int C, in
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BWD>
 int launch(const void* x, void* y, int B, int N, int C, cudaStream_t stream) {
   // enough blocks to cover the SMs a few times over, at most 64 tokens a tile
   int tile_n = 64;
   while (tile_n > 8 && (long long)B * ((N + tile_n - 1) / tile_n) < 4 * 132) tile_n /= 2;
   const size_t smem = (size_t)(tile_n + 2) * (C + 2 * PAD) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(metapool_fwd_kernel<T, VEC>,
+    cudaError_t e = cudaFuncSetAttribute(metapool_kernel<T, VEC, BWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((N + tile_n - 1) / tile_n, B);
-  metapool_fwd_kernel<T, VEC><<<grid, THREADS, smem, stream>>>(
+  metapool_kernel<T, VEC, BWD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), N, C, tile_n);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BWD>
 int dispatch(const void* x, void* y, int B, int N, int C, cudaStream_t stream) {
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
-  if (aligned && C % VEC == 0) return launch<T, VEC>(x, y, B, N, C, stream);
-  return launch<T, 1>(x, y, B, N, C, stream);
+  if (aligned && C % VEC == 0) return launch<T, VEC, BWD>(x, y, B, N, C, stream);
+  return launch<T, 1, BWD>(x, y, B, N, C, stream);
 }
 
 }  // namespace
@@ -163,7 +178,17 @@ int dispatch(const void* x, void* y, int B, int N, int C, cudaStream_t stream) {
 extern "C" int tcct_metapool_fwd(const void* x, void* y, int B, int N, int C, int dtype,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float, 4>(x, y, B, N, C, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16, 8>(x, y, B, N, C, s);
+  if (dtype == 0) return dispatch<float, 4, false>(x, y, B, N, C, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16, 8, false>(x, y, B, N, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: g is the gradient of y, dx the gradient of x, both
+// [B, N, C] in the same type.  Returns cudaGetLastError() after the launch.
+extern "C" int tcct_metapool_bwd(const void* g, void* dx, int B, int N, int C, int dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float, 4, true>(g, dx, B, N, C, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16, 8, true>(g, dx, B, N, C, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -68,10 +68,15 @@ def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """JAX variables flattened to ``"params/base/.../kernel"`` numpy arrays
     -> this package's state dict (f32 CPU tensors).
 
-    Only what the JAX variables hold is returned: parameters the JAX model
-    never created (the CRPE convs and ``cls_head`` it never runs, the
-    RegNet loss heads) and ``num_batches_tracked`` are absent, so load the
-    result with ``load_state_dict(..., strict=False)``."""
+    Both the serving variables and the whole train state carry across: the
+    train variant's ``t321``-``t324``, the RegNet loss heads (``lap_*``;
+    a ``ShiftConv3x3`` kernel ``(3,3,1,C)`` becomes ``[C,1,3,3]`` like any
+    conv), ``tau``, the BN statistics and ``prototypes/fcp_buf_grad`` as
+    ``fcp.buf_grad``.  Only what the JAX variables hold is returned:
+    parameters the JAX model never created (the CRPE convs and ``cls_head``
+    it never runs, ``fuse``; the loss heads of a serving model) and
+    ``num_batches_tracked`` are absent, so load the result with
+    ``load_state_dict(..., strict=False)``."""
     out: Dict[str, torch.Tensor] = {}
     layers: Dict[str, set] = {}
     for k in flat:

@@ -6,7 +6,9 @@ fused by GELU, then a 3x3 head; kernel sizes shrink per level
 (13, 11, 9, 7, 5) with 2x2 max-pooling between levels.  The reference's
 order inside each Sequential is LeakyReLU *then* BatchNorm, kept here;
 the Sequential indices (with gaps where the activation has no
-parameters) match its state-dict names.
+parameters) match its state-dict names.  The LeakyReLU runs inside the
+BatchNorm (``leaky=True``), so in train mode the two are one fused
+kernel (``ops/kernels/bnstats.py``).
 
 These are dense convs (no depthwise 3x3), so they run ``F.conv2d``.  The
 JAX package's space-to-depth packing of this branch
@@ -24,6 +26,15 @@ from tcct_tpu_torch.ops.pool import max_pool_2d
 
 def _lrelu():
     return nn.LeakyReLU(0.01)
+
+
+def _convs_act_bn(seq: nn.Sequential, x):
+    """Run a ``Sequential(conv..., LeakyReLU, BatchNorm2d)``: the convs,
+    then the LeakyReLU and the BN as one ``leaky=True`` BN call."""
+    *convs, _act, bn = seq
+    for conv in convs:
+        x = conv(x)
+    return bn(x, leaky=True)
 
 
 class CrossCNNBlock(nn.Module):
@@ -45,7 +56,9 @@ class CrossCNNBlock(nn.Module):
         self.block5 = nn.Sequential(conv2d(cout, cout, 3, 1, 1), _lrelu(), BatchNorm2d(cout))
 
     def forward(self, x):
-        return self.block5(gelu(self.block12(x) + self.block34(x)))
+        a = _convs_act_bn(self.block12, x)
+        b = _convs_act_bn(self.block34, x)
+        return _convs_act_bn(self.block5, gelu(a + b))
 
 
 class CrossResNet(nn.Module):

@@ -1,11 +1,20 @@
-"""FTC fusion + decoder, ``variant='infer'`` (the architecture of the
-shipped checkpoints, reference task1/onnx/tcct_goals.py; JAX counterpart
-``tcct_tpu/models/ftc.py``).
+"""FTC fusion + decoder (reference task1/nets/tcct.py:944-1046 and
+task1/onnx/tcct_goals.py; JAX counterpart ``tcct_tpu/models/ftc.py``).
+
+Two variants, as in the JAX package:
+
+- ``variant='infer'`` — the architecture of the shipped checkpoints: the
+  aux heads act on the raw skips and ``dec4`` takes ``c1``.  The forward
+  returns the four logit maps (main head first); the predictor never
+  reads the polarization feats, so they are not formed.
+- ``variant='train'`` — the training architecture of the goldens: 1x1
+  projections ``t321``-``t324`` of skip + decoder output feed the aux
+  heads and the polarization feats ``norm_add([y0, y1p, y2p])``
+  (``forward(x, with_feats=True)``).  Only the JAX package's unpacked
+  branch is ported.
 
 Simple fusion (``stc_*``): each pyramid level is the sum of the ViT and
-CNN features after their 1x1 conv + BN projections.  The forward returns
-the four logit maps (main head first) and skips the polarization feats,
-which the predictor never reads.
+CNN features after their 1x1 conv + BN projections.
 """
 
 from __future__ import annotations
@@ -42,17 +51,31 @@ def simple_fusion(x1, x2):
     return x1 + x2
 
 
+def norm_add(xs: List[torch.Tensor]) -> torch.Tensor:
+    """L2-normalise each NCHW map over channels (floor 1e-12), resize to
+    the first's size (bilinear, align_corners=False) and average
+    (reference tcct.py:937-942)."""
+    xs = [x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True), min=1e-12)
+          for x in xs]
+    size = xs[0].shape[2:]
+    xs = [resize_bilinear(x, size, align_corners=False) for x in xs]
+    return sum(xs) / len(xs)
+
+
 def _tran(cin, cout):
     return nn.Sequential(conv2d(cin, cout, 1, 1, 0), BatchNorm2d(cout))
 
 
 class FTC(nn.Module):
-    """Dual-branch fusion + U-decoder, infer variant (reference
-    tcct.py:944-1046 / onnx/tcct_goals.py)."""
+    """Dual-branch fusion + U-decoder (reference tcct.py:944-1046 /
+    onnx/tcct_goals.py for the ``infer`` variant)."""
 
     def __init__(self, vit_cfg: MPViTConfig = MPViTConfig(), cnn_tiny: bool = True,
-                 out_channels: int = 5, filters: int = 32):
+                 out_channels: int = 5, filters: int = 32, variant: str = "infer"):
         super().__init__()
+        if variant not in ("infer", "train"):
+            raise ValueError(f"FTC: variant must be 'infer' or 'train', got {variant!r}")
+        self.variant = variant
         self.base_vit = MPViT(vit_cfg)
         self.base_cnn = CrossResNet(tiny=cnn_tiny)
         ld = self.base_cnn.layer_dims
@@ -68,13 +91,25 @@ class FTC(nn.Module):
         self.dec2 = MPUpBlock(ld[-2], ld[-3])
         self.dec3 = MPUpBlock(ld[-3], ld[-4])
         self.dec4 = MPUpBlock(ld[-4], filters)
-        self.aux0 = conv2d(filters, out_channels, 1, 1, 0)
-        self.aux1 = conv2d(ld[-4], out_channels, 1, 1, 0)
-        self.aux2 = conv2d(ld[-3], out_channels, 1, 1, 0)
-        self.aux4 = conv2d(ld[-2], out_channels, 1, 1, 0)
+        if variant == "train":
+            self.t321 = conv2d(ld[-2], filters, 1, 1, 0)
+            self.t322 = conv2d(ld[-3], filters, 1, 1, 0)
+            self.t323 = conv2d(ld[-4], filters, 1, 1, 0)
+            self.t324 = conv2d(filters, filters, 1, 1, 0)
+            aux_in = (filters, filters, filters, filters)
+        else:
+            aux_in = (filters, ld[-4], ld[-3], ld[-2])
+        self.aux0 = conv2d(aux_in[0], out_channels, 1, 1, 0)
+        self.aux1 = conv2d(aux_in[1], out_channels, 1, 1, 0)
+        self.aux2 = conv2d(aux_in[2], out_channels, 1, 1, 0)
+        self.aux4 = conv2d(aux_in[3], out_channels, 1, 1, 0)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """NHWC image [B,H,W,3] -> four NHWC logit maps [B,H,W,n_class]."""
+    def forward(self, x: torch.Tensor, with_feats: bool = False):
+        """NHWC image [B,H,W,3] -> four NHWC logit maps [B,H,W,n_class];
+        with ``with_feats`` (train variant only) -> ``(maps, [feat])``
+        with the NHWC polarization feat [B,H,W,filters]."""
+        if with_feats and self.variant != "train":
+            raise ValueError("FTC: the polarization feats are formed by variant='train' only")
         x = x.permute(0, 3, 1, 2)
         c1, c2, c3, c4, c5 = self.base_cnn(x)
         vs = self.base_vit.forward_features(x)
@@ -88,10 +123,18 @@ class FTC(nn.Module):
         y1 = self.dec3(y2, x2)
         y0 = self.dec4(y1, c1)
         size = x.shape[2:]
+        if self.variant == "train":
+            y0 = self.t324(c1 + y0)
+            y1 = self.t323(x2 + y1)
+            y2 = self.t322(x3 + y2)
+            y4 = self.t321(x4 + y4)
         outs = [
             self.aux0(y0),
             resize_bilinear(self.aux1(y1), size, align_corners=False),
             resize_bilinear(self.aux2(y2), size, align_corners=False),
             resize_bilinear(self.aux4(y4), size, align_corners=False),
         ]
-        return [o.permute(0, 2, 3, 1) for o in outs]
+        outs = [o.permute(0, 2, 3, 1) for o in outs]
+        if not with_feats:
+            return outs
+        return outs, [norm_add([y0, y1, y2]).permute(0, 2, 3, 1)]

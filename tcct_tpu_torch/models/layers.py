@@ -7,19 +7,30 @@ checkpoints load with ``load_state_dict`` and
 own ``state_dict()``.
 
 Numerics follow the JAX package (``tcct_tpu/models/layers.py``):
-- BatchNorm (eps 1e-5) is eval-only here and normalises as
-  ``(x - mean) * inv + bias`` in the input dtype, with ``inv`` computed in
-  f32;
+- BatchNorm (eps 1e-5) normalises as ``(x - mean) * inv + bias`` in the
+  input dtype, with ``inv`` computed in f32; in train mode the batch
+  statistics come from the train-BN kernel (``ops/kernels/bnstats.py``)
+  and the running statistics follow flax's EMA (momentum 0.9, biased
+  variance);
 - GELU is the exact erf form in f32 and the tanh form in bf16;
 - Hardswish, LeakyReLU(0.01), LayerNorm eps 1e-6.
+
+Train mode is ``module.train()``.  A train step runs its forward inside
+:func:`train_pass`, which hands the model's DropPaths their generator and
+collects the new BN running statistics instead of writing them into the
+(compute-dtype) buffers the forward reads.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
 from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3
 
 
@@ -61,6 +72,32 @@ class Conv2d(nn.Conv2d):
         return y
 
 
+class _TrainPass:
+    """What one train-mode forward shares with its BN and DropPath modules."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.new_stats: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@contextlib.contextmanager
+def train_pass(model: nn.Module, generator: Optional[torch.Generator] = None):
+    """One train-mode forward of ``model``: its DropPaths draw their masks
+    from ``generator``, and each of its train-mode BatchNorms puts its new
+    running statistics (f32 ``(mean, var)``) into the yielded dict, keyed by
+    module, instead of updating its buffers.  A BN run twice in the pass
+    updates from its first result, as flax's mutable ``batch_stats`` does."""
+    ctx = _TrainPass(generator)
+    mods = [m for m in model.modules() if isinstance(m, (BatchNorm2d, DropPath))]
+    for m in mods:
+        m.train_pass = ctx
+    try:
+        yield ctx.new_stats
+    finally:
+        for m in mods:
+            m.train_pass = None
+
+
 def conv2d(cin: int, cout: int, kernel_size=3, stride=1, padding=None, groups=1,
            bias=True) -> Conv2d:
     """torch-style constructor with the reference's default padding k//2."""
@@ -72,18 +109,41 @@ def conv2d(cin: int, cout: int, kernel_size=3, stride=1, padding=None, groups=1,
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval BatchNorm in the JAX package's expression order:
+    """BatchNorm in the JAX package's expression order:
     ``inv = rsqrt(var + eps) * weight`` in f32, then
-    ``(x - mean) * inv + bias`` in the input dtype.  Train mode (batch
-    statistics) belongs to the train slice and is not ported yet."""
+    ``(x - mean) * inv + bias`` in the input dtype.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    ``leaky=True`` applies LeakyReLU(0.01) first (the CrossCNN blocks'
+    LeakyReLU-then-BN).  Train mode normalises with the batch statistics
+    through :func:`bn_act_train` (one fused kernel on the card) and moves
+    the running statistics by flax's EMA:
+    ``0.9 * running + 0.1 * batch``, with the biased batch variance."""
+
+    MOMENTUM = 0.9  # flax's convention; torch's momentum 0.1
+    train_pass: Optional[_TrainPass] = None  # set by train_pass()
+
+    def forward(self, x: torch.Tensor, leaky: bool = False) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
+            y, mean, var = bn_act_train(x, self.weight, self.bias, self.eps, leaky)
+            self._update_running_stats(mean, var)
+            return y
+        if leaky:
+            x = leaky_relu(x)
         dt = x.dtype
         inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
         return ((x - self.running_mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None]
                 + self.bias.to(dt)[:, None, None])
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.MOMENTUM
+        if self.train_pass is not None:
+            stats = self.train_pass.new_stats
+            old = stats.get(self, (self.running_mean, self.running_var))
+            stats[self] = (m * old[0].float() + (1 - m) * mean, m * old[1].float() + (1 - m) * var)
+        else:
+            self.running_mean.copy_(m * self.running_mean.float() + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var.float() + (1 - m) * var)
 
 
 class ConvBN(nn.Module):
@@ -129,10 +189,29 @@ class Mlp(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth; the identity at inference (the only mode ported)."""
+    """Stochastic depth per sample (timm DropPath; JAX counterpart
+    ``tcct_tpu/models/layers.py::DropPath``): in train mode each sample is
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
+    the mask drawn from :func:`train_pass`'s generator.  The identity in
+    eval mode or at rate 0."""
+
+    train_pass: Optional[_TrainPass] = None  # set by train_pass()
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
 
     def forward(self, x):
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        gen = self.train_pass.generator if self.train_pass is not None else None
+        if gen is None:
+            raise ValueError("DropPath in train mode draws from train_pass(model, generator); "
+                             "none is set")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ResBlock(nn.Module):

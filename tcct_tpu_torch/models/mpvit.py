@@ -9,13 +9,15 @@ kernel (``ops/kernels/metapool.py``); every depthwise 3x3 of the branch
 runs the depthwise kernel through ``layers.Conv2d``.
 
 The CRPE convs and the classification head exist for state-dict
-compatibility with the reference and are never run.
+compatibility with the reference and are never run.  In train mode the
+blocks' DropPath rates rise linearly from 0 to ``drop_path_rate``
+(:func:`dpr_schedule`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,8 +45,21 @@ class MPViTConfig:
     embed_dims: Tuple[int, ...] = (64, 96, 128, 160)
     mlp_ratios: Tuple[int, ...] = (1, 1, 1, 1)
     num_heads: Tuple[int, ...] = (4, 4, 4, 4)
+    drop_path_rate: float = 0.1
     # reference crpe head-split table (tcct.py:482-486): {window: heads}
     crpe_window: Tuple[Tuple[int, int], ...] = ((3, 2), (5, 3), (7, 3))
+
+
+def dpr_schedule(drop_path_rate: float, num_layers: Sequence[int]) -> List[List[float]]:
+    """Linear drop-path rates over all blocks, split per stage (reference
+    tcct.py:635-647; JAX ``tcct_tpu/models/mpvit.py::dpr_schedule``)."""
+    total = sum(num_layers)
+    flat = [drop_path_rate * i / (total - 1) for i in range(total)] if total > 1 else [0.0] * total
+    out, cur = [], 0
+    for n in num_layers:
+        out.append(flat[cur:cur + n])
+        cur += n
+    return out
 
 
 def tokens_to_image(x: torch.Tensor, size) -> torch.Tensor:
@@ -89,14 +104,14 @@ class MHCABlock(nn.Module):
     """Pre-norm MetaPool mixer + MLP block with the encoder's shared
     CPE/CRPE (reference tcct.py:417-469)."""
 
-    def __init__(self, dim, mlp_ratio, cpe, crpe):
+    def __init__(self, dim, mlp_ratio, cpe, crpe, drop_path: float = 0.0):
         super().__init__()
         self.cpe = cpe
         self.crpe = crpe
         self.norm1 = layer_norm(dim)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
-        self.drop_path = DropPath()
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x, size):
         x = self.cpe(x, size)
@@ -109,12 +124,12 @@ class MHCAEncoder(nn.Module):
     (reference tcct.py:471-516).  A shared module appears in the state dict
     under both the encoder and every block, as in the reference."""
 
-    def __init__(self, dim, num_layers, num_heads, mlp_ratio, crpe_window):
+    def __init__(self, dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths):
         super().__init__()
         self.cpe = ConvPosEnc(dim, k=3)
         self.crpe = ConvRelPosEnc(dim // num_heads, crpe_window)
         self.MHCA_layers = nn.ModuleList(
-            MHCABlock(dim, mlp_ratio, self.cpe, self.crpe) for _ in range(num_layers)
+            MHCABlock(dim, mlp_ratio, self.cpe, self.crpe, drop_paths[i]) for i in range(num_layers)
         )
 
     def forward(self, x, size):
@@ -156,10 +171,10 @@ class MHCAStage(nn.Module):
     (reference tcct.py:574-616)."""
 
     def __init__(self, embed_dim, out_embed_dim, num_layers, num_heads, mlp_ratio, num_path,
-                 crpe_window):
+                 crpe_window, drop_paths):
         super().__init__()
         self.mhca_blks = nn.ModuleList(
-            MHCAEncoder(embed_dim, num_layers, num_heads, mlp_ratio, crpe_window)
+            MHCAEncoder(embed_dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths)
             for _ in range(num_path)
         )
         self.InvRes = ResBlock(embed_dim)
@@ -195,6 +210,7 @@ class MPViT(nn.Module):
             PatchEmbedStage(c.embed_dims[i], c.num_path[i], is_pool=i != 0)
             for i in range(c.num_stages)
         )
+        dpr = dpr_schedule(c.drop_path_rate, c.num_layers)
         self.mhca_stages = nn.ModuleList(
             MHCAStage(
                 c.embed_dims[i],
@@ -204,6 +220,7 @@ class MPViT(nn.Module):
                 c.mlp_ratios[i],
                 c.num_path[i],
                 c.crpe_window,
+                dpr[i],
             )
             for i in range(c.num_stages)
         )

@@ -1,7 +1,8 @@
 """Model registry (JAX counterpart ``tcct_tpu/models/registry.py``).
 
 The port has ``stc_tt`` and its alias ``tcct`` (simple fusion, MPViT-tiny
-+ tiny CrossCNN) in the ``infer`` variant with the MetaPool mixer.
++ tiny CrossCNN) with the MetaPool mixer, in the ``infer`` variant (the
+shipped checkpoints) and the ``train`` variant (the training goldens).
 """
 
 from __future__ import annotations
@@ -23,15 +24,16 @@ def register(name: str):
 
 
 @register("stc_tt")
-def stc_tt(n_class: int = 8, variant: str = "infer"):
-    if variant != "infer":
-        raise ValueError(f"stc_tt: only variant='infer' is ported, got {variant!r}")
-    return FTC(MPViTConfig(), cnn_tiny=True, out_channels=n_class)
+def stc_tt(n_class: int = 8, variant: str = "infer", drop_path_rate: float = 0.1):
+    if variant not in ("infer", "train"):
+        raise ValueError(f"stc_tt: variant must be 'infer' or 'train', got {variant!r}")
+    return FTC(MPViTConfig(drop_path_rate=drop_path_rate), cnn_tiny=True,
+               out_channels=n_class, variant=variant)
 
 
 @register("tcct")
-def tcct(n_class: int = 8, variant: str = "infer"):
-    return stc_tt(n_class, variant=variant)
+def tcct(n_class: int = 8, variant: str = "infer", drop_path_rate: float = 0.1):
+    return stc_tt(n_class, variant=variant, drop_path_rate=drop_path_rate)
 
 
 def get_model(name: str, n_class: int, **kw):

@@ -1,9 +1,17 @@
 """Depthwise 3x3 convolution (stride 1 or 2, SAME): hand-written CUDA
-kernel (``csrc/dwconv3x3.cu``) and its plain PyTorch version.
+kernels (``csrc/dwconv3x3.cu``), forward and fused backward, and their
+plain PyTorch versions.
 
 Replaces the TPU kernels ``tcct_tpu/ops/pallas/dwconv.py::_fwd_kernel``
-(``pallas_call`` at dwconv.py:200) and ``::_fwd_kernel_s2`` (dwconv.py:380).
-The kernel is memory-bound; see the source's header note for its design.
+(``pallas_call`` at dwconv.py:200), ``::_fwd_kernel_s2`` (dwconv.py:380),
+``::_bwd_kernel`` (dwconv.py:220) and ``::_bwd_kernel_s2`` (dwconv.py:420).
+The kernels are memory-bound; see the source's header note for their
+design.
+
+:func:`dwconv3x3` is a ``torch.autograd.Function``: its forward launches
+the forward kernel and its backward the fused backward kernel, which reads
+``x`` and ``g`` once and gives ``dx`` and the nine ``dw`` taps.  On a CPU
+tensor the same function runs the plain forward and the plain backward.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from tcct_tpu_torch.ops.kernels import build
 
@@ -29,48 +38,146 @@ def dwconv3x3_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> to
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def _tap_views(v: torch.Tensor, a: int, t: int, stride: int, Ho: int, Wo: int) -> torch.Tensor:
+    """Rows a, a+s, ..., columns t, t+s, ... of a tensor padded to cover
+    input rows -1 .. s*(Ho-1)+1: the input pixels that tap (a, t) meets."""
+    return v[:, a:a + stride * (Ho - 1) + 1:stride, t:t + stride * (Wo - 1) + 1:stride]
+
+
+def dwconv3x3_backward_reference(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                                 stride: int = 1):
+    """Plain backward of :func:`dwconv3x3_reference` for the output
+    gradient ``g`` [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in
+    w's dtype)``.  Nine shifted multiply-adds in f32, as the kernel forms
+    them: ``dx`` scatters ``g * w[a, t]`` onto the input pixels of tap
+    (a, t), ``dw[a, t]`` sums ``x * g`` over those pixels."""
+    B, H, W, C = x.shape
+    Ho, Wo = g.shape[1], g.shape[2]
+    Hp, Wp = stride * (Ho - 1) + 3, stride * (Wo - 1) + 3
+    xf, wf, gf = x.float(), w.float(), g.float()
+    xp = F.pad(xf, (0, 0, 1, Wp - W - 1, 1, Hp - H - 1))
+    dxp = xf.new_zeros((B, Hp, Wp, C))
+    dw = xf.new_zeros((3, 3, C))
+    for a in range(3):
+        for t in range(3):
+            _tap_views(dxp, a, t, stride, Ho, Wo).add_(gf * wf[a, t])
+            dw[a, t] = (_tap_views(xp, a, t, stride, Ho, Wo) * gf).sum((0, 1, 2))
+    return dxp[:, 1:H + 1, 1:W + 1].to(x.dtype), dw.to(w.dtype)
+
+
 @functools.cache
-def _fn():
-    """The kernel's C entry point, typed (built and loaded on first use)."""
-    fn = build.load("dwconv3x3").tcct_dwconv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _fn(name: str):
+    """A C entry point of the library, typed (built and loaded on first use)."""
+    lib = build.load("dwconv3x3")
+    fn = getattr(lib, name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "tcct_dwconv3x3_fwd":
+        fn.argtypes = [p, p, p] + [i] * 6 + [p]
+        fn.restype = i
+    elif name == "tcct_dwconv3x3_bwd_parts":
+        fn.argtypes = [p, p, p, p] + [i] * 6
+        fn.restype = ctypes.c_longlong
+    else:  # tcct_dwconv3x3_bwd
+        fn.argtypes = [p] * 6 + [i] * 6 + [p]
+        fn.restype = i
     return fn
 
 
-def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Depthwise 3x3 correlation, SAME zero padding, stride 1 or 2, f32
-    accumulation, no bias: NHWC [B,H,W,C] x [3,3,C] -> [B,Ho,Wo,C].
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: want NHWC float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+    C = x.shape[-1]
+    if tuple(w.shape) != (3, 3, C) or w.dtype != x.dtype or w.device != x.device:
+        raise ValueError(f"{what}: want taps [3,3,{C}] {x.dtype} on {x.device}, got "
+                         f"{tuple(w.shape)} {w.dtype} on {w.device}")
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or the call raises."""
-    if stride not in (1, 2):
-        raise ValueError(f"dwconv3x3: stride must be 1 or 2, got {stride}")
+
+def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return dwconv3x3_reference(x, w, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"dwconv3x3: unsupported device {x.device}")
-    if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError(f"dwconv3x3: want NHWC float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+    _check(x, w, stride, "dwconv3x3")
     B, H, W, C = x.shape
-    if tuple(w.shape) != (3, 3, C) or w.dtype != x.dtype or w.device != x.device:
-        raise ValueError(f"dwconv3x3: want taps [3,3,{C}] {x.dtype} on {x.device}, got "
-                         f"{tuple(w.shape)} {w.dtype} on {w.device}")
     x = x.contiguous()
     w = w.contiguous()
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     y = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    err = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C, stride,
-                _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    err = _fn("tcct_dwconv3x3_fwd")(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C,
+                                    stride, _DTYPES[x.dtype],
+                                    torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"dwconv3x3 {tuple(x.shape)} stride {stride} {x.dtype}")
     dwconv3x3.launches += 1
     dwconv3x3.launches_s2 += stride == 2
     return y
 
 
-# launches of the kernel, all strides / stride 2 only
+def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride: int = 1):
+    """Gradients of :func:`dwconv3x3` for the output gradient ``g``
+    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype)``,
+    ``dw`` summed in f32 in a fixed order and cast once.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the fused
+    backward kernel, or the call raises."""
+    if stride not in (1, 2):
+        raise ValueError(f"dwconv3x3_backward: stride must be 1 or 2, got {stride}")
+    if x.device.type == "cpu":
+        return dwconv3x3_backward_reference(x, w, g, stride)
+    _check(x, w, stride, "dwconv3x3_backward")
+    B, H, W, C = x.shape
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    if tuple(g.shape) != (B, Ho, Wo, C) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"dwconv3x3_backward: want g [{B},{Ho},{Wo},{C}] {x.dtype}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    x, w, g = x.contiguous(), w.contiguous(), g.contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    if x.numel() == 0:
+        return dx, dw.zero_()
+    dt = _DTYPES[x.dtype]
+    ptrs = (x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr())
+    nparts = _fn("tcct_dwconv3x3_bwd_parts")(*ptrs, B, H, W, C, stride, dt)
+    part = torch.empty((nparts, 9, C), dtype=torch.float32, device=x.device)
+    err = _fn("tcct_dwconv3x3_bwd")(*ptrs, dw.data_ptr(), part.data_ptr(), B, H, W, C, stride,
+                                    dt, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"dwconv3x3_backward {tuple(x.shape)} stride {stride} {x.dtype}")
+    dwconv3x3_backward.launches += 1
+    dwconv3x3_backward.launches_s2 += stride == 2
+    return dx, dw
+
+
+class _DWConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return _forward(x, w, stride)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = dwconv3x3_backward(x, w, g, ctx.stride)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
+
+
+def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Depthwise 3x3 correlation, SAME zero padding, stride 1 or 2, f32
+    accumulation, no bias: NHWC [B,H,W,C] x [3,3,C] -> [B,Ho,Wo,C].
+    Differentiable in x and w: the backward is :func:`dwconv3x3_backward`.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels, or the call raises."""
+    if stride not in (1, 2):
+        raise ValueError(f"dwconv3x3: stride must be 1 or 2, got {stride}")
+    return _DWConv3x3.apply(x, w, stride)
+
+
+# launches of the forward / backward kernel, all strides and stride 2 only
 dwconv3x3.launches = 0
 dwconv3x3.launches_s2 = 0
+dwconv3x3_backward.launches = 0
+dwconv3x3_backward.launches_s2 = 0

@@ -35,6 +35,17 @@ def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     return F.max_pool2d(x, window)
 
 
+def _window_sum3x3(v: torch.Tensor) -> torch.Tensor:
+    """3x3 zero-padded window sum over the last two axes, by shifted adds."""
+    p = F.pad(v, (1, 1, 1, 1))  # zeros outside
+    rows = p[:, :-2] + p[:, 1:-1] + p[:, 2:]
+    return rows[..., :-2] + rows[..., 1:-1] + rows[..., 2:]
+
+
+def _token_counts(N: int, C: int, device) -> torch.Tensor:
+    return _axis_counts(N, device)[:, None] * _axis_counts(C, device)[None, :]
+
+
 def metapool_tokens_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain MetaPool on a [B, N, C] token tensor:
     ``AvgPool2d(3, 1, pad=1, count_include_pad=False)(x) - x`` with the
@@ -44,10 +55,16 @@ def metapool_tokens_reference(x: torch.Tensor) -> torch.Tensor:
     dtype once, as the kernel it stands beside does
     (``ops/kernels/metapool.py``): a 3x3 zero-padded window sum by shifted
     adds, divided by the valid count, minus ``x``."""
-    B, N, C = x.shape
+    _, N, C = x.shape
     xf = x.float()
-    p = F.pad(xf, (1, 1, 1, 1))  # [B, N+2, C+2], zeros outside
-    rows = p[:, :-2] + p[:, 1:-1] + p[:, 2:]  # [B, N, C+2]
-    s = rows[..., :-2] + rows[..., 1:-1] + rows[..., 2:]  # [B, N, C]
-    count = _axis_counts(N, x.device)[:, None] * _axis_counts(C, x.device)[None, :]
-    return (s / count - xf).to(x.dtype)
+    return (_window_sum3x3(xf) / _token_counts(N, C, x.device) - xf).to(x.dtype)
+
+
+def metapool_tokens_backward_reference(g: torch.Tensor) -> torch.Tensor:
+    """Plain adjoint of :func:`metapool_tokens_reference` for the output
+    gradient ``g`` [B, N, C]: ``window_sum(g / count) - g``, f32 inside,
+    cast to g's dtype once (the window is symmetric, so the adjoint of
+    the window sum is the window sum)."""
+    _, N, C = g.shape
+    gf = g.float()
+    return (_window_sum3x3(gf / _token_counts(N, C, g.device)) - gf).to(g.dtype)

@@ -1,16 +1,27 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here needs a CUDA card and the CUDA toolkit: without
 them each one skips (``chip_smoke.py`` repeats these checks on the card
-at the serving shapes).  Run on a GPU machine with
-``python -m pytest tests/test_torch_kernels.py -q -m gpu``."""
+at the serving and train shapes).  Run on a GPU machine with
+``python -m pytest --noconftest tests/test_torch_kernels.py -q``."""
 
 import pytest
 import torch
 
 from tcct_tpu_torch.ops.kernels import build
-from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_reference
-from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens
-from tcct_tpu_torch.ops.pool import metapool_tokens_reference
+from tcct_tpu_torch.ops.kernels.bnstats import (
+    bn_act_train,
+    bn_act_train_backward_reference,
+    bn_normalize_reference,
+    bn_stats_reference,
+)
+from tcct_tpu_torch.ops.kernels.dwconv import (
+    dwconv3x3,
+    dwconv3x3_backward,
+    dwconv3x3_backward_reference,
+    dwconv3x3_reference,
+)
+from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
+from tcct_tpu_torch.ops.pool import metapool_tokens_backward_reference, metapool_tokens_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -63,11 +74,146 @@ def test_dwconv_kernel_matches_plain(cuda, shape, stride, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 50, 24), (1, 1, 5), (3, 1000, 160), (8, 1024, 128)])
+def test_metapool_backward_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n = metapool_tokens_backward.launches
+    got = metapool_tokens_backward(gy)
+    torch.cuda.synchronize()
+    assert metapool_tokens_backward.launches == n + 1
+    assert got.dtype == dtype and got.shape == gy.shape
+    _close(got, metapool_tokens_backward_reference(gy), dtype)
+
+
+def _dw_bwd_close(x, w, gy, stride, dtype):
+    """dx as the forward's tolerance; dw within 1e-5 of sum|x*g| per tap
+    (f32 summation order) plus, in bf16, one rounding of dw (2^-7 |dw|),
+    against the plain version run in f32 and cast."""
+    dx, dw = dwconv3x3_backward(x, w, gy, stride)
+    torch.cuda.synchronize()
+    rdx, rdw = dwconv3x3_backward_reference(x, w, gy, stride)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    _close(dx, rdx, dtype)
+    mag = dwconv3x3_backward_reference(x.float().abs(), w.float(), gy.float().abs(), stride)[1]
+    ref32 = dwconv3x3_backward_reference(x.float(), w.float(), gy.float(), stride)[1]
+    err = (dw.float() - ref32).abs()
+    lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * ref32.abs() if dtype == torch.bfloat16 else 0)
+    assert bool((err <= lim).all()), float((err - lim).max())
+    return dx, dw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", [(2, 12, 24, 8), (1, 9, 13, 40), (2, 33, 17, 160),
+                                   (8, 64, 64, 96), (2, 31, 29, 4), (3, 20, 19, 1)])
+def test_dwconv_backward_kernel_matches_plain(cuda, shape, stride, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, shape[-1]), generator=g, device=cuda) / 3).to(dtype)
+    Ho, Wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
+    gy = torch.randn((shape[0], Ho, Wo, shape[3]), generator=g, device=cuda).to(dtype)
+    n, n2 = dwconv3x3_backward.launches, dwconv3x3_backward.launches_s2
+    _, dw = _dw_bwd_close(x, w, gy, stride, dtype)
+    assert dwconv3x3_backward.launches == n + 1
+    assert dwconv3x3_backward.launches_s2 == n2 + (stride == 2)
+    _, dw2 = dwconv3x3_backward(x, w, gy, stride)
+    assert torch.equal(dw, dw2)  # fixed-order reduction: bitwise repeatable
+
+
+def _bn_inputs(cuda, shape, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    C = shape[1]
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.rand(C, generator=g, device=cuda) + 0.5).to(dtype)
+    b = (torch.randn(C, generator=g, device=cuda) * 0.1).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("leaky", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 12, 10), (8, 32, 128, 128), (4, 96, 33, 17),
+                                   (2, 1, 64, 64), (3, 4, 7, 5), (2, 300, 5, 6)])
+def test_bn_train_kernel_matches_plain(cuda, shape, dtype, leaky):
+    """K3: batch mean and var within 1e-5 of E[|t|] and E[t^2] (f32 sums
+    in another order); y equal to the plain normalize given those
+    statistics, to the forward's tolerance; repeated runs bitwise equal."""
+    x, w, b = _bn_inputs(cuda, shape, dtype, 4)
+    n = bn_act_train.launches
+    y, mean, var = bn_act_train(x, w, b, 1e-5, leaky)
+    torch.cuda.synchronize()
+    assert bn_act_train.launches == n + 1
+    assert y.dtype == dtype and mean.dtype == var.dtype == torch.float32
+    rm, rv = bn_stats_reference(x, leaky)
+    t = torch.nn.functional.leaky_relu(x, 0.01) if leaky else x
+    tf = t.float()
+    assert bool(((mean - rm).abs() <= 1e-5 * tf.abs().mean((0, 2, 3)) + 1e-7).all())
+    assert bool(((var - rv).abs() <= 1e-5 * (tf * tf).mean((0, 2, 3)) + 1e-7).all())
+    _close(y, bn_normalize_reference(x, mean, var, w, b, 1e-5, leaky), dtype)
+    y2, mean2, var2 = bn_act_train(x, w, b, 1e-5, leaky)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_backward_on_card_matches_plain(cuda, dtype):
+    """K3's backward (plain analytic adjoint) through autograd on the card
+    equals the plain function called with the kernel's statistics."""
+    x, w, b = _bn_inputs(cuda, (4, 32, 16, 16), dtype, 5)
+    xr = x.detach().requires_grad_()
+    wr, br = w.detach().requires_grad_(), b.detach().requires_grad_()
+    y, mean, var = bn_act_train(xr, wr, br, 1e-5, True)
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad(y, (xr, wr, br), gy)
+    want = bn_act_train_backward_reference(x, w, mean, var, gy, 1e-5, True)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_fn_through_kernels(cuda, dtype):
+    """The wrappers are autograd Functions on the card: their outputs carry
+    a grad_fn, and the gradients match torch autograd through the plain
+    versions, run in f32 (metapool: shifted adds; depthwise: F.conv2d)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, 256, 64), generator=g, device=cuda).to(dtype).requires_grad_()
+    y = metapool_tokens(x)
+    assert y.grad_fn is not None
+    gy = torch.randn_like(y)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    xf = x.detach().float().requires_grad_()
+    (gx_ref,) = torch.autograd.grad(metapool_tokens_reference(xf), xf, gy.float())
+    _close(gx, gx_ref.to(dtype), dtype)
+
+    for stride in (1, 2):
+        x = torch.randn((2, 17, 24, 32), generator=g, device=cuda).to(dtype).requires_grad_()
+        w = (torch.randn((3, 3, 32), generator=g, device=cuda) / 3).to(dtype).requires_grad_()
+        y = dwconv3x3(x, w, stride)
+        assert y.grad_fn is not None
+        gy = torch.randn_like(y)
+        gx, gw = torch.autograd.grad(y, (x, w), gy)
+        xf, wf = x.detach().float().requires_grad_(), w.detach().float().requires_grad_()
+        gx_ref, gw_ref = torch.autograd.grad(dwconv3x3_reference(xf, wf, stride), (xf, wf),
+                                             gy.float())
+        _close(gx, gx_ref.to(dtype), dtype)
+        mag = dwconv3x3_backward_reference(xf.detach().abs(), wf.detach(), gy.float().abs(),
+                                           stride)[1]
+        lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * gw_ref.abs() if dtype == torch.bfloat16 else 0)
+        assert bool(((gw.float() - gw_ref).abs() <= lim).all())
+
+
 def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         metapool_tokens(torch.zeros(2, 4, 4, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         dwconv3x3(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 4, device=cuda))
+    with pytest.raises(ValueError):
+        dwconv3x3_backward(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda),
+                           torch.zeros(1, 3, 4, 8, device=cuda))
+    with pytest.raises(ValueError):
+        bn_act_train(torch.zeros(2, 4, 3, 3, device=cuda, dtype=torch.float16),
+                     torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
 
 
 def test_build_all(cuda):

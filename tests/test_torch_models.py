@@ -61,14 +61,16 @@ def jax_net():
     return net, jax.device_get(v)
 
 
-def test_state_dict_names_match_reference(golden):
+@pytest.mark.parametrize("variant", ["infer", "train"])
+def test_state_dict_names_match_reference(golden, variant):
     """The port's state-dict keys and shapes are the reference torch
-    model's (golden train-parity skeleton, minus the train variant's
-    t321-t324 projections)."""
+    model's (golden train-parity skeleton; the infer variant lacks the
+    train variant's t321-t324 projections)."""
     g = golden("train_parity")
     ref = {k[len("sd0::"):]: g[k].shape for k in g.files if k.startswith("sd0::")}
-    ref = {k: s for k, s in ref.items() if not k.startswith("base.t32")}
-    m = RegNet(get_model("stc_tt", 5), out_channels=5)
+    if variant == "infer":
+        ref = {k: s for k, s in ref.items() if not k.startswith("base.t32")}
+    m = RegNet(get_model("stc_tt", 5, variant=variant), out_channels=5)
     ours = {k: tuple(v.shape) for k, v in m.state_dict().items()}
     assert ours == ref
 
@@ -115,7 +117,12 @@ def test_registry():
     with pytest.raises(KeyError, match="stc_tt"):
         get_model("gtc_tt", 5)
     with pytest.raises(ValueError):
-        get_model("stc_tt", 5, variant="train")
+        get_model("stc_tt", 5, variant="t32")
+    train = get_model("stc_tt", 5, variant="train", drop_path_rate=0.2)
+    assert train.variant == "train" and hasattr(train, "t321")
+    dp = train.base_vit.mhca_stages[3].mhca_blks[0].MHCA_layers[0].drop_path
+    assert dp.rate == pytest.approx(0.2)  # the last block of the linear schedule
+    assert train.base_vit.mhca_stages[0].mhca_blks[0].MHCA_layers[0].drop_path.rate == 0.0
     a = get_model("tcct", 5).state_dict()
     b = get_model("stc_tt", 5).state_dict()
     assert {k: v.shape for k, v in a.items()} == {k: v.shape for k, v in b.items()}
@@ -138,3 +145,34 @@ def test_init_weights_is_seeded():
     assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
     w = a[k]  # He-normal over fan_out: std sqrt(2 / (32 * 3 * 3))
     assert abs(float(w.std()) - (2 / (32 * 9)) ** 0.5) < 0.02
+
+
+def test_from_jax_variables_matches_export_train_tree(golden):
+    """The whole JAX train state (parameters with the t32x projections and
+    the lap_* loss heads, BN statistics, the fcp prototypes) carried across:
+    from_jax_variables == export_torch_state on the golden sd0 skeleton, on
+    every key, and it fills the train variant with nothing left over but
+    what the JAX model never creates."""
+    from tcct_tpu.train.state import create_train_state, make_optimizer
+
+    g = golden("train_parity")
+    sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
+    net = JaxRegNet(base=jax_get_model("stc_tt", 5, variant="train", drop_path_rate=0.0),
+                    out_channels=5)
+    state = create_train_state(net, make_optimizer(1, lr=1e-4), jax.random.PRNGKey(3),
+                               jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 5)))
+    v = jax.device_get(state.variables())
+    want, rep = export_torch_state(v, sd0)
+    ours = from_jax_variables(flatten_variables(v))
+    assert set(ours) == set(rep.filled)
+    for k, t in ours.items():
+        np.testing.assert_array_equal(t.numpy(), want[k], err_msg=k)
+    for k in ("tau", "fcp.buf_grad", "lap_reg.0.weight", "lap_map.1.running_var",
+              "lap_epl.0.weight", "base.t321.weight"):
+        assert k in ours, k
+    assert tuple(ours["lap_reg.1.weight"].shape) == (4, 1, 3, 3)
+    m = RegNet(get_model("stc_tt", 5, variant="train"), out_channels=5)
+    missing, unexpected = load_into(m, ours)
+    assert unexpected == []
+    assert all(any(u in k for u in ("crpe.", "cls_head.", ".fuse.", "num_batches_tracked",
+                                    "fcp.vec_grad", "fcp.cos_dist")) for k in missing), missing
