@@ -14,19 +14,28 @@ toolkit (``nvcc``):
    plain PyTorch version on the card, at every shape the duke serving
    path and the train step give it, in bf16 and in f32 (TF32 off), and
    times kernel, plain version and the one-call PyTorch yardstick on the
-   device (CUDA-graph replay, inputs beyond L2);
+   device (CUDA-graph replay, inputs beyond L2); then the fused CrossCNN
+   block kernel at the five duke levels of ``stc_tt``, the four
+   channel-changing levels of ``gtc_tb``, a plain (k = 3) block and an
+   input smaller than a tile;
 3. serves a 20-scan seeded duke volume through ``load_predictor`` at full
    width (random-init weights, batch 8, bf16) with the launch counts set
    to 0 just before and read just after, checks the class maps (shape,
    dtype, agreement with the f32 predictor) and the f32 model against the
    CPU path on a small input, and times the steady state;
-4. holds the f32 train step on the card against the CPU path on the
+4. serves the same volume with ``cnn_impl='fused'`` (the CNN branch
+   through the fused block kernel), counts read around it, and holds its
+   class maps against the plain path's (f32: at least 99.9 % of pixels);
+   then ``gtc_tb`` (the wide CNN branch, gated fusion) both ways, one
+   batch of every other model of the registry, and one batch of ``stc_tt``
+   in every other dataset bucket, both ways;
+5. holds the f32 train step on the card against the CPU path on the
    golden 64x64 parity case (step-0 gradients, one AdamW step);
-5. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
+6. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
    256x256, seeded random weights and a seeded banded batch) for 5 steps
    with the launch counts read around the first, checks every loss is
    finite, and prints ms/step, peak memory and the profile of a sixth;
-6. prints one JSON line of the kernels, then, as its last line,
+7. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -46,6 +55,7 @@ from collections import Counter
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 
 # kernel vs plain version: |kernel - plain| <= atol + rtol * |plain|
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}  # (atol, rtol)
@@ -471,10 +481,12 @@ def bench_kernels(report, tables):
 def _counted():
     """(row name, wrapper, attribute) of every launch count."""
     from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
+    from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
     from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_backward
     from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
 
-    return [("metapool_tokens", metapool_tokens, "launches"),
+    return [("fused_cross_block", fused_cross_block, "launches"),
+            ("metapool_tokens", metapool_tokens, "launches"),
             ("dwconv3x3", dwconv3x3, "launches"), ("dwconv3x3_s2", dwconv3x3, "launches_s2"),
             ("metapool_tokens_backward", metapool_tokens_backward, "launches"),
             ("dwconv3x3_backward", dwconv3x3_backward, "launches"),
@@ -498,6 +510,7 @@ def read_counters():
         "dwconv3x3_backward_s1": raw["dwconv3x3_backward"] - raw["dwconv3x3_backward_s2"],
         "dwconv3x3_backward_s2": raw["dwconv3x3_backward_s2"],
         "bn_act_train": raw["bn_act_train"],
+        "fused_cross_block": raw["fused_cross_block"],
     }
 
 
@@ -515,23 +528,13 @@ def drive_slice(report, card):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # the main path, with the launch counts read around it
-    reset_counters()
-    seg = pred.predict_scans(vol)
-    torch.cuda.synchronize()
-    counts = read_counters()
-    n_batches = math.ceil(N_SCANS / BATCH)
-    print(f"slice: launches over {n_batches} batches: {counts}", flush=True)
-    for k, n in counts.items():
-        want = n_batches * report["per_batch_launches"].get(k, 0)
-        if n != want:
-            fail(f"kernel {k}: {n} launches on the serving path, expected {want}")
+    seg, counts = serve_checked(pred, vol, "slice")
+    print(f"slice: launches over {math.ceil(N_SCANS / BATCH)} batches: {counts}", flush=True)
     for e in report["kernels"]:
         if e["name"] in report["per_batch_launches"]:
+            if counts[e["name"]] == 0:
+                fail(f"kernel {e['name']} was not launched on the serving path")
             e["launches"] = counts[e["name"]]
-    if seg.shape != (N_SCANS, H, W) or seg.dtype != np.uint8:
-        fail(f"class map {seg.shape} {seg.dtype}, want {(N_SCANS, H, W)} uint8")
-    if int(seg.max()) >= pred.geo.out_channels:
-        fail(f"class index {int(seg.max())} out of range")
 
     # the f32 predictor on the same weights (TF32 off)
     pred32 = load_predictor(DB, batch_size=BATCH, dtype=torch.float32, device="cuda", seed=SEED)
@@ -540,23 +543,11 @@ def drive_slice(report, card):
     print(f"slice: bf16 vs f32 class-map agreement {agree:.6f} (threshold 0.9)", flush=True)
     if agree <= 0.9:
         fail(f"bf16 vs f32 agreement {agree}")
+    plain = {"pred": pred, "vol": vol, "seg": seg, "seg32": seg32, "agree": agree}
 
     # the f32 model on the card against the CPU path (plain versions), small input
-    model = pred32.model
-    x = torch.from_numpy(np.random.default_rng(SEED + 1).random((2, 64, 128, 3), np.float32))
-    with torch.inference_mode():
-        got = [y.cpu() for y in model(x.cuda())]
-    model.to("cpu")
-    with torch.inference_mode():
-        ref = model(x)
-    for i, (g, r) in enumerate(zip(got, ref)):
-        err = float((g - r).abs().max())
-        scale = float(r.abs().max())
-        print(f"slice: f32 head {i} card vs CPU max abs err {err:.3e} (logit scale {scale:.1f})",
-              flush=True)
-        if not err <= 1e-3 + 1e-5 * scale:
-            fail(f"head {i}: card vs CPU max abs err {err}")
-    del pred32, model
+    check_card_vs_cpu(pred32, "slice")
+    del pred32
 
     # steady state, bf16: whole-volume throughput and one batch
     for _ in range(2):
@@ -580,11 +571,400 @@ def drive_slice(report, card):
           f"one batch of {BATCH} {batch_ms:.3f} ms ({BATCH / batch_ms * 1e3:.1f} B-scans/s), "
           f"{graph_ms:.3f} ms replayed as one CUDA graph; "
           f"peak device memory {peak:.2f} GiB", flush=True)
-    profile_device(lambda: pred._forward(xb), batch_ms, "one bf16 batch")
+    plain["groups"] = profile_device(lambda: pred._forward(xb), batch_ms, "one bf16 batch")
+    plain.update(batch_ms=batch_ms, graph_ms=graph_ms)
+    return plain
+
+
+# --- the fused CrossCNN block kernel (K4) ------------------------------------------
+
+# (what, x shape [B,H,W,Cin], Cout, k, plain, launches per stc_tt duke serving batch)
+K4_SHAPES = [
+    ("stc_tt duke level 0", (8, 256, 576, 32), 32, 13, False, 1),
+    ("stc_tt duke level 1", (8, 128, 288, 32), 32, 11, False, 1),
+    ("stc_tt duke level 2", (8, 64, 144, 32), 32, 9, False, 1),
+    ("stc_tt duke level 3", (8, 32, 72, 32), 32, 7, False, 1),
+    ("stc_tt duke level 4", (8, 16, 36, 32), 32, 5, False, 1),
+    ("gtc_tb duke level 1", (8, 128, 288, 32), 64, 11, False, 0),
+    ("gtc_tb duke level 2", (8, 64, 144, 64), 96, 9, False, 0),
+    ("gtc_tb duke level 3", (8, 32, 72, 96), 128, 7, False, 0),
+    ("gtc_tb duke level 4", (8, 16, 36, 128), 256, 5, False, 0),
+    ("plain block (k = 3)", (8, 64, 144, 32), 32, 9, True, 0),
+    ("smaller than a tile", (8, 4, 8, 32), 32, 5, False, 0),
+]
+K4_ITERS = 4
+
+
+def check_fused_block(name, got, want, truth, dn):
+    """The kernel against its plain version, and both against the same chain
+    summed in f64 (``truth``, on the first batch element).
+
+    Both versions round the same chain at the same places and differ in the
+    order of their f32 sums; the bounds scale with the plain output's rms (5
+    to 12 with these seeded blocks, elements up to 290).
+    f32: |kernel - plain| <= 1e-4 rms + 1e-4 |plain| (1e-4 + 1e-4 rel at unit
+    scale): the summation-order error of six chained convs.
+    bf16: where the two f32 sums of an intermediate straddle a bf16 rounding
+    boundary the intermediate differs by one bf16 ulp, and up to three more
+    convs and a BatchNorm scale carry that to a few outputs.  So every
+    element is held to 2^-7 |plain| + 2^-3 rms, all but 2 + 2^-19 of them
+    (about two in a million; seen: at most 6 of 37.7 million) to
+    2^-6 |plain| + 2^-5 rms, and the mean error to 2^-11 rms (seen: at most
+    2^-12.2 rms).
+    Either type: the kernel is no further from the f64 chain than the plain
+    version is, at most (twice its distance plus 1e-6, in bf16 2^-9, of the
+    largest element) and on average (1.25 times its mean distance; seen: at
+    most 1.05 times)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{name}: non-finite output")
+    err = (g - w).abs()
+    rms = float(w.pow(2).mean().sqrt().clamp_min(1.0))
+    n_out = 0
+    if dn == "float32":
+        lim = 1e-4 * rms + 1e-4 * w.abs()
+    else:
+        lim = 2.0 ** -7 * w.abs() + 2.0 ** -3 * rms
+        n_out = int((err > 2.0 ** -6 * w.abs() + 2.0 ** -5 * rms).sum())
+        if n_out > 2 + err.numel() * 2.0 ** -19:
+            fail(f"{name}: {n_out} of {err.numel()} elements outside the narrow bound")
+        if float(err.mean()) > 2.0 ** -11 * rms:
+            fail(f"{name}: mean abs err {float(err.mean()):.3e} at plain rms {rms:.2f}")
+    if bool((err > lim).any()):
+        fail(f"{name}: {int((err > lim).sum())} elements outside their bound, max abs err "
+             f"{float(err.max()):.3e}, max excess {float((err - lim).max()):.3e}")
+    n = truth.shape[0]
+    d_k, d_p = (got[:n].double() - truth).abs(), (want[:n].double() - truth).abs()
+    e_k, e_p = float(d_k.max()), float(d_p.max())
+    slack = (1e-6 if dn == "float32" else 2.0 ** -9) * float(truth.abs().max())
+    if e_k > 2 * e_p + slack:
+        fail(f"{name}: kernel {e_k:.3e} from the f64 chain, plain version {e_p:.3e}")
+    m_k, m_p = float(d_k.mean()), float(d_p.mean())
+    if m_k > 1.25 * m_p:
+        fail(f"{name}: kernel on average {m_k:.3e} from the f64 chain, plain version {m_p:.3e}")
+    return float(err.max()), float(err.mean()), rms, n_out, (e_k, e_p, m_k, m_p)
+
+
+def bench_fused_block(report, card):
+    """K4 against its plain version on the card, bf16 (tensor cores) and f32
+    (CUDA cores, TF32 off), at the shapes of K4_SHAPES, and per launch by
+    CUDA-graph replay on inputs beyond L2: kernel, plain version, and the
+    module path's block (``CrossCNNBlock.forward``: cuDNN convs and
+    elementwise passes) for orientation.  No single PyTorch call computes
+    the block, so there is no library column.  Bound: the larger of bytes (x
+    read, y written, the weights once) over 3.35 TB/s and operations (no
+    halo recompute) over the card's dense bf16 tensor-core rate for bf16
+    inputs, the f32 FMA rate for f32.  The row's totals are one ``stc_tt``
+    duke bf16 serving batch."""
+    import torch
+
+    from tcct_tpu_torch.models.crosscnn import seeded_cross_block
+    from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
+        fused_cross_block,
+        fused_cross_block_reference,
+        fused_tile,
+    )
+
+    print(f"fused CrossCNN block kernel vs its plain version [{card}]:", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    tot = Counter()
+    max_err = 0.0
+    with torch.inference_mode():
+        for i, (what, shape, cout, k, plain, n_serve) in enumerate(K4_SHAPES):
+            B, H, W, cin = shape
+            kk = 3 if plain else k
+            macs = 9 * cin * cout + 3 * 9 * cout * cout + kk * cin * cout + kk * cout * cout
+            flops = 2 * B * H * W * macs
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                blk = seeded_cross_block(cin, cout, k, SEED + 10 + i, plain).to("cuda", dtype)
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                label = f"fused_cross_block {list(shape)} -> {cout} k {kk} {dn}"
+                th, tw, smem = fused_tile(B, H, W, cin, cout, kk, dtype)
+                got = fused_cross_block(x, blk)
+                torch.cuda.synchronize()
+                want = fused_cross_block_reference(x, blk)
+                truth = fused_cross_block_reference(x[:1], blk, acc=torch.float64)
+                err, mean_err, rms, n_out, (e_k, e_p, m_k, m_p) = check_fused_block(
+                    label, got, want, truth, dn)
+                del got, want, truth
+                max_err = max(max_err, err)
+                nbytes = (x.numel() + B * H * W * cout + macs) * x.element_size()
+                copies = [(x.clone(),) for _ in range(n_copies(x.numel() * x.element_size()))]
+                t_k = device_ms(lambda t: fused_cross_block(t, blk), copies, K4_ITERS)
+                t_p = device_ms(lambda t: fused_cross_block_reference(t, blk), copies, K4_ITERS)
+                t_m = device_ms(lambda t: blk(t.permute(0, 3, 1, 2)), copies, K4_ITERS)
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+                b_ops = flops / rate * 1e3
+                bound = max(b_bytes, b_ops)
+                print(f"  {what}: {label}{' x1/batch' if n_serve else ''}: tile {th}x{tw} "
+                      f"({smem} B shared), max_abs_err {err:.3e} (mean {mean_err:.3e}, plain rms "
+                      f"{rms:.2f}, {n_out} outside the narrow bound; from the f64 chain: kernel max {e_k:.3e} mean {m_k:.3e}, plain "
+                      f"max {e_p:.3e} mean {m_p:.3e}), "
+                      f"kernel {t_k:.3f} ms = {flops / t_k / 1e9:.1f} TFLOP/s, plain {t_p:.3f} ms, "
+                      f"module path {t_m:.3f} ms, bound {bound * 1e3:.1f} us "
+                      f"({'bytes' if b_bytes >= b_ops else 'operations'} at "
+                      f"{rate / 1e12:.0f} TFLOP/s), {bound / t_k * 100:.1f}% of it", flush=True)
+                if dtype == torch.bfloat16:
+                    tot["ms"] += n_serve * t_k
+                    tot["plain_ms"] += n_serve * t_p
+                    tot["module_ms"] += n_serve * t_m
+                    tot["bound_ms"] += n_serve * bound
+                    tot["bytes_ms"] += n_serve * b_bytes
+                    tot["ops_ms"] += n_serve * b_ops
+                del copies, x, blk
+    report["kernels"].append({
+        "name": "fused_cross_block", "route": "cuda",
+        "source": "tcct_tpu_torch/csrc/crosscnn_fused.cu",
+        "replaces": "attic/crosscnn_fused.py:237", "launches": 0, "max_abs_err": max_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        "library_ms": None, "module_ms": tot["module_ms"],
+    })
+
+
+def expected_launches(model, batch: int, hw, fused: bool):
+    """Launches per serving batch of each kernel, from the model's config."""
+    base = model.base
+    mp, s1, s2 = path_shapes(base.vit_cfg, batch, hw) if base.flag_vit else ({}, {}, {})
+    return {"metapool_tokens": sum(mp.values()), "dwconv3x3_s1": sum(s1.values()),
+            "dwconv3x3_s2": sum(s2.values()), "fused_cross_block": 5 if fused else 0}
+
+
+def serve_checked(pred, vol, what: str):
+    """``pred.predict_scans(vol)`` with the launch counts set to 0 just
+    before and read just after; fails unless every count is the config's
+    and the class maps have the right shape, dtype and range."""
+    import numpy as np
+    import torch
+
+    H, W = pred.geo.prep_hw
+    reset_counters()
+    seg = pred.predict_scans(vol)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    n_batches = math.ceil(len(vol) / pred.batch_size)
+    want = expected_launches(pred.model, pred.batch_size, (H, W), pred.cnn_impl == "fused")
+    for k, n in counts.items():
+        if n != n_batches * want.get(k, 0):
+            fail(f"{what}: kernel {k}: {n} launches over {n_batches} batches, expected "
+                 f"{n_batches * want.get(k, 0)}")
+    if seg.shape != (len(vol), H, W) or seg.dtype != np.uint8:
+        fail(f"{what}: class map {seg.shape} {seg.dtype}, want {(len(vol), H, W)} uint8")
+    if int(seg.max()) >= pred.geo.out_channels:
+        fail(f"{what}: class index {int(seg.max())} out of range")
+    return seg, counts
+
+
+def held_agreement(what: str, a, b, threshold: float) -> float:
+    agree = float((a == b).mean())
+    print(f"{what}: class maps agree on {agree:.6f} of pixels (threshold {threshold})", flush=True)
+    if agree < threshold:
+        fail(f"{what}: agreement {agree} below {threshold}")
+    return agree
+
+
+def batch_times(pred, xb, iters: int = 10):
+    """(eager ms, CUDA-graph replay ms, peak GiB) of one batch."""
+    import torch
+
+    eager = time_ms(pred._forward, [(xb,)], iters=iters)
+    graph = device_ms(pred._forward, [(xb,)], iters=iters)
+    torch.cuda.reset_peak_memory_stats()
+    pred._forward(xb)
+    torch.cuda.synchronize()
+    return eager, graph, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_card_vs_cpu(pred32, what: str) -> None:
+    """The f32 model of ``pred32`` on the card (kernels) against the CPU
+    path (plain versions) on a small seeded input: every head within
+    1e-3 + 1e-5 * (logit scale).  Leaves the model on the CPU."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
+
+    model = pred32.model
+    fused = pred32.cnn_impl == "fused"
+    x = torch.from_numpy(np.random.default_rng(SEED + 1).random((2, 64, 128, 3), np.float32))
+
+    def run(t):
+        with torch.inference_mode():
+            kw = {"cnn_feats": cross_resnet_fused(t, model.base.base_cnn)} if fused else {}
+            return [y.cpu() for y in model(t, **kw)]
+
+    got = run(x.cuda())
+    model.to("cpu")
+    ref = run(x)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        print(f"{what}: f32 head {i} card vs CPU max abs err {err:.3e} (logit scale {scale:.1f})",
+              flush=True)
+        if not err <= 1e-3 + 1e-5 * scale:
+            fail(f"{what}: head {i}: card vs CPU max abs err {err}")
+
+
+def drive_fused(report, card, plain):
+    """The fused path at full width: ``load_predictor(duke, net='stc_tt',
+    cnn_impl='fused')``, bf16, batch 8, the 20-scan volume of the plain
+    path, with the launch counts read around it; its class maps against the
+    plain predictor's on the same weights; one batch eager and replayed,
+    against the plain path's in the same run."""
+    import torch
+
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    vol = plain["vol"]
+    kw = dict(net="stc_tt", batch_size=BATCH, device="cuda", seed=SEED)
+    pred = load_predictor(DB, cnn_impl="fused", dtype=torch.bfloat16, **kw)
+    seg, counts = serve_checked(pred, vol, "fused slice")  # the main path of this slice
+    n_batches = math.ceil(N_SCANS / BATCH)
+    print(f"fused slice: launches over {n_batches} batches: {counts}", flush=True)
+    for e in report["kernels"]:
+        if e["name"] == "fused_cross_block":
+            e["launches"] = counts["fused_cross_block"]
+    if counts["fused_cross_block"] != 5 * n_batches:
+        fail(f"fused slice: {counts['fused_cross_block']} K4 launches, expected {5 * n_batches}")
+
+    pred32 = load_predictor(DB, cnn_impl="fused", dtype=torch.float32, **kw)
+    seg32 = pred32.predict_scans(vol)
+    held_agreement("fused slice: f32 fused vs f32 plain", seg32, plain["seg32"], 0.999)
+    a = held_agreement("fused slice: bf16 fused vs f32 plain", seg, plain["seg32"], 0.9)
+    print(f"fused slice: bf16 plain vs f32 plain was {plain['agree']:.6f}; bf16 fused vs bf16 "
+          f"plain {float((seg == plain['seg']).mean()):.6f}; difference of the two bf16 "
+          f"agreements {a - plain['agree']:+.6f}", flush=True)
+    check_card_vs_cpu(pred32, "fused slice")
+    del pred32
+
+    xb = torch.from_numpy(vol[:BATCH]).cuda()
+    for _ in range(2):
+        pred.predict_scans(vol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pred.predict_scans(vol)
+    torch.cuda.synchronize()
+    vol_s = (time.perf_counter() - t0) / 3
+    eager, graph, peak = batch_times(pred, xb, 20)
+    p_eager, p_graph, _ = batch_times(plain["pred"], xb, 20)
+    print(f"fused slice [{card}]: {N_SCANS}-scan volume {vol_s * 1e3:.2f} ms "
+          f"({N_SCANS / vol_s:.1f} B-scans/s); one batch of {BATCH}: fused {eager:.3f} ms eager, "
+          f"{graph:.3f} ms replayed as one CUDA graph ({BATCH / graph * 1e3:.1f} B-scans/s); "
+          f"plain, same run {p_eager:.3f} ms eager, {p_graph:.3f} ms replayed; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    profile_device(lambda: pred._forward(xb), eager, "one bf16 batch, cnn_impl='fused'")
+
+    # the CNN branch alone, module path, on the same batch: its device time
+    # and its share of the plain path's elementwise time
+    cnn = plain["pred"].model.base.base_cnn
+    x = (xb.to(torch.bfloat16) / 255.0).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        cnn_ms = device_ms(cnn, [(x,)], iters=20)
+        groups = profile_device(lambda: cnn(x), cnn_ms,
+                                "CrossResNet.forward alone, module path, bf16")
+    ew = "elementwise and copies"
+    if groups and plain["groups"].get(ew):
+        print(f"fused slice: CrossResNet.forward, module path: {cnn_ms:.3f} ms replayed; its "
+              f"elementwise passes {groups.get(ew, 0.0):.3f} ms = "
+              f"{groups.get(ew, 0.0) / plain['groups'][ew] * 100:.1f}% of the plain batch's "
+              f"{plain['groups'][ew]:.3f} ms", flush=True)
+
+
+def drive_both_ways(net: str, card):
+    """One model at full width on duke, bf16, one 20-scan volume, with the
+    CNN branch plain and fused: launch counts, class maps, agreement of the
+    f32 maps (fused vs plain, at least 99.9 %) and of the bf16 maps with
+    them (above 90 %), the f32 model against the CPU path both ways, ms per
+    batch."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    H, W = get_geometry(DB).prep_hw
+    vol = np.random.default_rng(SEED).integers(0, 256, (N_SCANS, H, W, 3), dtype=np.uint8)
+    xb = torch.from_numpy(vol[:BATCH]).cuda()
+    segs = {}
+    for impl in ("plain", "fused"):
+        kw = dict(net=net, cnn_impl=impl, batch_size=BATCH, device="cuda", seed=SEED)
+        pred = load_predictor(DB, dtype=torch.bfloat16, **kw)
+        segs[impl, "bf16"], counts = serve_checked(pred, vol, f"{net} {impl}")
+        eager, graph, peak = batch_times(pred, xb)
+        print(f"{net} {impl} [{card}]: launches over {math.ceil(N_SCANS / BATCH)} batches "
+              f"{counts}; one bf16 batch of {BATCH}: {eager:.3f} ms eager, {graph:.3f} ms "
+              f"replayed ({BATCH / graph * 1e3:.1f} B-scans/s), peak {peak:.2f} GiB", flush=True)
+        del pred
+        pred32 = load_predictor(DB, dtype=torch.float32, **kw)
+        segs[impl, "f32"] = pred32.predict_scans(vol)
+        check_card_vs_cpu(pred32, f"{net} {impl}")
+        del pred32
+    held_agreement(f"{net}: f32 fused vs f32 plain", segs["fused", "f32"], segs["plain", "f32"],
+                   0.999)
+    for impl in ("plain", "fused"):
+        held_agreement(f"{net}: bf16 {impl} vs f32 plain", segs[impl, "bf16"],
+                       segs["plain", "f32"], 0.9)
+
+
+def drive_zoo(card):
+    """One bf16 batch of every other model of the registry on duke, module
+    path: shape, dtype, class range, launch counts from the config, ms."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    H, W = get_geometry(DB).prep_hw
+    vol = np.random.default_rng(SEED).integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    xb = torch.from_numpy(vol).cuda()
+    for net in ("stc_tb", "stc_st", "stc_sb", "gtc_tt", "cnnu", "pnnu", "vitu"):
+        pred = load_predictor(DB, net=net, batch_size=BATCH, dtype=torch.bfloat16,
+                              device="cuda", seed=SEED)
+        seg, counts = serve_checked(pred, vol, net)
+        eager, graph, peak = batch_times(pred, xb, 5)
+        n_par = sum(p.numel() for p in pred.model.parameters()) / 1e6
+        print(f"zoo [{card}]: {net} ({n_par:.2f} M parameters) duke bf16 batch {BATCH}: classes "
+              f"{np.unique(seg).tolist()}, launches {counts}, {eager:.3f} ms eager, {graph:.3f} ms "
+              f"replayed ({BATCH / graph * 1e3:.1f} B-scans/s), peak {peak:.2f} GiB", flush=True)
+        del pred
+
+
+def drive_buckets(card):
+    """One bf16 batch of stc_tt in every other dataset bucket, CNN branch
+    plain and fused: the same checks; the two bf16 class maps agree on more
+    than 90 % of pixels (they differ by bf16 roundings); ms per batch."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    for db in ("heg", "duke2", "hcms", "goals", "odsgh"):
+        H, W = get_geometry(db).prep_hw
+        vol = np.random.default_rng(SEED).integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+        xb = torch.from_numpy(vol).cuda()
+        segs, line = {}, []
+        for impl in ("plain", "fused"):
+            pred = load_predictor(db, cnn_impl=impl, batch_size=BATCH, dtype=torch.bfloat16,
+                                  device="cuda", seed=SEED)
+            segs[impl], counts = serve_checked(pred, vol, f"{db} {impl}")
+            eager, graph, peak = batch_times(pred, xb, 5)
+            line.append(f"{impl}: launches {counts}, {eager:.3f} ms eager, {graph:.3f} ms "
+                        f"replayed ({BATCH / graph * 1e3:.1f} B-scans/s), peak {peak:.2f} GiB")
+            del pred
+        print(f"bucket [{card}]: {db} {H}x{W} stc_tt bf16 batch {BATCH}: " + "; ".join(line),
+              flush=True)
+        held_agreement(f"bucket {db}: bf16 fused vs bf16 plain", segs["fused"], segs["plain"], 0.9)
 
 
 # kernel-name substrings -> the port's layer that launched them (first match)
 _GROUPS = (
+    ("fused CrossCNN block kernel (K4)", ("crosscnn_fused",)),
     ("metapool kernels (K1, K1b)", ("metapool_kernel",)),
     ("dwconv3x3 kernels (K2, K2b)", ("dwconv3x3_fwd_kernel", "dwconv3x3_bwd_kernel",
                                      "dw_finalize_kernel")),
@@ -603,10 +983,10 @@ _GROUPS = (
 )
 
 
-def profile_device(fn, wall_ms: float, what: str) -> None:
+def profile_device(fn, wall_ms: float, what: str):
     """Device time of one call of ``fn`` by kernel, grouped by layer, and the
     device's busy share of ``wall_ms``, the call's time without the
-    profiler."""
+    profiler.  Returns the ms by group (empty if none was recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -626,7 +1006,7 @@ def profile_device(fn, wall_ms: float, what: str) -> None:
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"profile: {what}: no device time recorded (not measured)", flush=True)
-        return
+        return {}
     groups = Counter()
     launches = Counter()
     for t, n, key in rows:
@@ -642,6 +1022,7 @@ def profile_device(fn, wall_ms: float, what: str) -> None:
     print("profile: top kernels:", flush=True)
     for t, n, key in sorted(rows, reverse=True)[:12]:
         print(f"  {t:8.3f} ms {t / busy * 100:5.1f}%  x{n:<5d} {key[:100]}", flush=True)
+    return dict(groups)
 
 
 def banded_batch(n: int, hw, n_class: int, seed: int):
@@ -712,15 +1093,16 @@ def drive_train(report, card, train_counts):
             fail(f"train step {i}: non-finite loss {vals}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train: launches in one step: {counts}", flush=True)
-    for k, n in counts.items():
-        if n == 0:
+    for k, want in train_counts.items():
+        if counts[k] == 0:
             fail(f"kernel {k} was not launched on the train path")
-        if n != train_counts[k]:
-            fail(f"kernel {k}: {n} launches in one train step, expected {train_counts[k]}")
+    for k, n in counts.items():  # the inference-only fused block kernel: 0
+        if n != train_counts.get(k, 0):
+            fail(f"kernel {k}: {n} launches in one train step, expected {train_counts.get(k, 0)}")
     for e in report["kernels"]:
         if e["name"] in report["per_batch_launches"]:
             e["train_launches"] = counts[e["name"]]
-        else:
+        elif e["name"] in train_counts:
             e["launches"] = counts[e["name"]]
     steady = float(np.mean(times[2:]))
     print(f"train [{card}]: bf16 batch {TRAIN_BATCH} at {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
@@ -892,7 +1274,13 @@ def main() -> int:
           f"train-step shapes (batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:",
           flush=True)
     bench_kernels(report, kernel_tables(serve, train))
-    drive_slice(report, card)
+    bench_fused_block(report, card)
+    plain = drive_slice(report, card)
+    drive_fused(report, card, plain)
+    del plain
+    drive_both_ways("gtc_tb", card)
+    drive_zoo(card)
+    drive_buckets(card)
     check_train_f32_card_vs_cpu()
     drive_train(report, card, train_counts)
 

@@ -121,12 +121,29 @@ def load_reference_pt(path: str) -> Dict[str, torch.Tensor]:
             if not any(p in k for p in _SKIP_PATTERNS)}
 
 
+# never read by any forward: the CRPE convs and the classifier of the MetaPool
+# MPViT, BatchNorm's step counter
+_NEVER_RUN = ("crpe.", "cls_head.", "num_batches_tracked")
+# the RegNet wrapper's loss heads: the serving forward does not read them
+_LOSS_HEADS = ("lap_", "fcp.", "tau")
+
+
 def load_into(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> Tuple[list, list]:
     """``load_state_dict(strict=False)`` that raises if a tensor the
-    forward pass reads was left out.  Returns (missing, unexpected)."""
+    forward pass reads was left out.  Returns (missing, unexpected).
+
+    What the forward reads follows the model's flags
+    (``FTC.unused_prefixes``): a ``cnnu`` may come without its ViT branch
+    and a ``vitu`` without its CNN projections, as the JAX package's
+    variables do, while a model that runs both branches may not."""
     res = model.load_state_dict(state, strict=False)
-    unused = ("crpe.", "cls_head.", "lap_", "fcp.", "tau", "num_batches_tracked", ".fuse.")
-    needed = [k for k in res.missing_keys if not any(u in k for u in unused)]
+    base = getattr(model, "base", model)
+    prefix = "base." if base is not model else ""
+    unused = tuple(prefix + p for p in getattr(base, "unused_prefixes", tuple)())
+    if base is not model:
+        unused += _LOSS_HEADS
+    needed = [k for k in res.missing_keys
+              if not k.startswith(unused) and not any(u in k for u in _NEVER_RUN)]
     if needed:
         raise KeyError(f"weights missing for the forward pass: {needed[:8]}")
     return res.missing_keys, res.unexpected_keys

@@ -6,6 +6,11 @@ OCT volumes stream through it in fixed-size batches, the tail batch
 padded with zeros.  uint8 B-scans go to the device and are normalised
 there in the serving dtype (bf16 by default); a uint8 class map (argmax
 of the main head) comes back.
+
+``cnn_impl`` chooses the CNN branch of an FTC model: ``'plain'``, the
+module path (cuDNN convs), or ``'fused'``, one launch of the fused block
+kernel per CrossCNN block (``ops/kernels/crosscnn_fused.py``).  The JAX
+predictor's ``'packed'`` is the TPU's lane layout and has no counterpart.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from tcct_tpu_torch.data.eyeset import postprocess
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
+from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
 
 
 class VolumePredictor:
@@ -26,7 +32,17 @@ class VolumePredictor:
     BN statistics alike, as the JAX predictor's ``cast_floating`` does)."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain"):
+        if cnn_impl == "packed":
+            raise ValueError("cnn_impl='packed' is the JAX package's space-to-depth layout for "
+                             "the TPU's lane width; this package has 'plain' and 'fused'")
+        if cnn_impl not in ("plain", "fused"):
+            raise ValueError(f"unknown cnn_impl {cnn_impl!r}; have 'plain' and 'fused'")
+        base = getattr(model, "base", model)
+        if cnn_impl == "fused" and not hasattr(getattr(base, "base_cnn", None), "path_estan"):
+            raise ValueError(f"cnn_impl='fused': {type(base).__name__} has no CrossCNN blocks "
+                             "to fuse")
+        self.cnn_impl = cnn_impl
         self.device = torch.device(device)
         if self.device.type == "cuda" and dtype == torch.float32:
             # f32 means f32: cuDNN's default TF32 convs drift by ~1e-3
@@ -41,7 +57,11 @@ class VolumePredictor:
     @torch.inference_mode()
     def _forward(self, x_u8: torch.Tensor) -> torch.Tensor:
         x = x_u8.to(self.dtype) / 255.0
-        logits = self.model(x)[0]
+        if self.cnn_impl == "fused":
+            base = getattr(self.model, "base", self.model)
+            logits = self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
+        else:
+            logits = self.model(x)[0]
         return torch.argmax(logits, dim=-1).to(torch.uint8)
 
     def predict_scans(self, imgs_u8: np.ndarray) -> np.ndarray:
@@ -73,21 +93,24 @@ class VolumePredictor:
         return segs
 
 
-def load_predictor(db: str, pt_path: Optional[str] = None, batch_size: int = 8,
-                   dtype: torch.dtype = torch.bfloat16, device="cuda",
+def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",
+                   variant: str = "infer", batch_size: int = 8, cnn_impl: str = "plain",
+                   mixer: str = "metapool", dtype: torch.dtype = torch.bfloat16, device="cuda",
                    seed: int = 0) -> VolumePredictor:
-    """Predictor for dataset ``db`` running ``RegNet(stc_tt, infer)``:
+    """Predictor for dataset ``db`` running ``RegNet(net, variant)``:
     weights from a reference ``.pt`` file, or seeded random-init weights
-    when ``pt_path`` is None."""
+    when ``pt_path`` is None.  ``net`` is a registry name
+    (``models/registry.py``); ``cnn_impl`` is ``'plain'`` or ``'fused'``."""
     from tcct_tpu_torch.infer.importer import load_into, load_reference_pt
     from tcct_tpu_torch.models import RegNet, get_model
     from tcct_tpu_torch.models.layers import init_weights
 
     geo = get_geometry(db)
-    model = RegNet(get_model("stc_tt", geo.out_channels, variant="infer"),
+    model = RegNet(get_model(net, geo.out_channels, variant=variant, mixer=mixer),
                    out_channels=geo.out_channels)
     if pt_path:
         load_into(model, load_reference_pt(pt_path))
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
-    return VolumePredictor(model, geo, batch_size=batch_size, dtype=dtype, device=device)
+    return VolumePredictor(model, geo, batch_size=batch_size, dtype=dtype, device=device,
+                           cnn_impl=cnn_impl)

@@ -14,13 +14,22 @@ These are dense convs (no depthwise 3x3), so they run ``F.conv2d``.  The
 JAX package's space-to-depth packing of this branch
 (``tcct_tpu/ops/packed_conv.py``) exists for the TPU's lane width and is
 an exact rewrite of this plain form; it is not reproduced.
+
+:func:`cross_resnet_fused` (eval mode only) is the same pyramid with every
+block as one launch of the fused block kernel
+(``ops/kernels/crosscnn_fused.py``); the FTC models take its maps through
+``cnn_feats=``.
 """
 
 from __future__ import annotations
 
+from typing import List
+
+import torch
 import torch.nn as nn
 
-from tcct_tpu_torch.models.layers import BatchNorm2d, conv2d, gelu
+from tcct_tpu_torch.models.layers import BatchNorm2d, conv2d, gelu, init_weights
+from tcct_tpu_torch.ops.kernels.crosscnn_fused import fold_bn, fused_cross_block
 from tcct_tpu_torch.ops.pool import max_pool_2d
 
 
@@ -38,11 +47,12 @@ def _convs_act_bn(seq: nn.Sequential, x):
 
 
 class CrossCNNBlock(nn.Module):
-    """Parallel {3x3,3x3} + {1xk,kx1,3x3} paths (reference tcct.py:803-828)."""
+    """Parallel {3x3,3x3} + {1xk,kx1,3x3} paths (reference tcct.py:803-828).
+    ``plain=True`` forces k = 3 (the PlainCNNBlock ablation, tcct.py:830-855)."""
 
-    def __init__(self, cin, cout, ksize=9):
+    def __init__(self, cin, cout, ksize=9, plain: bool = False):
         super().__init__()
-        k = ksize
+        k = 3 if plain else ksize
         self.block12 = nn.Sequential(
             conv2d(cin, cout, 3, 1, 1), conv2d(cout, cout, 3, 1, 1), _lrelu(), BatchNorm2d(cout)
         )
@@ -63,16 +73,18 @@ class CrossCNNBlock(nn.Module):
 
 class CrossResNet(nn.Module):
     """5-level cross-conv pyramid (reference tcct.py:857-885).  ``tiny``
-    gives channels (32,)*5.  Returns the 5 pre-pool feature maps."""
+    gives channels (32,)*5, else (32, 64, 96, 128, 256); ``plain`` gives
+    every block k = 3.  Returns the 5 pre-pool feature maps (NCHW)."""
 
-    def __init__(self, tiny: bool = True, in_ch: int = 3):
+    def __init__(self, tiny: bool = True, in_ch: int = 3, plain: bool = False):
         super().__init__()
         self.layer_dims = (32, 32, 32, 32, 32) if tiny else (32, 64, 96, 128, 256)
         dims = self.layer_dims
         self.cnn = nn.Sequential(conv2d(in_ch, dims[0], 3, 1, 1), BatchNorm2d(dims[0]))
         cins = (dims[0],) + dims[:-1]
         self.path_estan = nn.ModuleList(
-            CrossCNNBlock(cins[i], dims[i], k) for i, k in enumerate((13, 11, 9, 7, 5))
+            CrossCNNBlock(cins[i], dims[i], k, plain=plain)
+            for i, k in enumerate((13, 11, 9, 7, 5))
         )
 
     def forward(self, x):
@@ -84,3 +96,47 @@ class CrossResNet(nn.Module):
             if i < len(self.path_estan) - 1:
                 x = max_pool_2d(x, 2)
         return xs
+
+
+def cross_resnet_fused(x: torch.Tensor, base_cnn: CrossResNet) -> List[torch.Tensor]:
+    """The eval ``CrossResNet`` forward with every block through
+    :func:`fused_cross_block` (JAX counterpart
+    ``attic/crosscnn_fused.py::cross_resnet_fused``): NHWC image ``x``
+    [B,H,W,3] -> the five pre-pool NHWC feature maps.  The stem conv stays
+    ``F.conv2d``, its BatchNorm folded to an f32 ``(scale, shift)``; 2x2
+    max-pooling runs between the blocks."""
+    if base_cnn.training:
+        raise ValueError("cross_resnet_fused: inference only; the CNN branch is in train mode")
+    if getattr(base_cnn, "msca", False):
+        raise ValueError("cross_resnet_fused: the MSCA option is not part of the fused block")
+    stem, bn = base_cnn.cnn
+    y = stem(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    s, t = fold_bn(bn)
+    y = (y.float() * s + t).to(x.dtype).contiguous()
+    xs = []
+    last = len(base_cnn.path_estan) - 1
+    for i, block in enumerate(base_cnn.path_estan):
+        y = fused_cross_block(y, block)
+        xs.append(y)
+        if i < last:
+            y = max_pool_2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+    return xs
+
+
+def seeded_cross_block(cin, cout, k, seed, plain=False) -> CrossCNNBlock:
+    """An eval-mode ``CrossCNNBlock`` in which every operand of the fused
+    kernel matters: seeded He-normal weights, random conv biases, and random
+    positive BatchNorm affines and statistics (normal^2 + 0.5, as
+    attic/test_fused_crosscnn.py draws its statistics).  What the kernel is
+    held against its plain version on."""
+    blk = CrossCNNBlock(cin, cout, k, plain=plain)
+    g = torch.Generator().manual_seed(seed)
+    init_weights(blk, g)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, nn.Conv2d):
+                m.bias.copy_(torch.randn(cout, generator=g) * 0.1)
+            elif isinstance(m, nn.BatchNorm2d):
+                for t in (m.weight, m.bias, m.running_mean, m.running_var):
+                    t.copy_(torch.randn(cout, generator=g) ** 2 + 0.5)
+    return blk.eval()

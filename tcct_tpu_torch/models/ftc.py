@@ -13,13 +13,26 @@ Two variants, as in the JAX package:
   (``forward(x, with_feats=True)``).  Only the JAX package's unpacked
   branch is ported.
 
-Simple fusion (``stc_*``): each pyramid level is the sum of the ViT and
-CNN features after their 1x1 conv + BN projections.
+Fusion of a pyramid level, after the 1x1 conv + BN projections of the ViT
+and the CNN features: their sum (simple fusion, ``stc_*``) or, with
+``flag_gate`` (``gtc_*``), ``x1 * alpha + x2 * (1 - alpha)`` with alpha 0.5
+in eval mode.  The random alpha map of gated fusion in train mode is not
+ported yet (ROADMAP A9) and raises.
+
+``flag_vit=False`` (``cnnu``, ``pnnu``) decodes the CNN pyramid alone and
+skips the ViT branch; ``flag_cnn=False`` (``vitu``) decodes the projected
+ViT features with the CNN's level 0 as the last skip.  Every module exists
+under every flag, as in the reference, so the state-dict names do not
+depend on them.
+
+``forward(x, cnn_feats=...)`` takes the CNN pyramid from outside (five NHWC
+maps): the way the fused block kernel's branch
+(``models/crosscnn.py::cross_resnet_fused``) enters.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,6 +64,18 @@ def simple_fusion(x1, x2):
     return x1 + x2
 
 
+def gate_fusion(x1, x2, train: bool = False):
+    """Alpha-map gating (reference tcct.py:916-932) in eval mode: alpha 0.5.
+    Train mode draws a random low-resolution alpha map and upsamples it
+    bicubically; that waits for ``resize_bicubic`` and the gated goldens."""
+    if train:
+        raise NotImplementedError(
+            "gated fusion in train mode (random alpha map, bicubic upsample, pinned_gate) is "
+            "not ported yet: ROADMAP A9")
+    alpha = 0.5
+    return x1 * alpha + x2 * (1.0 - alpha)
+
+
 def norm_add(xs: List[torch.Tensor]) -> torch.Tensor:
     """L2-normalise each NCHW map over channels (floor 1e-12), resize to
     the first's size (bilinear, align_corners=False) and average
@@ -71,13 +96,17 @@ class FTC(nn.Module):
     onnx/tcct_goals.py for the ``infer`` variant)."""
 
     def __init__(self, vit_cfg: MPViTConfig = MPViTConfig(), cnn_tiny: bool = True,
-                 out_channels: int = 5, filters: int = 32, variant: str = "infer"):
+                 out_channels: int = 5, filters: int = 32, variant: str = "infer",
+                 cnn_plain: bool = False, flag_gate: bool = False, flag_cnn: bool = True,
+                 flag_vit: bool = True):
         super().__init__()
         if variant not in ("infer", "train"):
             raise ValueError(f"FTC: variant must be 'infer' or 'train', got {variant!r}")
         self.variant = variant
+        self.vit_cfg = vit_cfg
+        self.flag_gate, self.flag_cnn, self.flag_vit = flag_gate, flag_cnn, flag_vit
         self.base_vit = MPViT(vit_cfg)
-        self.base_cnn = CrossResNet(tiny=cnn_tiny)
+        self.base_cnn = CrossResNet(tiny=cnn_tiny, plain=cnn_plain)
         ld = self.base_cnn.layer_dims
         ed = vit_cfg.embed_dims
         vit_out = tuple(ed[1:]) + (ed[-1],)  # each stage's aggregate width
@@ -104,19 +133,43 @@ class FTC(nn.Module):
         self.aux2 = conv2d(aux_in[2], out_channels, 1, 1, 0)
         self.aux4 = conv2d(aux_in[3], out_channels, 1, 1, 0)
 
-    def forward(self, x: torch.Tensor, with_feats: bool = False):
+    def unused_prefixes(self) -> Tuple[str, ...]:
+        """State-dict prefixes of the modules this model's forward never
+        runs under its flags (``fuse`` is dead in the reference too)."""
+        unused = ["fuse."]
+        if not self.flag_vit:
+            unused += ["base_vit.", "tran_vit", "tran_cnn"]
+        elif not self.flag_cnn:
+            unused += ["tran_cnn"]
+        return tuple(unused)
+
+    def forward(self, x: torch.Tensor, with_feats: bool = False,
+                cnn_feats: Optional[Sequence[torch.Tensor]] = None):
         """NHWC image [B,H,W,3] -> four NHWC logit maps [B,H,W,n_class];
         with ``with_feats`` (train variant only) -> ``(maps, [feat])``
-        with the NHWC polarization feat [B,H,W,filters]."""
+        with the NHWC polarization feat [B,H,W,filters].  ``cnn_feats``: the
+        CNN branch's five NHWC maps computed outside, instead of
+        ``base_cnn``'s."""
         if with_feats and self.variant != "train":
             raise ValueError("FTC: the polarization feats are formed by variant='train' only")
         x = x.permute(0, 3, 1, 2)
-        c1, c2, c3, c4, c5 = self.base_cnn(x)
-        vs = self.base_vit.forward_features(x)
-        x2, x3, x4, x5 = (
-            simple_fusion(getattr(self, f"tran_vit{i}")(v), getattr(self, f"tran_cnn{i}")(c))
-            for i, (v, c) in enumerate(zip(vs, (c2, c3, c4, c5)))
-        )
+        if cnn_feats is not None:
+            c1, c2, c3, c4, c5 = (c.permute(0, 3, 1, 2) for c in cnn_feats)
+        else:
+            c1, c2, c3, c4, c5 = self.base_cnn(x)
+        if self.flag_vit:
+            vs = [getattr(self, f"tran_vit{i}")(v)
+                  for i, v in enumerate(self.base_vit.forward_features(x))]
+            if self.flag_cnn:
+                cs = [getattr(self, f"tran_cnn{i}")(c) for i, c in enumerate((c2, c3, c4, c5))]
+                if self.flag_gate:
+                    x2, x3, x4, x5 = (gate_fusion(v, c, self.training) for v, c in zip(vs, cs))
+                else:
+                    x2, x3, x4, x5 = (simple_fusion(v, c) for v, c in zip(vs, cs))
+            else:
+                x2, x3, x4, x5 = vs
+        else:
+            x2, x3, x4, x5 = c2, c3, c4, c5
         y8 = leaky_relu(self.head(x5))
         y4 = self.dec1(y8, x4)
         y2 = self.dec2(y4, x3)

@@ -37,7 +37,8 @@ from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens
 
 @dataclasses.dataclass(frozen=True)
 class MPViTConfig:
-    """MPViT-tiny hyperparameters (reference factories tcct.py:766-800)."""
+    """MPViT hyperparameters (reference factories tcct.py:766-800); the
+    defaults are MPViT-tiny's."""
 
     num_stages: int = 4
     num_path: Tuple[int, ...] = (1, 1, 1, 1)
@@ -48,6 +49,22 @@ class MPViTConfig:
     drop_path_rate: float = 0.1
     # reference crpe head-split table (tcct.py:482-486): {window: heads}
     crpe_window: Tuple[Tuple[int, int], ...] = ((3, 2), (5, 3), (7, 3))
+
+
+def mpvit_tiny_config(**kw) -> MPViTConfig:
+    return MPViTConfig(**kw)
+
+
+def mpvit_small_config(**kw) -> MPViTConfig:
+    return MPViTConfig(num_path=(2, 3, 3, 3), num_layers=(1, 3, 6, 3),
+                       embed_dims=(64, 128, 216, 288), mlp_ratios=(4, 4, 4, 4),
+                       num_heads=(8, 8, 8, 8), **kw)
+
+
+def mpvit_base_config(**kw) -> MPViTConfig:
+    return MPViTConfig(num_path=(2, 3, 3, 3), num_layers=(1, 3, 8, 3),
+                       embed_dims=(128, 224, 368, 480), mlp_ratios=(4, 4, 4, 4),
+                       num_heads=(8, 8, 8, 8), **kw)
 
 
 def dpr_schedule(drop_path_rate: float, num_layers: Sequence[int]) -> List[List[float]]:

@@ -64,12 +64,13 @@ class RegNet(nn.Module):
             conv2d(1, 1, 3, 1, 1), BatchNorm2d(1, eps=1.0), conv2d(1, 1, 3, 1, 1)
         )
 
-    def forward(self, x, true: Optional[torch.Tensor] = None, **loss_kw):
-        """``forward(x)``: the base model's logit maps.  With the one-hot
-        ``true``: :meth:`forward_with_losses` (so ``torch.func.functional_call``
+    def forward(self, x, true: Optional[torch.Tensor] = None, cnn_feats=None, **loss_kw):
+        """``forward(x)``: the base model's logit maps (``cnn_feats``: an
+        FTC base's CNN pyramid computed outside).  With the one-hot ``true``:
+        :meth:`forward_with_losses` (so ``torch.func.functional_call``
         reaches it)."""
         if true is None:
-            return self.base(x)
+            return self.base(x) if cnn_feats is None else self.base(x, cnn_feats=cnn_feats)
         return self.forward_with_losses(x, true, **loss_kw)
 
     # -- the loss heads, on NHWC tensors ---------------------------------------

@@ -7,12 +7,18 @@ at the serving and train shapes).  Run on a GPU machine with
 import pytest
 import torch
 
+from tcct_tpu_torch.models.crosscnn import seeded_cross_block
 from tcct_tpu_torch.ops.kernels import build
 from tcct_tpu_torch.ops.kernels.bnstats import (
     bn_act_train,
     bn_act_train_backward_reference,
     bn_normalize_reference,
     bn_stats_reference,
+)
+from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
+    fused_cross_block,
+    fused_cross_block_reference,
+    fused_tile,
 )
 from tcct_tpu_torch.ops.kernels.dwconv import (
     dwconv3x3,
@@ -201,6 +207,115 @@ def test_grad_fn_through_kernels(cuda, dtype):
                                            stride)[1]
         lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * gw_ref.abs() if dtype == torch.bfloat16 else 0)
         assert bool(((gw.float() - gw_ref).abs() <= lim).all())
+
+
+def _cross_block(cuda, cin, cout, k, dtype, seed, plain=False):
+    """The seeded block (random conv biases, random positive BN affines and
+    statistics, eval mode) on the card."""
+    return seeded_cross_block(cin, cout, k, seed, plain).to(device=cuda, dtype=dtype)
+
+
+def _k4_close(got, want, dtype):
+    """Both versions round the same chain at the same places and differ in
+    the order of their f32 sums; the bounds scale with the plain output's
+    rms (5 to 12 with these seeded blocks, elements up to 290).
+    f32: 1e-4 rms abs + 1e-4 rel (1e-4 + 1e-4 rel at unit scale), the
+    summation-order error of six chained convs.
+    bf16: where the two f32 sums of an intermediate straddle a bf16 rounding
+    boundary the intermediate differs by one bf16 ulp, and up to three more
+    convs and a BatchNorm scale carry that to a few outputs.  So every
+    element is held to 2^-7 |want| + 2^-3 rms, all but 2 + 2^-19 of them
+    (about two in a million) to 2^-6 |want| + 2^-5 rms, and the mean error
+    to 2^-11 rms."""
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    err = (g - w).abs()
+    rms = w.pow(2).mean().sqrt().clamp_min(1.0)
+    if dtype == torch.float32:
+        lim = 1e-4 * rms + 1e-4 * w.abs()
+    else:
+        lim = 2.0 ** -7 * w.abs() + 2.0 ** -3 * rms
+        n_out = int((err > 2.0 ** -6 * w.abs() + 2.0 ** -5 * rms).sum())
+        assert n_out <= 2 + err.numel() * 2.0 ** -19, (n_out, err.numel())
+        assert float(err.mean()) <= 2.0 ** -11 * float(rms), (float(err.mean()), float(rms))
+    bad = err > lim
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()), float((err - lim).max()))
+
+
+# (B, H, W, Cin, Cout, k, plain): stc_tt's five duke levels, gtc_tb's
+# channel-changing levels, a plain block, an input smaller than a tile
+K4_SHAPES = [
+    (8, 256, 576, 32, 32, 13, False), (8, 128, 288, 32, 32, 11, False),
+    (8, 64, 144, 32, 32, 9, False), (8, 32, 72, 32, 32, 7, False),
+    (8, 16, 36, 32, 32, 5, False),
+    (8, 128, 288, 32, 64, 11, False), (8, 64, 144, 64, 96, 9, False),
+    (8, 32, 72, 96, 128, 7, False), (8, 16, 36, 128, 256, 5, False),
+    (8, 64, 144, 32, 32, 9, True), (8, 4, 8, 32, 32, 5, False),
+]
+
+
+# f32 runs on the CUDA cores, bf16 on the tensor cores
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_fused_cross_block_kernel_matches_plain(cuda, shape, dtype):
+    B, H, W, cin, cout, k, plain = shape
+    blk = _cross_block(cuda, cin, cout, k, dtype, 7, plain)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((B, H, W, cin), generator=g, device=cuda).to(dtype)
+    n = fused_cross_block.launches
+    with torch.inference_mode():
+        got = fused_cross_block(x, blk)
+        torch.cuda.synchronize()
+        assert fused_cross_block.launches == n + 1
+        want = fused_cross_block_reference(x, blk)
+    assert got.shape == (B, H, W, cout) and got.dtype == dtype
+    th, tw, smem = fused_tile(B, H, W, cin, cout, 3 if plain else k, dtype)
+    assert th >= 1 and smem <= 232448
+    assert tw in ((12, 28) if dtype == torch.bfloat16 else (1, 2, 4, 8, 16))
+    _k4_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 11, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_cross_block_kernel_odd_sizes(cuda, dtype, k):
+    """A seeded sweep of odd H and W and batch sizes, which no tile divides:
+    the edge guards and the per-stage zero masks, at every tile the launch
+    shrinks to for a small grid."""
+    gen = torch.Generator().manual_seed(9 + k)
+    for i in range(6):
+        H = int(torch.randint(1, 65, (1,), generator=gen))
+        W = int(torch.randint(1, 81, (1,), generator=gen))
+        B = (1, 2, 5, 24, 16, 3)[i]  # small grids shrink the tile, large ones keep it
+        cin, cout = ((32, 32), (32, 64), (64, 32))[i % 3]
+        blk = _cross_block(cuda, cin, cout, k, dtype, 10 + i)
+        g = torch.Generator(device=cuda).manual_seed(11 + i)
+        x = torch.randn((B, H, W, cin), generator=g, device=cuda).to(dtype)
+        with torch.inference_mode():
+            got = fused_cross_block(x, blk)
+            torch.cuda.synchronize()
+            _k4_close(got, fused_cross_block_reference(x, blk), dtype)
+
+
+def test_fused_cross_block_refuses(cuda):
+    blk = _cross_block(cuda, 32, 32, 5, torch.float32, 12)
+    x = torch.zeros(1, 8, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        fused_cross_block(x, blk)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="channels"):
+            fused_cross_block(torch.zeros(1, 8, 8, 16, device=cuda), blk)
+        with pytest.raises(ValueError, match="float32/bfloat16"):
+            fused_cross_block(x.half(), blk)
+        with pytest.raises(ValueError, match="train mode"):
+            fused_cross_block(x, blk.train())
+        # no model has a bf16 block the tensor cores do not take
+        narrow = _cross_block(cuda, 8, 24, 5, torch.bfloat16, 13)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fused_cross_block(torch.zeros(2, 9, 11, 8, device=cuda).bfloat16(), narrow)
+        with pytest.raises(build.KernelError):
+            fused_tile(2, 9, 11, 8, 24, 5, torch.bfloat16)
+        f32 = fused_cross_block(torch.ones(2, 9, 11, 8, device=cuda), narrow.float())
+        assert f32.shape == (2, 9, 11, 24)  # f32 takes multiples of 8
 
 
 def test_kernels_refuse_bad_inputs(cuda):

@@ -113,9 +113,9 @@ def test_regnet_logits_match_jax(jax_net):
 
 
 def test_registry():
-    assert list_models() == ["stc_tt", "tcct"]
+    assert {"stc_tt", "tcct"} <= set(list_models())
     with pytest.raises(KeyError, match="stc_tt"):
-        get_model("gtc_tt", 5)
+        get_model("relay", 5)
     with pytest.raises(ValueError):
         get_model("stc_tt", 5, variant="t32")
     train = get_model("stc_tt", 5, variant="train", drop_path_rate=0.2)

@@ -152,7 +152,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_present():
-    assert build.sources() == ["bnstats", "dwconv3x3", "metapool"]
+    assert build.sources() == ["bnstats", "crosscnn_fused", "dwconv3x3", "metapool"]
 
 
 def test_launch_error_code_raises():

@@ -131,7 +131,10 @@ def test_prep_and_postprocess_match_jax(db, native):
     np.testing.assert_array_equal(postprocess(geo, got_lab, native), eye.postprocess(want_lab, native))
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|cv2|tcct_tpu(?!_torch))\b", re.M)
+# jax, flax, cv2, the JAX package, and the attic (as a package or as the
+# top-level module its own test imports)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|cv2|attic|crosscnn_fused|tcct_tpu(?!_torch))\b", re.M)
 
 
 def test_port_imports_no_jax_no_tcct_tpu_no_cv2():
@@ -143,6 +146,12 @@ def test_port_imports_no_jax_no_tcct_tpu_no_cv2():
         with open(f) as fh:
             bad += [f"{f}: {m.group(0).strip()}" for m in _FORBIDDEN.finditer(fh.read())]
     assert len(files) > 15 and bad == []
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"tcct_tpu_torch/ops/kernels/crosscnn_fused.py", "tcct_tpu_torch/models/registry.py",
+            "tcct_tpu_torch/infer/predictor.py", "chip_smoke.py"} <= names
+    assert _FORBIDDEN.search("import os\nfrom attic.crosscnn_fused import fused_cross_block\n")
+    assert _FORBIDDEN.search("    import crosscnn_fused as attic\n")
+    assert not _FORBIDDEN.search("from tcct_tpu_torch.ops.kernels.crosscnn_fused import x\n")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
