@@ -12,9 +12,13 @@ toolkit (``nvcc``):
 2. holds each kernel (MetaPool forward and backward, depthwise 3x3
    forward and backward at strides 1 and 2, train BatchNorm) against its
    plain PyTorch version on the card, at every shape the duke serving
-   path and the train step give it, in bf16 and in f32 (TF32 off), and
+   path and the train step give it (the depthwise forward also at
+   MPViT-small's, ``stc_st``), in bf16 and in f32 (TF32 off), and
    times kernel, plain version and the one-call PyTorch yardstick on the
-   device (CUDA-graph replay, inputs beyond L2); then the fused CrossCNN
+   device (CUDA-graph replay, inputs beyond L2); the depthwise forward's
+   two kernels at several strip heights; its bias-and-residual epilogue
+   (the ConvPosEnc site) bit for bit against the three passes it
+   replaces, and timed against them; then the fused CrossCNN
    block kernel at the five duke levels of ``stc_tt``, the four
    channel-changing levels of ``gtc_tb``, a plain (k = 3) block and an
    input smaller than a tile;
@@ -140,6 +144,18 @@ def path_shapes(cfg, batch: int, hw):
     return mp, s1, s2
 
 
+def cpe_shapes(cfg, batch: int, hw):
+    """ConvPosEnc calls per serving batch, by input shape [B,H,W,C]: one per
+    MHCA block, each a depthwise 3x3 with bias plus its own input."""
+    out = Counter()
+    h, w = (hw[0] - 1) // 2 + 1, (hw[1] - 1) // 2 + 1  # after the stride-2 stem
+    for i, C in enumerate(cfg.embed_dims):
+        if i > 0:
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        out[(batch, h, w, C)] += cfg.num_path[i] * cfg.num_layers[i]
+    return out
+
+
 def check_close(name, got, want, dtype_name):
     import torch
 
@@ -213,10 +229,11 @@ def _table(name, src, replaces, rows):
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "rows": rows}
 
 
-def kernel_tables(serve, train):
+def kernel_tables(serve, train, serve_small):
     """The kernels, each with its wrapper, plain version, one-call library
     yardstick, input maker, check, bytes and operations, and the shapes of
-    the serving batch and of the train step."""
+    the serving batch and of the train step; for the depthwise forward also
+    the shapes of an ``stc_st`` (MPViT-small) serving batch."""
     import torch
     import torch.nn.functional as F
 
@@ -399,9 +416,9 @@ def kernel_tables(serve, train):
         _table("metapool_tokens", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
                [(mp_fwd, serve_rows(serve[0]), train["mp"])]),
         _table("dwconv3x3_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:200",
-               [(dw_fwd(1), serve_rows(serve[1]), train["s1"])]),
+               [(dw_fwd(1), serve_rows(serve[1]), train["s1"], serve_rows(serve_small[1]))]),
         _table("dwconv3x3_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:380",
-               [(dw_fwd(2), serve_rows(serve[2]), train["s2"])]),
+               [(dw_fwd(2), serve_rows(serve[2]), train["s2"], serve_rows(serve_small[2]))]),
         _table("metapool_tokens_backward", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
                [(mp_bwd, Counter(), train["mp"])]),
         _table("dwconv3x3_backward_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:220",
@@ -420,7 +437,8 @@ def bench_kernels(report, tables):
     row weight each shape by its launches on its path, at the path's dtype:
     ``ms`` etc. per serving batch for the forward kernels of the serving
     path, per train step for the train-only kernels (``train_ms`` gives the
-    forward kernels' train-step totals)."""
+    forward kernels' train-step totals, ``small_ms`` the depthwise
+    forward's totals over an ``stc_st`` serving batch)."""
     import torch
 
     entries = []
@@ -428,12 +446,14 @@ def bench_kernels(report, tables):
         name = t["name"]
         tot = Counter()
         max_err = 0.0
-        for sp, serve, train in t["rows"]:
-            shapes = sorted({k[0] for k in serve} | {k[0] for k in train})
+        for sp, serve, train, *rest in t["rows"]:
+            small = rest[0] if rest else Counter()
+            shapes = sorted({k[0] for c in (serve, train, small) for k in c})
             for shape in shapes:
                 for dtype in (torch.bfloat16, torch.float32):
                     dn = str(dtype).split(".")[-1]
                     n_serve, n_train = serve.get((shape, dn), 0), train.get((shape, dn), 0)
+                    n_small = small.get((shape, dn), 0)
                     args = sp["make"](shape, dtype)
                     label = f"{name}{sp['tag']} {list(shape)} {dn}"
                     err = sp["check"](label, args, dn)
@@ -447,13 +467,15 @@ def bench_kernels(report, tables):
                     b_ops = flops / F32_FLOP_PER_S * 1e3
                     bound = max(b_bytes, b_ops)
                     per = (f" x{n_serve}/batch" if n_serve else "") + \
-                          (f" x{n_train}/step" if n_train else "")
+                          (f" x{n_train}/step" if n_train else "") + \
+                          (f" x{n_small}/stc_st batch" if n_small else "")
                     print(f"  {label}{per}: max_abs_err {err:.3e} kernel {t_k * 1e3:.1f} us, "
                           f"plain {t_p * 1e3:.1f} us, library {t_l * 1e3:.1f} us, "
                           f"bound {bound * 1e3:.1f} us "
                           f"({'bytes' if b_bytes >= b_ops else 'operations'}), "
                           f"{b_bytes / t_k * 100:.0f}% of the byte bound", flush=True)
-                    for prefix, n in (("serve_", n_serve), ("train_", n_train)):
+                    for prefix, n in (("serve_", n_serve), ("train_", n_train),
+                                      ("small_", n_small)):
                         tot[prefix + "ms"] += n * t_k
                         tot[prefix + "plain_ms"] += n * t_p
                         tot[prefix + "library_ms"] += n * t_l
@@ -474,8 +496,127 @@ def bench_kernels(report, tables):
             entry.update(train_ms=tot["train_ms"], train_plain_ms=tot["train_plain_ms"],
                          train_bound_ms=tot["train_bound_ms"],
                          train_library_ms=tot["train_library_ms"])
+        if tot["small_ms"] > 0:
+            entry.update(small_ms=tot["small_ms"], small_plain_ms=tot["small_plain_ms"],
+                         small_bound_ms=tot["small_bound_ms"],
+                         small_library_ms=tot["small_library_ms"])
         entries.append(entry)
     report["kernels"] = entries
+
+
+def bench_dwconv_variants(card):
+    """The depthwise forward's two kernels at the stride-1 bf16 shapes of the
+    serving paths: the launch's own choice, the direct kernel, and the ring
+    kernel at named strip heights, beside the library call.  Printed, not
+    held: the numbers behind the launch's choice."""
+    import torch
+    import torch.nn.functional as F
+
+    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    print(f"depthwise forward, stride 1, bf16: device us by kernel and strip height [{card}]:",
+          flush=True)
+    for shape in ((8, 128, 288, 64), (8, 64, 144, 128), (8, 64, 144, 96), (8, 32, 72, 216),
+                  (8, 32, 72, 128)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") / 3).to(torch.bfloat16)
+        copies = [(x.clone(), w.clone()) for _ in range(n_copies(4 * x.numel()))]
+        wc = w.permute(2, 0, 1).unsqueeze(1)
+        t_lib = device_ms(lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), wc, padding=1,
+                                                groups=shape[-1]), copies)
+        cells = []
+        for rows in (0, -1, 4, 8, 12, 16, 24, 32):
+            t = device_ms(lambda a, b: dwconv3x3_forward(a, b, 1, rows=rows), copies)
+            what = {0: "launch's choice", -1: "direct"}.get(rows, f"ring {rows}")
+            cells.append(f"{what} {t * 1e3:.1f}")
+        print(f"  {list(shape)}: " + ", ".join(cells) + f"; library {t_lib * 1e3:.1f}", flush=True)
+        del copies
+
+
+def bench_convposenc(report, card, sites, sites_small):
+    """The ConvPosEnc site, ``conv(x) + bias + x``: the forward kernel's
+    epilogue in one launch against the three passes it replaces (the kernel,
+    a bias add, a residual add), bit for bit, in bf16 and f32, and against
+    the plain version at the kernels' tolerance; timed against the three
+    passes and against a bound of x read once and y written once.  Then the
+    module itself: one ``ConvPosEnc.forward`` launches the kernel once and at
+    most one elementwise kernel (the taps' layout copy)."""
+    import torch
+
+    from tcct_tpu_torch.models.mpvit import ConvPosEnc, image_to_tokens, tokens_to_image
+    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    print(f"ConvPosEnc site: conv + bias + x in one launch vs the three passes [{card}]:",
+          flush=True)
+
+    def site(x, w, b):
+        return dwconv3x3(x, w, 1, b, True)
+
+    def three(x, w, b):
+        return dwconv3x3(x, w, 1) + b + x
+
+    tot = Counter()
+    for shape in sorted(set(sites) | set(sites_small)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            C = shape[-1]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((3, 3, C), generator=gen, device="cuda") / 3).to(dtype)
+            b = torch.randn((C,), generator=gen, device="cuda").to(dtype)
+            label = f"ConvPosEnc site {list(shape)} {dn}"
+            got = site(x, w, b)
+            torch.cuda.synchronize()
+            if not torch.equal(got, three(x, w, b)):
+                fail(f"{label}: the epilogue differs from the three passes")
+            err = check_close(label, got, dwconv3x3_reference(x, w, 1) + b + x, dn)
+            nbytes = (2 * x.numel() + 10 * C) * x.element_size()
+            copies = [(x.clone(), w, b) for _ in range(n_copies(nbytes))]
+            t_k, t_3 = device_ms(site, copies), device_ms(three, copies)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            n, n_small = sites.get(shape, 0), sites_small.get(shape, 0)
+            per = (f" x{n}/batch" if n else "") + (f" x{n_small}/stc_st batch" if n_small else "")
+            print(f"  {label}{per}: bitwise equal, max_abs_err vs plain {err:.3e}, one launch "
+                  f"{t_k * 1e3:.1f} us, three passes {t_3 * 1e3:.1f} us, bound "
+                  f"{bound * 1e3:.1f} us ({bound / t_k * 100:.0f}% of it)", flush=True)
+            if dtype == torch.bfloat16:
+                for prefix, k in (("", n), ("small_", n_small)):
+                    tot[prefix + "ms"] += k * t_k
+                    tot[prefix + "three_ms"] += k * t_3
+                    tot[prefix + "bound_ms"] += k * bound
+            del copies
+    for e in report["kernels"]:
+        if e["name"] == "dwconv3x3_s1":
+            e.update(convposenc_ms=tot["ms"], convposenc_three_pass_ms=tot["three_ms"],
+                     convposenc_bound_ms=tot["bound_ms"],
+                     small_convposenc_ms=tot["small_ms"],
+                     small_convposenc_three_pass_ms=tot["small_three_ms"],
+                     small_convposenc_bound_ms=tot["small_bound_ms"])
+    print(f"  per bf16 batch: stc_tt {sum(sites.values())} sites {tot['ms']:.4f} ms in one launch "
+          f"each, {tot['three_ms']:.4f} ms as three passes, bound {tot['bound_ms']:.4f} ms; stc_st "
+          f"{sum(sites_small.values())} sites {tot['small_ms']:.4f} / {tot['small_three_ms']:.4f} "
+          f"/ {tot['small_bound_ms']:.4f} ms", flush=True)
+
+    # the module: one kernel launch, no bias pass, no residual pass
+    B, H, W, C = max(sites)
+    cpe = ConvPosEnc(C).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        cpe.proj.weight.copy_(torch.randn(cpe.proj.weight.shape, generator=gen, device="cuda") / 3)
+        cpe.proj.bias.copy_(torch.randn((C,), generator=gen, device="cuda"))
+    tokens = torch.randn((B, H * W, C), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        feat = tokens_to_image(tokens, (H, W))
+        if not torch.equal(cpe(tokens, (H, W)), image_to_tokens(cpe.proj(feat) + feat)):
+            fail("ConvPosEnc.forward differs from proj(feat) + feat")
+        counts = {}
+        t = device_ms(lambda a: cpe(a, (H, W)), [(tokens,)])
+        profile_device(lambda: cpe(tokens, (H, W)), t, f"ConvPosEnc.forward {[B, H * W, C]} bf16",
+                       counts)
+    if counts and (counts.get("dwconv3x3 kernels (K2, K2b)") != 1
+                   or counts.get("elementwise and copies", 0) > 1 or sum(counts.values()) > 2):
+        fail(f"ConvPosEnc.forward launched {counts}, expected the depthwise kernel once and at "
+             f"most one elementwise kernel")
 
 
 def _counted():
@@ -571,7 +712,12 @@ def drive_slice(report, card):
           f"one batch of {BATCH} {batch_ms:.3f} ms ({BATCH / batch_ms * 1e3:.1f} B-scans/s), "
           f"{graph_ms:.3f} ms replayed as one CUDA graph; "
           f"peak device memory {peak:.2f} GiB", flush=True)
-    plain["groups"] = profile_device(lambda: pred._forward(xb), batch_ms, "one bf16 batch")
+    by_group = {}
+    plain["groups"] = profile_device(lambda: pred._forward(xb), batch_ms, "one bf16 batch",
+                                     by_group)
+    if by_group:
+        print(f"slice: elementwise and copy launches in one bf16 batch: "
+              f"{by_group.get('elementwise and copies', 0)}", flush=True)
     plain.update(batch_ms=batch_ms, graph_ms=graph_ms)
     return plain
 
@@ -966,7 +1112,7 @@ def drive_buckets(card):
 _GROUPS = (
     ("fused CrossCNN block kernel (K4)", ("crosscnn_fused",)),
     ("metapool kernels (K1, K1b)", ("metapool_kernel",)),
-    ("dwconv3x3 kernels (K2, K2b)", ("dwconv3x3_fwd_kernel", "dwconv3x3_bwd_kernel",
+    ("dwconv3x3 kernels (K2, K2b)", ("dwconv3x3_fwd", "dwconv3x3_bwd_kernel",
                                      "dw_finalize_kernel")),
     ("train BN kernel (K3)", ("bn_stats_kernel", "bn_finalize_kernel", "bn_norm_kernel")),
     ("layer_norm", ("layer_norm",)),
@@ -983,10 +1129,11 @@ _GROUPS = (
 )
 
 
-def profile_device(fn, wall_ms: float, what: str):
+def profile_device(fn, wall_ms: float, what: str, counts=None):
     """Device time of one call of ``fn`` by kernel, grouped by layer, and the
     device's busy share of ``wall_ms``, the call's time without the
-    profiler.  Returns the ms by group (empty if none was recorded)."""
+    profiler.  Returns the ms by group (empty if none was recorded) and
+    puts the launches by group into ``counts`` if a dict is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1014,6 +1161,8 @@ def profile_device(fn, wall_ms: float, what: str):
         g = next((name for name, subs in _GROUPS if any(s in low for s in subs)), "other")
         groups[g] += t
         launches[g] += n
+    if counts is not None:
+        counts.update(launches)
     print(f"profile: {what}: {sum(r[1] for r in rows)} kernels, device busy "
           f"{busy:.3f} ms = {busy / wall_ms * 100:.1f}% of {wall_ms:.3f} ms "
           f"(idle share {max(0.0, 1 - busy / wall_ms) * 100:.1f}%)", flush=True)
@@ -1256,10 +1405,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     from tcct_tpu_torch.data.geometry import get_geometry
-    from tcct_tpu_torch.models.mpvit import MPViTConfig
+    from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config
 
     vit = MPViTConfig()
     serve = path_shapes(vit, BATCH, get_geometry(DB).prep_hw)
+    serve_small = path_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw)
     train = train_shapes(vit, TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
     report = {"per_batch_launches": {"metapool_tokens": sum(serve[0].values()),
                                      "dwconv3x3_s1": sum(serve[1].values()),
@@ -1273,7 +1423,10 @@ def main() -> int:
     print(f"kernels vs plain versions at the {DB} serving shapes (batch {BATCH}) and the "
           f"train-step shapes (batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:",
           flush=True)
-    bench_kernels(report, kernel_tables(serve, train))
+    bench_kernels(report, kernel_tables(serve, train, serve_small))
+    bench_dwconv_variants(card)
+    bench_convposenc(report, card, cpe_shapes(vit, BATCH, get_geometry(DB).prep_hw),
+                     cpe_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw))
     bench_fused_block(report, card)
     plain = drive_slice(report, card)
     drive_fused(report, card, plain)

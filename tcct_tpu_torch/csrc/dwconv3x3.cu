@@ -9,28 +9,52 @@
 // Computes, for NHWC x [B, H, W, C] and taps w [3, 3, C]:
 //   y[b, i, j, c] = sum_{a, t} x[b, s*i + a - 1, s*j + t - 1, c] * w[a, t, c]
 // a correlation (no flip) with SAME zero padding of one pixel, stride s in
-// {1, 2}, f32 accumulation, output in the input type (f32 or bf16).  The
-// bias is added by the caller.  Output is [B, Ho, Wo, C] with
-// Ho = (H - 1) / s + 1, Wo = (W - 1) / s + 1.
+// {1, 2}, f32 accumulation (a outer, t inner, one fmaf each), output in the
+// input type (f32 or bf16).  Output is [B, Ho, Wo, C] with
+// Ho = (H - 1) / s + 1, Wo = (W - 1) / s + 1.  Optionally, in the same
+// launch, y + bias[c] and then + x[b, i, j, c] (stride 1), each add in f32
+// and rounded to the output type, as a bias pass and a residual pass over
+// the stored output would round.
 //
 // Bound: bytes.  Nine multiply-adds per output element against one input
 // and one output element moved, so the least time is (input + output
-// bytes) over the memory rate.
+// bytes) over the memory rate.  What the card adds to that: the forward
+// widens bf16 elements to f32 with a shift or a mask (widen()), because the
+// card's own cvt.f32.bf16, which __bfloat162float compiles to on sm_90,
+// runs at a fraction of that rate: with it the direct kernel takes 57 us
+// where it now takes 40 (bf16 [8,128,288,64], stride 1, H100).
 //
-// Design: each thread owns VEC consecutive channels (one 8-byte word: 4
-// bf16 or 2 f32) of one output column j and TH consecutive output rows of
-// it (4 for stride 1, 2 for stride 2).  It first loads every input word
-// those outputs read -- (TH-1)*s+3 rows by three columns (s*j-1, s*j,
-// s*j+1), zeros outside the image -- into registers with independent loads, so a thread has all of them in flight
-// at once and the card's memory latency is hidden by the loads rather
-// than by occupancy.  Then it forms its TH outputs with nine f32
-// multiply-adds per channel against the taps, which also sit in
-// registers.  Consecutive threads take consecutive channel words of a
-// pixel, then the next pixel, so loads and stores of the NHWC tensors are
-// coalesced; the column overlap between neighbouring threads is served by
-// L1 and the row halo between strips mostly by L2.  No shared memory, no
-// block synchronisation.  When C is not a multiple of VEC (or a pointer is
-// not 8-byte aligned) the same kernel runs with VEC = 1.
+// Forward, two kernels; the launch picks one per call (dispatch()):
+//
+// Direct kernel (stride 2 at every size; stride 1 under 8 MiB of input,
+// where a launch is mostly latency).  A thread owns one 8-byte channel
+// word (4 bf16 or 2 f32) of one output column and TH consecutive output
+// rows (4 at stride 1, 2 at stride 2).  It loads every input word those
+// outputs read -- (TH-1)*s+3 rows by three columns, zeros outside the
+// image -- with independent loads, all in flight together, then forms its
+// outputs against the taps in registers.  Consecutive threads take
+// consecutive channel words of a pixel, then the next pixel, so loads and
+// stores are coalesced; the overlap between neighbours is served by L1 and
+// L2.  At stride 2 an input word has one reader in a row and at most two
+// across rows, so nothing is gained by staging it.
+//
+// Ring kernel (stride 1, 8 MiB and more).  At stride 1 every input word is
+// read by nine outputs.  A block owns a tile of P output columns by cgv
+// channel words, one thread each with a 16-byte word (8 bf16 or 4 f32; 8
+// bytes or one element where C or a pointer's alignment needs it), and
+// walks down a strip of output rows.  Input rows come through a ring of
+// NST slots in shared memory: cp.async copies row r + NST - 1 (P + 2
+// columns, zero-filled outside the image) while row r is read, one
+// __syncthreads per row, so each input word crosses L2 once per strip
+// (plus the strip's two halo rows and the tile's two halo columns) and the
+// copies in flight cost no registers.  A thread reads the three words of
+// the staged row that its column meets, widens them once, and adds them
+// into three running sums: kernel row 2 ends output row r - 1 (rounded and
+// stored), row 1 continues output row r, row 0 starts output row r + 1 --
+// the same order of the nine fmaf as the direct kernel, so both give the
+// same bits.  The taps stay in registers for the whole strip.  The strip
+// height and the block size (128 or 256 threads) are chosen per call
+// (choose_geom()) so that the launch fills the card in whole rounds.
 //
 // Backward, for the output gradient g [B, Ho, Wo, C]: one fused pass reads
 // x and g once and produces
@@ -39,10 +63,11 @@
 //   dw[a, t, c]    = sum_{b, i, j} x[b, s*i + a - 1, s*j + t - 1, c] * g[b, i, j, c]
 // dx in x's type, dw accumulated in f32 and cast to the taps' type.
 // Bound: bytes (x and g read, dx written; 36 f32 operations per g element).
-// Threads map as in the forward: a channel word of one output column j and
-// a strip of TH output rows, walking down the block's share of rows.  For
-// stride 1 the thread loads the x and g windows of its strip (rows i0-1 ..
-// i0+TH, columns j-1 .. j+1) and forms dx at its own positions as a
+// Threads map as in the forward's direct kernel: a channel word of one
+// output column j and a strip of TH output rows, walking down the block's
+// share of rows.  For stride 1 the thread loads the x and g windows of its
+// strip (rows i0-1 .. i0+TH, columns j-1 .. j+1) and forms dx at its own
+// positions as a
 // correlation of g with the flipped taps.  For stride 2 it owns the 2x2
 // input pixels (2i, 2i+1) x (2j, 2j+1) of each of its g positions: even
 // rows and columns take the centre tap, odd ones the two outer taps of g
@@ -56,17 +81,26 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <cmath>
 
 namespace {
 
 constexpr int THREADS = 256;
-// output rows a thread computes: its input strip is (TH-1)*S+3 rows
+// output rows a thread of the direct forward and of the backward computes:
+// its input strip is (TH-1)*S+3 rows
 template <int S> constexpr int TH = S == 1 ? 4 : 2;
+// the forward's ring kernel: tallest strip; stride-1 inputs of fewer bytes
+// than FWD_DIRECT_BYTES take the direct kernel
+constexpr int FWD_MAX_ROWS = 32;
+constexpr long long FWD_DIRECT_BYTES = 8 << 20;
 
 template <typename T, int VEC> struct Vec;
+template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<float, 1> { using type = float; };
+template <> struct Vec<__nv_bfloat16, 8> { using type = uint4; };
 template <> struct Vec<__nv_bfloat16, 4> { using type = uint2; };
+template <> struct Vec<__nv_bfloat16, 2> { using type = uint32_t; };
 template <> struct Vec<__nv_bfloat16, 1> { using type = __nv_bfloat16; };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -80,7 +114,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename V>
 __device__ __forceinline__ V zero_word() {
   V v;
-  if constexpr (sizeof(V) == 8) *reinterpret_cast<uint2*>(&v) = make_uint2(0u, 0u);
+  if constexpr (sizeof(V) == 16) *reinterpret_cast<uint4*>(&v) = make_uint4(0u, 0u, 0u, 0u);
+  else if constexpr (sizeof(V) == 8) *reinterpret_cast<uint2*>(&v) = make_uint2(0u, 0u);
   else if constexpr (sizeof(V) == 4) *reinterpret_cast<uint32_t*>(&v) = 0u;
   else *reinterpret_cast<uint16_t*>(&v) = 0;
   return v;
@@ -92,92 +127,6 @@ __device__ __forceinline__ void unpack(const typename Vec<T, VEC>::type& v, floa
 #pragma unroll
   for (int k = 0; k < VEC; ++k) out[k] = to_f32(e[k]);
 }
-
-template <typename T, int VEC, int S>
-__global__ void __launch_bounds__(THREADS)
-dwconv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                     int H, int W, int C, int Ho, int Wo, int cgv, int n_cgroups) {
-  using V = typename Vec<T, VEC>::type;
-  constexpr int IR = (TH<S> - 1) * S + 3;  // input rows of a strip
-  const int ncv = C / VEC;
-  const int tc = threadIdx.x % cgv;
-  const int tp = threadIdx.x / cgv;
-  const int P = blockDim.x / cgv;  // output columns per block
-  const int b = blockIdx.z / n_cgroups;
-  const int cvi = (blockIdx.z - b * n_cgroups) * cgv + tc;
-  const int j = blockIdx.x * P + tp;
-  if (cvi >= ncv || j >= Wo) return;
-  const int c = cvi * VEC;
-  const int i0 = blockIdx.y * TH<S>;
-  const int r0 = S * i0 - 1, x0 = S * j - 1;  // input origin of the strip
-
-  // every input word of the strip, loads all in flight together
-  const T* xb = x + (size_t)b * H * W * C + c;
-  V in[IR][3];
-#pragma unroll
-  for (int r = 0; r < IR; ++r)
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const int gy = r0 + r, gx = x0 + t;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        in[r][t] = *reinterpret_cast<const V*>(xb + ((size_t)gy * W + gx) * C);
-      else
-        in[r][t] = zero_word<V>();
-    }
-  float k[9][VEC];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) unpack<T, VEC>(*reinterpret_cast<const V*>(w + t * C + c), k[t]);
-
-  T* yb = y + (size_t)b * Ho * Wo * C + c;
-#pragma unroll
-  for (int o = 0; o < TH<S>; ++o) {
-    const int i = i0 + o;
-    if (i >= Ho) break;
-    float acc[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        float v[VEC];
-        unpack<T, VEC>(in[o * S + a][t], v);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) acc[q] = fmaf(v[q], k[a * 3 + t][q], acc[q]);
-      }
-    V out;
-    T* e = reinterpret_cast<T*>(&out);
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) e[q] = from_f32<T>(acc[q]);
-    *reinterpret_cast<V*>(yb + ((size_t)i * Wo + j) * C) = out;
-  }
-}
-
-template <typename T, int VEC, int S>
-int launch(const void* x, const void* w, void* y, int B, int H, int W, int C,
-           cudaStream_t stream) {
-  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const int ncv = C / VEC;
-  const int cgv = ncv < THREADS ? ncv : THREADS;  // channel words a block covers
-  const int n_cgroups = (ncv + cgv - 1) / cgv;
-  const int P = THREADS / cgv;  // output columns a block covers
-  dim3 grid((Wo + P - 1) / P, (Ho + TH<S> - 1) / TH<S>, B * n_cgroups);
-  dwconv3x3_fwd_kernel<T, VEC, S><<<grid, cgv * P, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      H, W, C, Ho, Wo, cgv, n_cgroups);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int VEC, int S>
-int dispatch(const void* x, const void* w, void* y, int B, int H, int W, int C,
-             cudaStream_t stream) {
-  const bool aligned = ((uintptr_t)x | (uintptr_t)w | (uintptr_t)y) % (VEC * sizeof(T)) == 0;
-  if (aligned && C % VEC == 0) return launch<T, VEC, S>(x, w, y, B, H, W, C, stream);
-  return launch<T, 1, S>(x, w, y, B, H, W, C, stream);
-}
-
-// ---------------------------------------------------------------------------
-// backward
 
 template <typename T, int VEC>
 __device__ __forceinline__ typename Vec<T, VEC>::type load_word(const T* base, int gy, int gx,
@@ -198,6 +147,433 @@ __device__ __forceinline__ void store_word(T* base, int gy, int gx, int W, int C
   for (int q = 0; q < VEC; ++q) e[q] = from_f32<T>(v[q]);
   *reinterpret_cast<V*>(base + ((size_t)gy * W + gx) * C) = out;
 }
+
+// ---------------------------------------------------------------------------
+// forward
+
+// A word's elements as f32.  bf16 pairs widen by a shift and a mask, one
+// integer operation each.
+template <typename T, int VEC>
+__device__ __forceinline__ void widen(const typename Vec<T, VEC>::type& v, float* out) {
+  if constexpr (sizeof(T) == 2 && VEC % 2 == 0) {
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int q = 0; q < VEC / 2; ++q) {
+      out[2 * q] = __uint_as_float(u[q] << 16);
+      out[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u);
+    }
+  } else {
+    unpack<T, VEC>(v, out);
+  }
+}
+
+// Round the f32 sum to the output type, then (EPI) add the bias and the
+// residual input word, each as an f32 add rounded to the output type -- the
+// roundings of three separate passes -- and store the word.
+template <typename T, int VEC, bool EPI>
+__device__ __forceinline__ void finish_word(T* dst, const float (&acc)[VEC],
+                                            const float (&bz)[VEC], bool has_bias,
+                                            const typename Vec<T, VEC>::type& res,
+                                            bool residual) {
+  using V = typename Vec<T, VEC>::type;
+  V out;
+  T* e = reinterpret_cast<T*>(&out);
+  float rv[VEC];
+  if constexpr (EPI) widen<T, VEC>(res, rv);
+  if constexpr (sizeof(T) == 2 && VEC % 2 == 0) {
+    // bf16 in pairs: the two-element conversion is the fast one on this card
+    __nv_bfloat162* e2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int q = 0; q < VEC; q += 2) {
+      __nv_bfloat162 o = __floats2bfloat162_rn(acc[q], acc[q + 1]);
+      if constexpr (EPI) {
+        if (has_bias) {
+          float f[2];
+          widen<T, 2>(*reinterpret_cast<const uint32_t*>(&o), f);
+          o = __floats2bfloat162_rn(f[0] + bz[q], f[1] + bz[q + 1]);
+        }
+        if (residual) {
+          float f[2];
+          widen<T, 2>(*reinterpret_cast<const uint32_t*>(&o), f);
+          o = __floats2bfloat162_rn(f[0] + rv[q], f[1] + rv[q + 1]);
+        }
+      }
+      e2[q / 2] = o;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      T o = from_f32<T>(acc[q]);
+      if constexpr (EPI) {
+        if (has_bias) o = from_f32<T>(to_f32(o) + bz[q]);
+        if (residual) o = from_f32<T>(to_f32(o) + rv[q]);
+      }
+      e[q] = o;
+    }
+  }
+  *reinterpret_cast<V*>(dst) = out;
+}
+
+// The taps [3, 3, C] and (EPI) the bias [C] of one channel word, as f32.
+template <typename T, int VEC, bool EPI>
+__device__ __forceinline__ void load_taps(const T* w, const T* bias, int C, int c,
+                                          float (&k)[3][3][VEC], float (&bz)[VEC]) {
+  using V = typename Vec<T, VEC>::type;
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+    widen<T, VEC>(*reinterpret_cast<const V*>(w + t * C + c), k[t / 3][t % 3]);
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) bz[q] = 0.f;
+  if constexpr (EPI)
+    if (bias != nullptr) widen<T, VEC>(*reinterpret_cast<const V*>(bias + c), bz);
+}
+
+// The direct kernel (stride 2, and small inputs at stride 1): one thread per
+// channel word, output column and TH output rows loads every input word of
+// them at once, zeros outside the image, and forms its outputs.
+template <typename T, int VEC, int S, bool EPI>
+__global__ void __launch_bounds__(THREADS)
+dwconv3x3_fwd_direct_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                           const T* __restrict__ bias, T* __restrict__ y, int H, int W, int C,
+                           int Ho, int Wo, int cgv, int n_cgroups, int residual) {
+  using V = typename Vec<T, VEC>::type;
+  constexpr int IR = (TH<S> - 1) * S + 3;  // input rows of a strip
+  const int ncv = C / VEC;
+  const int tc = threadIdx.x % cgv;
+  const int tp = threadIdx.x / cgv;
+  const int P = blockDim.x / cgv;  // output columns per block
+  const int b = blockIdx.z / n_cgroups;
+  const int cvi = (blockIdx.z - b * n_cgroups) * cgv + tc;
+  const int j = blockIdx.x * P + tp;
+  if (cvi >= ncv || j >= Wo) return;
+  const int c = cvi * VEC;
+  const int i0 = blockIdx.y * TH<S>;
+  const int r0 = S * i0 - 1, x0 = S * j - 1;  // input origin of the strip
+
+  // every input word of the strip, loads all in flight together
+  const T* xb = x + (size_t)b * H * W * C + c;
+  V in[IR][3];
+#pragma unroll
+  for (int r = 0; r < IR; ++r)
+#pragma unroll
+    for (int t = 0; t < 3; ++t) in[r][t] = load_word<T, VEC>(xb, r0 + r, x0 + t, H, W, C);
+  float k[3][3][VEC], bz[VEC];
+  load_taps<T, VEC, EPI>(w, bias, C, c, k, bz);
+
+  T* yb = y + (size_t)b * Ho * Wo * C + c;
+#pragma unroll
+  for (int o = 0; o < TH<S>; ++o) {
+    const int i = i0 + o;
+    if (i >= Ho) break;
+    float acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        float v[VEC];
+        widen<T, VEC>(in[o * S + a][t], v);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) acc[q] = fmaf(v[q], k[a][t][q], acc[q]);
+      }
+    finish_word<T, VEC, EPI>(yb + ((size_t)i * Wo + j) * C, acc, bz, bias != nullptr,
+                             in[o * S + 1][1], residual);
+  }
+}
+
+// Block geometry of the ring kernel (stride 1): a tile of P output columns
+// by cgv channel words (one thread each) walks down `rows` output rows.
+struct FwdGeom {
+  int cgv, n_cgroups, P, rows, gx, gy, slab;
+  long long blocks(int B) const { return (long long)gx * gy * B * n_cgroups; }
+};
+
+template <int VEC>
+FwdGeom fwd_geom(int H, int W, int C, int rows, int threads) {
+  FwdGeom g;
+  const int ncv = C / VEC;
+  g.cgv = ncv < threads ? ncv : threads;  // channel words a block covers
+  g.n_cgroups = (ncv + g.cgv - 1) / g.cgv;
+  g.P = threads / g.cgv;  // output columns a block covers
+  if (g.P > W) g.P = W;
+  g.gx = (W + g.P - 1) / g.P;
+  g.slab = (g.P + 2) * g.cgv;  // words of one staged input row
+  g.rows = rows < H ? rows : H;
+  g.gy = (H + g.rows - 1) / g.rows;
+  return g;
+}
+
+// One word from global into shared memory, asynchronously where the card
+// has a copy of that size (4, 8, 16 bytes); `ok` false writes zeros.
+template <typename V>
+__device__ __forceinline__ void stage_word(V* dst, const V* src, bool ok) {
+  if constexpr (sizeof(V) >= 4) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = ok ? (int)sizeof(V) : 0;  // bytes read; the rest is zero-filled
+    if constexpr (sizeof(V) == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                   "n"((int)sizeof(V)), "r"(n)
+                   : "memory");
+  } else {
+    *dst = ok ? *src : zero_word<V>();
+  }
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Input rows staged in shared memory: NST - 1 are in flight while one is read.
+constexpr int NST = 4;
+
+template <typename T, int VEC, bool EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+dwconv3x3_fwd_ring_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const T* __restrict__ bias, T* __restrict__ y, int H, int W, int C,
+                          FwdGeom geo, int residual) {
+  using V = typename Vec<T, VEC>::type;
+  extern __shared__ uint4 ring_words[];  // NST slots of geo.slab words
+  V* ring = reinterpret_cast<V*>(ring_words);
+  const int ncv = C / VEC;
+  const int cgv = geo.cgv;
+  const int tc = threadIdx.x % cgv;
+  const int tp = threadIdx.x / cgv;
+  const int b = blockIdx.z / geo.n_cgroups;
+  const int cg = blockIdx.z - b * geo.n_cgroups;
+  const int cvi = cg * cgv + tc;
+  const int j0 = blockIdx.x * geo.P;
+  const int j = j0 + tp;
+  const bool active = cvi < ncv && j < W;
+  const int c = cvi * VEC;
+  const int i0 = blockIdx.y * geo.rows;
+  const int i_end = min(i0 + geo.rows, H);
+  const int r0 = i0 - 1, r_last = i_end;  // first and last input row the strip reads
+
+  // the words of a staged row this thread copies: at most three
+  const T* xb = x + (size_t)b * H * W * C;
+  int src[3];  // element offset in an input row; -1: zero padding; -2: none
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    const int idx = threadIdx.x + n * blockDim.x;
+    src[n] = -2;
+    if (idx < geo.slab) {
+      const int col = idx / cgv, wd = idx - col * cgv;
+      const int gx = j0 - 1 + col, cw = cg * cgv + wd;
+      src[n] = (gx >= 0 && gx < W && cw < ncv) ? gx * C + cw * VEC : -1;
+    }
+  }
+  auto stage_row = [&](int r, int slot) {
+    const bool row_ok = r >= 0 && r < H;
+    const T* xrow = xb + (size_t)(row_ok ? r : 0) * W * C;
+    V* dst = ring + slot * geo.slab + threadIdx.x;
+#pragma unroll
+    for (int n = 0; n < 3; ++n)
+      if (src[n] != -2) {
+        const bool ok = row_ok && src[n] >= 0;
+        stage_word<V>(dst + n * blockDim.x, reinterpret_cast<const V*>(ok ? xrow + src[n] : x),
+                      ok);
+      }
+  };
+
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (r0 + s <= r_last) stage_row(r0 + s, s);
+    stage_commit();
+  }
+
+  float k[3][3][VEC], bz[VEC];
+  if (active) load_taps<T, VEC, EPI>(w, bias, C, c, k, bz);
+  V centre = zero_word<V>();  // the centre word of the row before: the residual
+  T* yb = y + (size_t)b * H * W * C + c;
+
+  int slot = 0, slot_in = NST - 1;  // the slot read now, the slot staged now
+  // wait for input row r; the slot read last goes to the row NST - 1 ahead
+  auto next_row = [&](int r) {
+    stage_wait<NST - 2>();
+    __syncthreads();
+    if (r + NST - 1 <= r_last) stage_row(r + NST - 1, slot_in);
+    stage_commit();
+    slot_in = slot_in + 1 == NST ? 0 : slot_in + 1;
+  };
+  // the three words of the staged row that output column j reads, as f32
+  auto read_row = [&](float (&v)[3][VEC], V& mid) {
+    const V* p = ring + slot * geo.slab + tp * cgv + tc;
+    const V left = p[0], right = p[2 * cgv];  // whole words: one shared-memory load each
+    mid = p[cgv];
+    widen<T, VEC>(left, v[0]);
+    widen<T, VEC>(mid, v[1]);
+    widen<T, VEC>(right, v[2]);
+    slot = slot + 1 == NST ? 0 : slot + 1;
+  };
+  // acc += the three taps of one kernel row against the row; `first` starts at 0
+  auto taps_row = [&](float (&acc)[VEC], const float (&v)[3][VEC], const float (&ka)[3][VEC],
+                      bool first) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+#pragma unroll
+      for (int q = 0; q < VEC; ++q)
+        acc[q] = fmaf(v[t][q], ka[t][q], (first && t == 0) ? 0.f : acc[q]);
+  };
+  auto finish = [&](const float (&acc)[VEC], int i) {
+    finish_word<T, VEC, EPI>(yb + ((size_t)i * W + j) * C, acc, bz, bias != nullptr, centre,
+                             residual);
+  };
+
+  // input row r ends output row r - 1 (kernel row 2), continues row r
+  // (kernel row 1) and starts row r + 1 (kernel row 0)
+  auto step = [&](int r, float (&done)[VEC], float (&cont)[VEC], float (&start)[VEC]) {
+    next_row(r);
+    if (!active) return;
+    float v[3][VEC];
+    V mid;
+    read_row(v, mid);
+    if (r - 1 >= i0) {
+      taps_row(done, v, k[2], false);
+      finish(done, r - 1);
+    }
+    if (r >= i0 && r < i_end) taps_row(cont, v, k[1], false);
+    if (r + 1 < i_end) taps_row(start, v, k[0], true);
+    centre = mid;
+  };
+  float a0[VEC], a1[VEC], a2[VEC];  // the sums of three output rows, roles rotating
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) a0[q] = a1[q] = a2[q] = 0.f;
+  for (int r = r0;;) {
+    step(r, a0, a1, a2);
+    if (++r > r_last) break;
+    step(r, a1, a2, a0);
+    if (++r > r_last) break;
+    step(r, a2, a0, a1);
+    if (++r > r_last) break;
+  }
+}
+
+// The strip height and block size of the ring kernel for one input.  A block
+// takes one step per staged input row and the card holds `slots` blocks at
+// once, so a launch costs its steps times its rounds; a round that is not
+// full runs faster than a full one, which the mean of the rounds' exact and
+// whole number stands for, and a quarter round stands for the ramp at both
+// ends.  Fitted to sweeps of the strip height on an H100 (PERF.md).
+template <typename T, int VEC, bool EPI>
+FwdGeom choose_geom(int B, int H, int W, int C, int rows) {
+  using V = typename Vec<T, VEC>::type;
+  static int n_sm = 0, per_sm[2] = {0, 0};  // blocks an SM holds at 128 and 256 threads
+  if (n_sm == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  }
+  FwdGeom best = fwd_geom<VEC>(H, W, C, rows > 0 ? rows : 8, THREADS / 2);
+  double best_cost = -1.0;
+  for (int ti = 0; ti < 2; ++ti) {
+    const int threads = (THREADS / 2) << ti;
+    if (per_sm[ti] == 0) {
+      const FwdGeom g = fwd_geom<VEC>(H, W, C, 8, threads);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[ti],
+                                                    dwconv3x3_fwd_ring_kernel<T, VEC, EPI>,
+                                                    g.cgv * g.P, NST * g.slab * sizeof(V));
+      if (per_sm[ti] < 1) per_sm[ti] = 1;
+    }
+    const double slots = (double)n_sm * per_sm[ti];
+    // equal strips: gy of them, or the one height the caller names
+    for (int gy = (H + FWD_MAX_ROWS - 1) / FWD_MAX_ROWS; gy <= H; ++gy) {
+      const int r = rows > 0 ? rows : (H + gy - 1) / gy;
+      const FwdGeom g = fwd_geom<VEC>(H, W, C, r, threads);
+      const double fill = (double)g.blocks(B) / slots;
+      const double cost = (g.rows + 2) * (0.5 * (fill + ceil(fill)) + 0.25);
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
+        best = g;
+      }
+      if (rows > 0 || r <= 2) break;
+    }
+  }
+  return best;
+}
+
+template <typename T, int VEC, bool EPI>
+int launch_ring(const T* x, const T* w, const T* bias, T* y, int B, int H, int W, int C,
+                int residual, int rows, cudaStream_t stream) {
+  using V = typename Vec<T, VEC>::type;
+  const FwdGeom geo = choose_geom<T, VEC, EPI>(B, H, W, C, rows);
+  if ((long long)B * geo.n_cgroups > 65535 || geo.gy > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(geo.gx, geo.gy, B * geo.n_cgroups);
+  const size_t smem = (size_t)NST * geo.slab * sizeof(V);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(dwconv3x3_fwd_ring_kernel<T, VEC, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dwconv3x3_fwd_ring_kernel<T, VEC, EPI><<<grid, geo.cgv * geo.P, smem, stream>>>(
+      x, w, bias, y, H, W, C, geo, residual);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC, int S, bool EPI>
+int launch_direct(const T* x, const T* w, const T* bias, T* y, int B, int H, int W, int C,
+                  int residual, cudaStream_t stream) {
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  const int ncv = C / VEC;
+  const int cgv = ncv < THREADS ? ncv : THREADS;  // channel words a block covers
+  const int n_cgroups = (ncv + cgv - 1) / cgv;
+  const int P = THREADS / cgv;  // output columns a block covers
+  dim3 grid((Wo + P - 1) / P, (Ho + TH<S> - 1) / TH<S>, B * n_cgroups);
+  dwconv3x3_fwd_direct_kernel<T, VEC, S, EPI><<<grid, cgv * P, 0, stream>>>(
+      x, w, bias, y, H, W, C, Ho, Wo, cgv, n_cgroups, residual);
+  return (int)cudaGetLastError();
+}
+
+// Stride 2, and stride-1 inputs under FWD_DIRECT_BYTES, take the direct
+// kernel with 8-byte words (else one element); larger stride-1 inputs, and
+// any stride-1 call that names its strip height, the ring kernel with the
+// widest word (16 or 8 bytes, else one element) that divides C and that
+// every pointer is aligned to.  rows < 0 names the direct kernel.
+template <typename T, int S, bool EPI>
+int dispatch(const void* xv, const void* wv, const void* bv, void* yv, int B, int H, int W, int C,
+             int residual, int rows, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const T* w = static_cast<const T*>(wv);
+  const T* bias = static_cast<const T*>(bv);
+  T* y = static_cast<T*>(yv);
+  constexpr int WIDE = 16 / sizeof(T), MID = 8 / sizeof(T);
+  const uintptr_t p = (uintptr_t)xv | (uintptr_t)wv | (uintptr_t)yv | (uintptr_t)bv;
+  const bool mid = p % 8 == 0 && C % MID == 0;
+  if constexpr (S == 1) {
+    if (rows > 0 ||
+        (rows == 0 && (long long)B * H * W * C * (long long)sizeof(T) >= FWD_DIRECT_BYTES)) {
+      if (p % 16 == 0 && C % WIDE == 0)
+        return launch_ring<T, WIDE, EPI>(x, w, bias, y, B, H, W, C, residual, rows, stream);
+      if (mid) return launch_ring<T, MID, EPI>(x, w, bias, y, B, H, W, C, residual, rows, stream);
+      return launch_ring<T, 1, EPI>(x, w, bias, y, B, H, W, C, residual, rows, stream);
+    }
+  }
+  return mid ? launch_direct<T, MID, S, EPI>(x, w, bias, y, B, H, W, C, residual, stream)
+             : launch_direct<T, 1, S, EPI>(x, w, bias, y, B, H, W, C, residual, stream);
+}
+
+template <typename T>
+int dispatch_fwd(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                 int C, int stride, int residual, int rows, cudaStream_t s) {
+  const bool epi = bias != nullptr || residual;
+  if (stride == 1)
+    return epi ? dispatch<T, 1, true>(x, w, bias, y, B, H, W, C, residual, rows, s)
+               : dispatch<T, 1, false>(x, w, bias, y, B, H, W, C, residual, rows, s);
+  if (stride == 2 && !residual && rows <= 0)
+    return epi ? dispatch<T, 2, true>(x, w, bias, y, B, H, W, C, residual, rows, s)
+               : dispatch<T, 2, false>(x, w, bias, y, B, H, W, C, residual, rows, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// backward
 
 // Block geometry of the backward, shared by the launch and the workspace
 // query so that both agree on the number of dw partials.
@@ -433,15 +809,20 @@ long long parts_of(const void* x, const void* w, const void* g, const void* dx, 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; stride: 1 or 2.  x is NHWC [B,H,W,C],
-// w is [3,3,C] in the same type, y is NHWC [B,Ho,Wo,C].
+// w is [3,3,C] in the same type, y is NHWC [B,Ho,Wo,C].  bias is [C] in
+// the same type or null; residual != 0 (stride 1 only) adds x to the
+// output; both are added after the sum is rounded to the output type, each
+// with a rounding of its own.  rows > 0 (stride 1 only) names the ring
+// kernel's strip height, rows < 0 the direct kernel; 0 lets the launch
+// choose kernel and strip.
 // Returns cudaGetLastError() after the launch.
-extern "C" int tcct_dwconv3x3_fwd(const void* x, const void* w, void* y, int B, int H, int W,
-                                  int C, int stride, int dtype, void* stream) {
+extern "C" int tcct_dwconv3x3_fwd(const void* x, const void* w, const void* bias, void* y, int B,
+                                  int H, int W, int C, int stride, int dtype, int residual,
+                                  int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && stride == 1) return dispatch<float, 2, 1>(x, w, y, B, H, W, C, s);
-  if (dtype == 0 && stride == 2) return dispatch<float, 2, 2>(x, w, y, B, H, W, C, s);
-  if (dtype == 1 && stride == 1) return dispatch<__nv_bfloat16, 4, 1>(x, w, y, B, H, W, C, s);
-  if (dtype == 1 && stride == 2) return dispatch<__nv_bfloat16, 4, 2>(x, w, y, B, H, W, C, s);
+  if (dtype == 0) return dispatch_fwd<float>(x, w, bias, y, B, H, W, C, stride, residual, rows, s);
+  if (dtype == 1)
+    return dispatch_fwd<__nv_bfloat16>(x, w, bias, y, B, H, W, C, stride, residual, rows, s);
   return (int)cudaErrorInvalidValue;
 }
 

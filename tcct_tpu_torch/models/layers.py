@@ -63,13 +63,21 @@ class Conv2d(nn.Conv2d):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, residual=False)
+
+    def plus_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``conv(x) + x`` (ConvPosEnc): the depthwise kernel adds the bias
+        and the input in its own launch, rounded as the separate adds."""
+        return self._conv(x, residual=True)
+
+    def _conv(self, x: torch.Tensor, residual: bool) -> torch.Tensor:
         if not self._depthwise3x3(x):
-            return super().forward(x)
+            y = super().forward(x)
+            return y + x if residual else y
         taps = self.weight[:, 0].permute(1, 2, 0).to(x.dtype)  # [C,1,3,3] -> [3,3,C]
-        y = dwconv3x3(x.permute(0, 2, 3, 1), taps, self.stride[0]).permute(0, 3, 1, 2)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)[:, None, None]
-        return y
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return dwconv3x3(x.permute(0, 2, 3, 1), taps, self.stride[0], bias,
+                         residual).permute(0, 3, 1, 2)
 
 
 class _TrainPass:

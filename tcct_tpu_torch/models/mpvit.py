@@ -101,7 +101,7 @@ class ConvPosEnc(nn.Module):
 
     def forward(self, x, size):
         feat = tokens_to_image(x, size)
-        return image_to_tokens(self.proj(feat) + feat)
+        return image_to_tokens(self.proj.plus_input(feat))
 
 
 class ConvRelPosEnc(nn.Module):

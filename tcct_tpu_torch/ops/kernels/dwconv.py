@@ -9,15 +9,19 @@ The kernels are memory-bound; see the source's header note for their
 design.
 
 :func:`dwconv3x3` is a ``torch.autograd.Function``: its forward launches
-the forward kernel and its backward the fused backward kernel, which reads
-``x`` and ``g`` once and gives ``dx`` and the nine ``dw`` taps.  On a CPU
-tensor the same function runs the plain forward and the plain backward.
+the forward kernel (:func:`dwconv3x3_forward`) and its backward the fused
+backward kernel, which reads ``x`` and ``g`` once and gives ``dx`` and the
+nine ``dw`` taps.  The forward can add a bias and the input itself
+(``conv(x) + bias + x``, the ConvPosEnc site) in the same launch, rounded
+as the three separate passes round.  On a CPU tensor the same function
+runs the plain forward and the plain backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,7 +76,7 @@ def _fn(name: str):
     fn = getattr(lib, name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "tcct_dwconv3x3_fwd":
-        fn.argtypes = [p, p, p] + [i] * 6 + [p]
+        fn.argtypes = [p, p, p, p] + [i] * 8 + [p]
         fn.restype = i
     elif name == "tcct_dwconv3x3_bwd_parts":
         fn.argtypes = [p, p, p, p] + [i] * 6
@@ -94,9 +98,33 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, what: str) -> None:
                          f"{tuple(w.shape)} {w.dtype} on {w.device}")
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                      bias: Optional[torch.Tensor] = None, residual: bool = False,
+                      rows: int = 0) -> torch.Tensor:
+    """``dwconv3x3_reference(x, w, stride) + bias + x`` (the last two
+    optional) without autograd: NHWC [B,H,W,C] -> [B,Ho,Wo,C].  The sum is
+    rounded to x's dtype first, then the bias [C] and the input are added,
+    each as an f32 add with a rounding of its own, so the result equals the
+    three passes bit for bit.  ``residual`` needs stride 1.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    forward kernel once, or the call raises.  ``rows > 0`` (stride 1) names
+    the ring kernel's strip height and ``rows < 0`` the direct kernel, for
+    tests and measurements; 0 lets the launch pick kernel and strip."""
+    if stride not in (1, 2):
+        raise ValueError(f"dwconv3x3: stride must be 1 or 2, got {stride}")
+    if stride != 1 and (residual or rows > 0):
+        raise ValueError("dwconv3x3: residual=True and rows > 0 need stride 1")
+    C = x.shape[-1]
+    if bias is not None and (tuple(bias.shape) != (C,) or bias.dtype != x.dtype
+                             or bias.device != x.device):
+        raise ValueError(f"dwconv3x3: want bias [{C}] {x.dtype} on {x.device}, got "
+                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if x.device.type == "cpu":
-        return dwconv3x3_reference(x, w, stride)
+        y = dwconv3x3_reference(x, w, stride)
+        if bias is not None:
+            y = y + bias
+        return y + x if residual else y
     _check(x, w, stride, "dwconv3x3")
     B, H, W, C = x.shape
     x = x.contiguous()
@@ -105,8 +133,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     y = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    err = _fn("tcct_dwconv3x3_fwd")(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C,
-                                    stride, _DTYPES[x.dtype],
+    bias_ptr = None if bias is None else bias.contiguous().data_ptr()
+    err = _fn("tcct_dwconv3x3_fwd")(x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), B, H, W,
+                                    C, stride, _DTYPES[x.dtype], int(residual), rows,
                                     torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"dwconv3x3 {tuple(x.shape)} stride {stride} {x.dtype}")
     dwconv3x3.launches += 1
@@ -150,30 +179,35 @@ def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride
 
 class _DWConv3x3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride):
+    def forward(ctx, x, w, bias, stride, residual):
         ctx.save_for_backward(x, w)
-        ctx.stride = stride
-        return _forward(x, w, stride)
+        ctx.stride, ctx.residual = stride, residual
+        return dwconv3x3_forward(x, w, stride, bias, residual)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = dwconv3x3_backward(x, w, g, ctx.stride)
+        if ctx.residual:
+            dx = dx + g
         return (dx if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None, None)
+                dw if ctx.needs_input_grad[1] else None,
+                g.sum((0, 1, 2)) if ctx.needs_input_grad[2] else None, None, None)
 
 
-def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              bias: Optional[torch.Tensor] = None, residual: bool = False) -> torch.Tensor:
     """Depthwise 3x3 correlation, SAME zero padding, stride 1 or 2, f32
-    accumulation, no bias: NHWC [B,H,W,C] x [3,3,C] -> [B,Ho,Wo,C].
-    Differentiable in x and w: the backward is :func:`dwconv3x3_backward`.
+    accumulation: NHWC [B,H,W,C] x [3,3,C] -> [B,Ho,Wo,C], optionally
+    ``+ bias`` [C] and ``+ x`` (``residual``, stride 1) in the same launch
+    (see :func:`dwconv3x3_forward`).  Differentiable in x, w and bias: the
+    backward is :func:`dwconv3x3_backward`, plus ``g`` for the residual and
+    ``g`` summed over the pixels for the bias, in plain PyTorch.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels, or the call raises."""
-    if stride not in (1, 2):
-        raise ValueError(f"dwconv3x3: stride must be 1 or 2, got {stride}")
-    return _DWConv3x3.apply(x, w, stride)
+    return _DWConv3x3.apply(x, w, bias, stride, residual)
 
 
 # launches of the forward / backward kernel, all strides and stride 2 only

@@ -24,6 +24,7 @@ from tcct_tpu_torch.ops.kernels.dwconv import (
     dwconv3x3,
     dwconv3x3_backward,
     dwconv3x3_backward_reference,
+    dwconv3x3_forward,
     dwconv3x3_reference,
 )
 from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
@@ -63,21 +64,82 @@ def test_metapool_kernel_matches_plain(cuda, shape, dtype):
     _close(got, metapool_tokens_reference(x), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 12, 24, 8), (1, 9, 130, 40), (2, 33, 17, 160),
-                                   (8, 64, 144, 96)])
-def test_dwconv_kernel_matches_plain(cuda, shape, stride, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
+# The forward's edges.  Stride 2 and small stride-1 inputs take the direct
+# kernel; a stride-1 call that names `rows` takes the ring kernel, whose
+# block covers 128 or 256 threads' worth of columns (at C = 64: 16 or 32 in
+# bf16, 8 or 16 in f32) and walks a strip of `rows` output rows.  Widths one
+# less and one more than a block's columns, heights one more than a strip,
+# H = 1, W = 1, C that takes the 16-byte, the 8-byte and the one-element
+# word, C above one block's channel words (2056 in bf16).
+DW_SHAPES = [(2, 12, 24, 8), (1, 9, 130, 40), (2, 33, 17, 160), (8, 64, 144, 96),
+             (1, 9, 15, 64), (1, 9, 17, 64), (2, 4, 31, 64), (2, 4, 33, 64), (1, 1, 1, 8),
+             (2, 1, 7, 16), (2, 7, 1, 16), (2, 13, 21, 4), (2, 13, 21, 12), (3, 20, 19, 1),
+             (1, 35, 33, 216), (1, 34, 31, 264), (1, 3, 2, 2056)]
+
+
+def _dw_inputs(cuda, shape, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     w = (torch.randn((3, 3, shape[-1]), generator=g, device=cuda) / 3).to(dtype)
+    bias = torch.randn((shape[-1],), generator=g, device=cuda).to(dtype)
+    return x, w, bias
+
+
+# (stride, rows): the launch's own choice at both strides, the ring kernel
+# at three strip heights
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,rows", [(1, 0), (2, 0), (1, 1), (1, 3), (1, 8)])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dwconv_kernel_matches_plain(cuda, shape, stride, rows, dtype):
+    x, w, _ = _dw_inputs(cuda, shape, dtype, 1)
     n, n2 = dwconv3x3.launches, dwconv3x3.launches_s2
-    got = dwconv3x3(x, w, stride)
+    got = dwconv3x3(x, w, stride) if rows == 0 else dwconv3x3_forward(x, w, stride, rows=rows)
     torch.cuda.synchronize()
     assert dwconv3x3.launches == n + 1 and dwconv3x3.launches_s2 == n2 + (stride == 2)
     want = dwconv3x3_reference(x, w, stride)
     assert got.shape == want.shape
     _close(got, want, dtype)
+    if rows > 0:  # the ring kernel keeps the direct kernel's order of sums: same bits
+        assert torch.equal(got, dwconv3x3_forward(x, w, stride, rows=-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,rows", [(1, 0), (2, 0), (1, 5)])
+def test_dwconv_kernel_takes_an_8_byte_aligned_view(cuda, stride, rows, dtype):
+    """A view that starts 8 bytes into its storage: the launch falls to the
+    8-byte word and gives what it gives for an aligned copy."""
+    off = 8 // torch.empty((), dtype=dtype).element_size()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    flat = torch.randn(2 * 9 * 11 * 16 + off, generator=g, device=cuda).to(dtype)
+    x = flat[off:].view(2, 9, 11, 16)
+    assert x.data_ptr() % 16 == 8
+    w = (torch.randn((3, 3, 16), generator=g, device=cuda) / 3).to(dtype)
+    got = dwconv3x3_forward(x, w, stride, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dwconv3x3_forward(x.clone(), w, stride, rows=rows))
+    _close(got, dwconv3x3_reference(x, w, stride), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [0, 3, 8])
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dwconv_epilogue_equals_the_three_passes(cuda, shape, rows, dtype):
+    """conv + bias + x in one launch is bitwise the kernel's conv followed
+    by the two PyTorch adds; the bias alone at both strides."""
+    x, w, bias = _dw_inputs(cuda, shape, dtype, 3)
+    n = dwconv3x3.launches
+    for stride, b, res in ((1, bias, True), (1, None, True), (1, bias, False), (2, bias, False)):
+        r = rows if stride == 1 else 0
+        got = dwconv3x3_forward(x, w, stride, b, res, rows=r)
+        want = dwconv3x3_forward(x, w, stride, rows=r)
+        if b is not None:
+            want = want + b
+        if res:
+            want = want + x
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (stride, b is not None, res)
+    assert dwconv3x3.launches == n + 8
+    _close(dwconv3x3(x, w, 1, bias, True), dwconv3x3_reference(x, w, 1) + bias + x, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -208,6 +270,17 @@ def test_grad_fn_through_kernels(cuda, dtype):
         lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * gw_ref.abs() if dtype == torch.bfloat16 else 0)
         assert bool(((gw.float() - gw_ref).abs() <= lim).all())
 
+    # with the bias and the residual: dx gains g, the bias gets g summed over the pixels
+    b = torch.randn((32,), generator=g, device=cuda).to(dtype).requires_grad_()
+    x = x.detach().requires_grad_()
+    y = dwconv3x3(x, w, 1, b, True)
+    assert y.grad_fn is not None
+    gy = torch.randn_like(y)
+    gx, gw, gb = torch.autograd.grad(y, (x, w, b), gy)
+    dx, dw = dwconv3x3_backward(x.detach(), w.detach(), gy, 1)
+    assert torch.equal(gx, dx + gy) and torch.equal(gw, dw)
+    assert torch.equal(gb, gy.sum((0, 1, 2)))
+
 
 def _cross_block(cuda, cin, cout, k, dtype, seed, plain=False):
     """The seeded block (random conv biases, random positive BN affines and
@@ -323,6 +396,15 @@ def test_kernels_refuse_bad_inputs(cuda):
         metapool_tokens(torch.zeros(2, 4, 4, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         dwconv3x3(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 4, device=cuda))
+    with pytest.raises(ValueError, match="stride 1"):
+        dwconv3x3(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda), 2,
+                  residual=True)
+    with pytest.raises(ValueError, match="stride 1"):
+        dwconv3x3_forward(torch.zeros(1, 4, 4, 8, device=cuda),
+                          torch.zeros(3, 3, 8, device=cuda), 2, rows=4)
+    with pytest.raises(ValueError, match="bias"):
+        dwconv3x3(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda),
+                  bias=torch.zeros(4, device=cuda))
     with pytest.raises(ValueError):
         dwconv3x3_backward(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda),
                            torch.zeros(1, 3, 4, 8, device=cuda))

@@ -112,7 +112,8 @@ def test_depthwise_conv_module_routes_to_dwconv(stride, monkeypatch):
 
     seen = []
     real = layers.dwconv3x3
-    monkeypatch.setattr(layers, "dwconv3x3", lambda x, w, s: seen.append(s) or real(x, w, s))
+    monkeypatch.setattr(layers, "dwconv3x3",
+                        lambda x, w, s, *rest: seen.append(s) or real(x, w, s, *rest))
     torch.manual_seed(0)
     m = conv2d(16, 16, 3, stride, 1, groups=16)
     x = torch.randn(2, 16, 10, 14).contiguous(memory_format=torch.channels_last)
