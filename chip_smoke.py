@@ -20,8 +20,9 @@ toolkit (``nvcc``):
    (the ConvPosEnc site) bit for bit against the three passes it
    replaces, and timed against them; then the fused CrossCNN
    block kernel at the five duke levels of ``stc_tt``, the four
-   channel-changing levels of ``gtc_tb``, a plain (k = 3) block and an
-   input smaller than a tile;
+   channel-changing levels of ``gtc_tb``, a plain (k = 3) block, an
+   input smaller than a tile and one whose weights stream through the
+   ring;
 3. serves a 20-scan seeded duke volume through ``load_predictor`` at full
    width (random-init weights, batch 8, bf16) with the launch counts set
    to 0 just before and read just after, checks the class maps (shape,
@@ -38,12 +39,21 @@ toolkit (``nvcc``):
 6. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
    256x256, seeded random weights and a seeded banded batch) for 5 steps
    with the launch counts read around the first, checks every loss is
-   finite, and prints ms/step, peak memory and the profile of a sixth;
+   finite, and prints ms/step, peak memory and the profile of a sixth, and
+   whether one step run twice from one state repeats bit for bit;
 7. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
 outside a checkout, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --k4-against DIR
+
+builds DIR's ``tcct_tpu_torch/csrc/crosscnn_fused.cu`` (another checkout,
+e.g. the parent commit, whose ``tcct_crosscnn_fused_fwd`` has this one's C
+signature) beside this one's and holds the two against each other in bf16
+at every fused-block shape: bitwise equal or not, and device us per launch
+in turns.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -737,8 +748,36 @@ K4_SHAPES = [
     ("gtc_tb duke level 4", (8, 16, 36, 128), 256, 5, False, 0),
     ("plain block (k = 3)", (8, 64, 144, 32), 32, 9, True, 0),
     ("smaller than a tile", (8, 4, 8, 32), 32, 5, False, 0),
+    ("weights through the ring, no tile divides H, W", (3, 20, 44, 128), 256, 5, False, 0),
 ]
 K4_ITERS = 4
+
+
+def k4_plan_text(plan) -> str:
+    ring = f"ring 2 x {plan.ring} steps" if plan.ring else "resident weights"
+    return f"tile {plan.th}x{plan.tw}, {ring}, {plan.threads} threads"
+
+
+def k4_weight_bytes(plan, shape, cout, k):
+    """Weight bytes one bf16 launch copies from L2 into shared memory under
+    ``plan`` (each stage's weights once a block when resident, once a round
+    of warp items when streamed), and what the same tile read when every
+    warp item took its conv's weights for its 32 output channels from
+    global memory (the earlier design).  A warp's item is 2 M tiles x 32
+    output channels."""
+    B, H, W, cin = shape
+    th, tw, R, ncg = plan.th, plan.tw, k // 2 + 2, cout // 32
+    blocks = B * math.ceil(H / th) * math.ceil(W / tw)
+    stages = [(th + 4, tw + 4, 9 * cin), (th + 2 * R, tw + 4, k * cin), (th + 4, tw + 4, k * cout),
+              (th + 2, tw + 2, 18 * cout), (th, tw, 9 * cout)]  # (rows, columns, taps x Cin)
+    now = per_item = 0
+    for oh, ow, kc in stages:
+        wbytes = kc * cout * 2
+        mtiles = oh * math.ceil(ow / 16)
+        per_item += math.ceil(mtiles / 2) * ncg * wbytes // ncg
+        rounds = math.ceil(math.ceil(mtiles / 2) * ncg / (plan.threads // 32))
+        now += wbytes * (rounds if plan.ring else 1)
+    return now * blocks, per_item * blocks
 
 
 def check_fused_block(name, got, want, truth, dn):
@@ -810,7 +849,7 @@ def bench_fused_block(report, card):
     from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
         fused_cross_block,
         fused_cross_block_reference,
-        fused_tile,
+        fused_plan,
     )
 
     print(f"fused CrossCNN block kernel vs its plain version [{card}]:", flush=True)
@@ -828,7 +867,7 @@ def bench_fused_block(report, card):
                 blk = seeded_cross_block(cin, cout, k, SEED + 10 + i, plain).to("cuda", dtype)
                 x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 label = f"fused_cross_block {list(shape)} -> {cout} k {kk} {dn}"
-                th, tw, smem = fused_tile(B, H, W, cin, cout, kk, dtype)
+                plan = fused_plan(B, H, W, cin, cout, kk, dtype)
                 got = fused_cross_block(x, blk)
                 torch.cuda.synchronize()
                 want = fused_cross_block_reference(x, blk)
@@ -846,11 +885,18 @@ def bench_fused_block(report, card):
                 rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
                 b_ops = flops / rate * 1e3
                 bound = max(b_bytes, b_ops)
-                print(f"  {what}: {label}{' x1/batch' if n_serve else ''}: tile {th}x{tw} "
-                      f"({smem} B shared), max_abs_err {err:.3e} (mean {mean_err:.3e}, plain rms "
+                how = f"tile {plan.th}x{plan.tw} ({plan.smem} B shared)"
+                if dtype == torch.bfloat16:
+                    now, per_item = k4_weight_bytes(plan, shape, cout, kk)
+                    how = (f"{k4_plan_text(plan)}; shared bytes: activations "
+                           f"{plan.smem - plan.weight_smem}, weights {plan.weight_smem}; weight "
+                           f"bytes from L2 a launch {now / 1e6:.1f} MB (read by every warp item: "
+                           f"{per_item / 1e6:.1f} MB)")
+                print(f"  {what}: {label}{' x1/batch' if n_serve else ''}: {how}, "
+                      f"max_abs_err {err:.3e} (mean {mean_err:.3e}, plain rms "
                       f"{rms:.2f}, {n_out} outside the narrow bound; from the f64 chain: kernel max {e_k:.3e} mean {m_k:.3e}, plain "
                       f"max {e_p:.3e} mean {m_p:.3e}), "
-                      f"kernel {t_k:.3f} ms = {flops / t_k / 1e9:.1f} TFLOP/s, plain {t_p:.3f} ms, "
+                      f"kernel {t_k * 1e3:.1f} us = {flops / t_k / 1e9:.1f} TFLOP/s, plain {t_p:.3f} ms, "
                       f"module path {t_m:.3f} ms, bound {bound * 1e3:.1f} us "
                       f"({'bytes' if b_bytes >= b_ops else 'operations'} at "
                       f"{rate / 1e12:.0f} TFLOP/s), {bound / t_k * 100:.1f}% of it", flush=True)
@@ -870,6 +916,74 @@ def bench_fused_block(report, card):
         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
         "library_ms": None, "module_ms": tot["module_ms"],
     })
+
+
+# the C signature the other source's entry point must have (the binding below)
+K4_FWD_SIGNATURE = re.compile(
+    r'extern "C" int tcct_crosscnn_fused_fwd\(const void\* x, const void\* w, const float\* vec, '
+    r'void\* y,\s*int B, int H, int W, int Cin, int Cout, int k, int dtype,\s*void\* stream\)')
+
+
+def compare_fused_block_with(other_root: str, card: str, rows=None, timed: bool = True):
+    """``--k4-against DIR``: K4 in bf16 against the same kernel built from
+    another checkout's source (DIR, e.g. the parent commit unpacked) at
+    the K4_SHAPES ``rows`` (all by default): whether the outputs are equal
+    bit for bit, and with ``timed`` device us per launch in turns (other,
+    this, this, other).  Returns the bitwise verdict of each row."""
+    import ctypes
+
+    import torch
+
+    from tcct_tpu_torch.models.crosscnn import seeded_cross_block
+    from tcct_tpu_torch.ops.kernels import build
+    from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block, pack_cross_block
+
+    src = os.path.join(other_root, "tcct_tpu_torch", "csrc", "crosscnn_fused.cu")
+    with open(src) as f:
+        if not K4_FWD_SIGNATURE.search(f.read()):
+            fail(f"{src}: tcct_crosscnn_fused_fwd has another C signature than this tree's")
+    lib = os.path.join(build.BUILD_DIR, "other", "libcrosscnn_fused.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        fail(f"cannot build {src}: {done.stdout[-2000:]}")
+    other = ctypes.CDLL(lib).tcct_crosscnn_fused_fwd
+    other.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    other.restype = ctypes.c_int
+    print(f"fused CrossCNN block kernel, bf16, this tree against {src} [{card}]:", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    verdicts = []
+    with torch.inference_mode():
+        for i, (what, shape, cout, k, plain, _) in enumerate(K4_SHAPES):
+            if rows is not None and i not in rows:
+                continue
+            B, H, W, cin = shape
+            blk = seeded_cross_block(cin, cout, k, SEED + 30 + i, plain).to("cuda", torch.bfloat16)
+            x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            pk = pack_cross_block(blk, torch.bfloat16)
+
+            def run_other(t):
+                y = torch.empty((B, H, W, cout), dtype=t.dtype, device=t.device)
+                build.check(other(t.data_ptr(), pk.wf.data_ptr(), pk.vec.data_ptr(), y.data_ptr(),
+                                  B, H, W, cin, cout, pk.k, 1,
+                                  torch.cuda.current_stream().cuda_stream),
+                            f"the other K4 at {what}")
+                return y
+
+            same = torch.equal(run_other(x), fused_cross_block(x, blk))
+            verdicts.append(same)
+            if not timed:
+                print(f"  {what} {list(shape)} -> {cout} k {pk.k}: bitwise equal {same}",
+                      flush=True)
+                continue
+            copies = [(x.clone(),) for _ in range(n_copies(x.numel() * x.element_size()))]
+            mine = lambda t: fused_cross_block(t, blk)  # noqa: E731
+            us = [device_ms(f, copies, K4_ITERS) * 1e3 for f in (run_other, mine, mine, run_other)]
+            print(f"  {what} {list(shape)} -> {cout} k {pk.k}: bitwise equal {same}; us other "
+                  f"{us[0]:.1f}, {us[3]:.1f}; this {us[1]:.1f}, {us[2]:.1f}", flush=True)
+            del copies, x, blk
+    return verdicts
 
 
 def expected_launches(model, batch: int, hw, fused: bool):
@@ -1261,6 +1375,24 @@ def drive_train(report, card, train_counts):
           flush=True)
     profile_device(lambda: step(imgs, labs), steady, "one bf16 train step")
 
+    # printed, not held (ROADMAP C.2): does a step repeat bit for bit?  The
+    # polarization bins sum with index_add, whose float atomics on the card
+    # may add in another order from run to run
+    ends = []
+    for _ in range(2):
+        m = RegNet(get_model("stc_tt", TRAIN_NC, variant="train", drop_path_rate=0.1),
+                   out_channels=TRAIN_NC)
+        init_weights(m, torch.Generator().manual_seed(SEED))
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        build_train_step(m, make_optimizer(1, lr=LR), cfg, device="cuda", generator=g)(imgs, labs)
+        ends.append({k: v.detach().clone() for k, v in m.state_dict().items()})
+    off = [k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k])]
+    worst = max((float((ends[0][k].double() - ends[1][k].double()).abs().max()) for k in off),
+                default=0.0)
+    print(f"train: one step twice from one state and one generator: parameters and statistics "
+          f"bitwise equal: {not off} ({len(off)} of {len(ends[0])} tensors differ, max abs "
+          f"difference {worst:.3e})", flush=True)
+
 
 def _port_slice(sd0, device):
     import torch
@@ -1401,8 +1533,13 @@ def main() -> int:
     print(f"build: {build.sources()} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.ptxas_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] == "--k4-against":
+        compare_fused_block_with(sys.argv[2], card)
+        return 0
+    if len(sys.argv) > 1:
+        fail(f"usage: chip_smoke.py [--k4-against DIR], not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
     from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config

@@ -54,6 +54,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -71,6 +75,7 @@ struct Params {
   const float* vec;  // [12][Cout]: six biases, three (scale, shift) pairs
   void* y;
   int H, W, Cin, Cout, k, TH, TW;
+  int ck;            // bf16: steps in each of the weights' two ring slots; 0 for resident weights
 };
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
@@ -343,17 +348,48 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // [pixels, Cin] x [Cin, Cout] products on the tensor cores
 // (mma.sync.m16n8k16, bf16 operands, f32 accumulators).  An M tile is 16
 // consecutive pixels of one row of a stage's region, so the output tile is
-// 12 or 28 columns wide: then the regions of A1, B1 and B2 are 16 or 32
-// columns and those of G and Y waste 2 and 4 columns of their last M tile
-// (computed from whatever the buffer holds behind the row, never stored).
-// A warp's item is 2 M tiles x 32 output channels: per 16 input channels of
-// a tap it loads 2 A fragments from shared memory (ldmatrix.x4) and 4 B
-// fragments from the weights, which the wrapper packs fragment-major
-// ([tap][Cin/16][Cout/8][lane][4 values]) so that a warp reads one fragment
-// as 256 contiguous bytes through the read-only cache, and runs 8 MMAs.
+// 16 j - 4 columns wide (12, 28, 44, 60): then the regions of A1, B1 and B2
+// are whole M tiles and those of G and Y waste 2 and 4 columns of their
+// last M tile (computed from whatever the buffer holds behind the row, never
+// stored).  A warp's item is 2 M tiles x 32 output channels.  A conv is one
+// loop over its steps, tap-major ((dy, dx) in order, then 16 input channels
+// at a time): a step loads 2 A fragments (ldmatrix.x4) and 4 B fragments,
+// and runs 8 MMAs.  The loop loads step s + 1's fragments into a second
+// register set before it issues step s's MMAs, and each accumulator takes
+// its MMAs in the same order as it would in any other loop over the same
+// steps, so the tile, the ring and the block size leave the outputs bitwise
+// unchanged.
 // A staged pixel's channels are padded by 8 values (stride C + 8): the 8
 // rows of an ldmatrix phase then fall into distinct banks.  The epilogue
 // runs on the accumulator fragments in registers.
+//
+// Weights.  At Cout = 32 an item covers every output channel, so when B
+// came from global memory every item read its conv's whole weights: 1.7 MB
+// of L2 traffic a block at stc_tt's level 0.  The B fragments now come from
+// shared memory (ld.shared.v2: the wrapper packs the weights fragment-major,
+// [tap][Cin/16][Cout/8][lane][4 values], so a warp reads one fragment as 256
+// contiguous bytes, free of bank conflicts), by one of two ways the launch
+// picks with the tile:
+//   resident: the block copies each stage's weights once, with 16-byte
+//     cp.async, into one slot behind the activations (A1 + B1 while x is
+//     staged, then B2, then the two of G, then Y), and G's into the free
+//     tail of x's buffer while B2 runs, and Y's while G runs, where G's fit
+//     there;
+//   the ring, for a tile beside which no stage's weights fit (gtc_tb's wide
+//     levels: a 3x3 conv at 256 -> 256 is 1.18 MB): the weights stream
+//     through two slots of ck steps, every warp of the block in step, one
+//     barrier a chunk, the next chunk's copy in flight while one is
+//     computed; a stage walks its items in rounds of one item a warp and
+//     streams its weights once a round.
+// A block has 256 threads with resident weights and 512 with the ring (more
+// items a round).  The launch picks the tile and the ring's chunk by an
+// estimate of the launch's time: the MMAs of all five stages (halo and
+// wasted columns included, items spread over the SM's four schedulers), the
+// weight and x bytes a block copies and a ring's waits, times the rounds of
+// blocks over the SMs.  Measured on an H100, this kernel does an MMA in
+// about 4.4 SM clocks whether B comes from L2 or from shared memory: moving
+// the weights into shared memory cut the L2 traffic 13x and the time far
+// less.
 
 constexpr int MT = 2;    // M tiles (16 pixels each) of a warp's item
 constexpr int NT = 4;    // N tiles (8 output channels each) of a warp's item
@@ -363,15 +399,22 @@ constexpr int TAIL = 8;  // pixels of slack behind each buffer, read by the wast
 typedef __nv_bfloat16 bf16;
 
 struct ConvM {
-  const bf16* in;  // staged input [rows][IW][CS]
-  const bf16* wf;  // fragment-major weights of this conv
+  const bf16* in;       // staged input [rows][IW][CS]
+  const char* wg;       // fragment-major weights of this conv in global memory
+  uint32_t ws;          // shared-memory address of their copy (resident weights)
   int IW, CS, Cin, KH, KW, oy, ox;
 };
+
+__device__ __forceinline__ int steps_of(const ConvM& c) { return c.KH * c.KW * (c.Cin / 16); }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+__device__ __forceinline__ void lds64(uint2& b, uint32_t addr) {
+  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n" : "=r"(b.x), "=r"(b.y) : "r"(addr));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint2 b) {
@@ -382,34 +425,125 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// acc[m][j] += the conv's sum for M tile m (its row 0 at input offset
-// base[m] for tap 0) and N tile nt0 + j, over all taps and input channels.
-__device__ __forceinline__ void conv_mma(float (&acc)[MT][NT][4], const ConvM& c,
-                                         const int (&base)[MT], int nt_total, int nt0, int lane) {
+// 16-byte copies of `bytes` (a multiple of 16) from global to shared memory,
+// spread over the block's threads; the caller commits and waits.
+template <int NTH>
+__device__ __forceinline__ void copy_async(uint32_t dst, const char* src, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += NTH * 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + i), "l"(src + i)
+                 : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// One step's operands: MT A fragments and NT B fragments.
+struct Frags {
+  uint32_t a[MT][4];
+  uint2 b[NT];
+};
+
+__device__ __forceinline__ void load_step(Frags& f, uint32_t in_a, const int (&base)[MT],
+                                          int off, uint32_t wb) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) ldmatrix_x4(f.a[m], in_a + 2u * (uint32_t)(base[m] + off));
+#pragma unroll
+  for (int j = 0; j < NT; ++j) lds64(f.b[j], wb + 256u * j);
+}
+
+__device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const Frags& f) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], f.a[m], f.b[j]);
+  }
+}
+
+// acc[m][j] += steps s0 .. s1 - 1 of the conv's sum for M tile m (its row 0
+// at input offset base[m] for tap 0) and the item's N tile j.  Step s0's B
+// fragment of N tile 0 for this lane is at shared address wb, and each
+// step's lie `sb` bytes after the last.  Two register sets: step s + 1's
+// fragments load while step s's MMAs run.
+__device__ __forceinline__ void mma_steps(float (&acc)[MT][NT][4], const ConvM& c,
+                                          const int (&base)[MT], int lane, int s0, int s1,
+                                          uint32_t wb, int sb) {
   const int kc_n = c.Cin / 16;
   // the row address this lane gives ldmatrix: row (lane % 8) + 8 * ((lane / 8) % 2)
   // of the tile, input channels from 8 * (lane / 16)
   const int lane_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * c.CS + (lane >> 4) * 8;
-  const uint32_t in_s = (uint32_t)__cvta_generic_to_shared(c.in);
-  for (int dy = 0; dy < c.KH; ++dy) {
-    for (int dx = 0; dx < c.KW; ++dx) {
-      const int off = (dy * c.IW + dx) * c.CS + lane_off;
-      const uint2* wt = reinterpret_cast<const uint2*>(c.wf) +
-                        ((size_t)(dy * c.KW + dx) * kc_n * nt_total + nt0) * 32 + lane;
-#pragma unroll 2
-      for (int kc = 0; kc < kc_n; ++kc) {
-        uint2 b[NT];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) b[j] = __ldg(wt + ((size_t)kc * nt_total + j) * 32);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          uint32_t a[4];
-          ldmatrix_x4(a, in_s + 2u * (uint32_t)(base[m] + off + kc * 16));
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, b[j]);
-        }
+  const uint32_t in_a = (uint32_t)__cvta_generic_to_shared(c.in) + 2u * (uint32_t)lane_off;
+  int kc = s0 % kc_n;
+  const int tap = s0 / kc_n;
+  int dx = tap % c.KW;
+  int off = ((tap / c.KW) * c.IW + dx) * c.CS + kc * 16;  // of tap (dy, dx), channel 16 kc
+  auto advance = [&]() {
+    if (++kc < kc_n) {
+      off += 16;
+    } else {
+      kc = 0;
+      off += c.CS - (kc_n - 1) * 16;
+      if (++dx == c.KW) {
+        dx = 0;
+        off += (c.IW - c.KW) * c.CS;
       }
     }
+    wb += sb;
+  };
+  Frags f0, f1;
+  load_step(f0, in_a, base, off, wb);
+  for (int s = s0; s < s1; s += 2) {
+    const bool two = s + 1 < s1;
+    if (two) {
+      advance();
+      load_step(f1, in_a, base, off, wb);
+    }
+    mma_step(acc, f0);
+    if (!two) break;
+    if (s + 2 < s1) {
+      advance();
+      load_step(f0, in_a, base, off, wb);
+    }
+    mma_step(acc, f1);
+  }
+}
+
+// The block's ring: two slots of ck steps each from shared address `base`.
+struct Ring {
+  int ck;
+  uint32_t base;
+};
+
+// acc += the whole conv, its weights streamed through the ring: the next
+// chunk of ck steps is in flight while one is computed.  Every thread of the
+// block calls it (it holds barriers); only warps with `any` compute.
+template <int NTH>
+__device__ __forceinline__ void ring_pass(float (&acc)[MT][NT][4], const ConvM& c,
+                                          const int (&base)[MT], int lane, int nt0, int Cout,
+                                          bool any, const Ring& ring) {
+  const int S = steps_of(c), ck = ring.ck;
+  const int sb = 32 * Cout;  // bytes of one step's B fragments
+  const int n = (S + ck - 1) / ck;
+  const uint32_t slot = (uint32_t)(ck * sb);
+  const uint32_t lane_b = 256u * nt0 + 8u * lane;
+  auto issue = [&](int i) {  // chunk i into its slot, one copy group (empty past the end)
+    if (i < n) {
+      const int s0 = i * ck;
+      copy_async<NTH>(ring.base + (uint32_t)(i & 1) * slot, c.wg + (size_t)s0 * sb,
+                      (min(s0 + ck, S) - s0) * sb);
+    }
+    copy_commit();
+  };
+  __syncthreads();  // every warp is done with every slot
+  issue(0);
+  for (int i = 0; i < n; ++i) {
+    copy_wait();
+    __syncthreads();  // chunk i has landed; chunk i - 1's slot is free
+    issue(i + 1);
+    const int s0 = i * ck;
+    if (any)
+      mma_steps(acc, c, base, lane, s0, min(s0 + ck, S),
+                ring.base + (uint32_t)(i & 1) * slot + lane_b, sb);
   }
 }
 
@@ -418,20 +552,27 @@ __device__ __forceinline__ void st2(bf16* p, float v0, float v1) {
 }
 
 // One stage on the tensor cores; the modes are those of stage().  `out` is
-// a staged buffer [OH][OW][out_cs], or for OUT the batch element's y.
+// a staged buffer [OH][OW][out_cs], or for OUT the batch element's y.  With
+// ring.ck > 0 the weights stream through the ring, else they are resident
+// at ca.ws and cb.ws.
 template <int MODE, int NTH>
 __device__ __forceinline__ void stage_mma(const ConvM& ca, const ConvM& cb, const float* vec,
                                           int bias_a, int aff_a, int bias_b, int aff_b, bf16* out,
                                           int out_cs, int OH, int OW, int gy0, int gx0, int H,
-                                          int W, int Cout) {
+                                          int W, int Cout, const Ring& ring) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int owt = (OW + 15) / 16, mtot = OH * owt;
   const int ncg = Cout / (8 * NT);
   const int items = ((mtot + MT - 1) / MT) * ncg;
-  for (int item = warp; item < items; item += NTH / 32) {
-    const int mg = item / ncg;
-    const int co0 = (item - mg * ncg) * (8 * NT);
+  constexpr int NW = NTH / 32;
+  const int rounds = (items + NW - 1) / NW;
+  for (int round = 0; round < rounds; ++round) {
+    const int item = round * NW + warp;
+    if (ring.ck == 0 && item >= items) break;  // the ring's rounds take every warp
+    const bool has = item < items;
+    const int mg = has ? item / ncg : 0;
+    const int co0 = has ? (item - mg * ncg) * (8 * NT) : 0;
     int r[MT], c0[MT], base_a[MT], base_b[MT];
     bool live[MT];
     bool any = false;
@@ -443,7 +584,7 @@ __device__ __forceinline__ void stage_mma(const ConvM& ca, const ConvM& cb, cons
       r[m] = mt / owt;
       c0[m] = (mt - r[m] * owt) * 16;
       const int gr = gy0 + r[m], gc = gx0 + c0[m];
-      any = any || (live[m] && gr >= 0 && gr < H && gc < W && gc + 15 >= 0);
+      any = any || (has && live[m] && gr >= 0 && gr < H && gc < W && gc + 15 >= 0);
       base_a[m] = ((r[m] + ca.oy) * ca.IW + c0[m] + ca.ox) * ca.CS;
       base_b[m] = MODE == GELU ? ((r[m] + cb.oy) * cb.IW + c0[m] + cb.ox) * cb.CS : 0;
     }
@@ -459,10 +600,17 @@ __device__ __forceinline__ void stage_mma(const ConvM& ca, const ConvM& cb, cons
         }
       }
     }
-    if (any) {  // uniform over the warp
-      conv_mma(acc, ca, base_a, Cout / 8, co0 / 8, lane);
-      if constexpr (MODE == GELU) conv_mma(acc_b, cb, base_b, Cout / 8, co0 / 8, lane);
+    const int nt0 = co0 / 8;
+    if (ring.ck > 0) {  // uniform over the block
+      ring_pass<NTH>(acc, ca, base_a, lane, nt0, Cout, any, ring);
+      if constexpr (MODE == GELU) ring_pass<NTH>(acc_b, cb, base_b, lane, nt0, Cout, any, ring);
+    } else if (any) {  // uniform over the warp
+      const uint32_t lane_b = 256u * nt0 + 8u * lane;
+      mma_steps(acc, ca, base_a, lane, 0, steps_of(ca), ca.ws + lane_b, 32 * Cout);
+      if constexpr (MODE == GELU)
+        mma_steps(acc_b, cb, base_b, lane, 0, steps_of(cb), cb.ws + lane_b, 32 * Cout);
     }
+    if (!has) continue;
     // epilogue on the fragments: this lane holds, of M tile m and N tile j,
     // pixels g and g + 8 at channels co0 + 8 j + 2 t and the next
 #pragma unroll
@@ -510,7 +658,19 @@ __device__ __forceinline__ void stage_mma(const ConvM& ca, const ConvM& cb, cons
   }
 }
 
-// NTH threads: 512 where a stage has items for 16 warps, else 256
+// Bytes of the bf16 weights of the six convs, in pack order.
+struct WeightBytes {
+  long w121, w122, w341, w342, w343, w5;
+  __host__ __device__ WeightBytes(long Cin, long Cout, long k)
+      : w121(9 * Cin * Cout * 2), w122(9 * Cout * Cout * 2), w341(k * Cin * Cout * 2),
+        w342(k * Cout * Cout * 2), w343(9 * Cout * Cout * 2), w5(9 * Cout * Cout * 2) {}
+  // the largest stage: A1 + B1, B2, G (two convs) or Y
+  __host__ __device__ long stage_max() const {
+    const long a = w121 + w341, g = w122 + w343;
+    return a > w342 ? (a > g ? a : g) : (w342 > g ? w342 : g);
+  }
+};
+
 template <int NTH>
 __global__ void __launch_bounds__(NTH) crosscnn_fused_mma_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -526,52 +686,104 @@ __global__ void __launch_bounds__(NTH) crosscnn_fused_mma_kernel(const Params p)
   bf16* sB1 = s0 + (nX > nM ? nX : nM) + TAIL * (CSi > CSo ? CSi : CSo);
   bf16* sG = sB1;
   bf16* sA1 = sB1 + nB1 + TAIL * CSo;
+  // the weight slot (resident) or the ring's two slots, behind the activations
+  const uint32_t ws = (uint32_t)__cvta_generic_to_shared(sA1 + nM + TAIL * CSo);
+  const int ck = p.ck;
+  const Ring ring{ck, ws};
+
+  const WeightBytes wb(Cin, Cout, k);
+  const char* w121 = static_cast<const char*>(p.w);
+  const char* w122 = w121 + wb.w121;
+  const char* w341 = w122 + wb.w122;
+  const char* w342 = w341 + wb.w341;
+  const char* w343 = w342 + wb.w342;
+  const char* w5 = w343 + wb.w343;
+  if (ck == 0) {  // A1's and B1's weights, in flight while x is staged
+    copy_async<NTH>(ws, w121, (int)wb.w121);
+    copy_async<NTH>(ws + (uint32_t)wb.w121, w341, (int)wb.w341);
+    copy_commit();
+  }
 
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const bf16* xb = static_cast<const bf16*>(p.x) + (size_t)blockIdx.z * H * W * Cin;
   bf16* yb = static_cast<bf16*>(p.y) + (size_t)blockIdx.z * H * W * Cout;
 
+  // stage x with 16-byte cp.async, all in flight at once; zero-filled
+  // outside the image
   const int vpp = Cin / 8;  // 16-byte vectors per pixel
+  const uint32_t sx = (uint32_t)__cvta_generic_to_shared(sX);
   for (int i = threadIdx.x; i < XH * XW * vpp; i += NTH) {
     const int pix = i / vpp;
     const int v = i - pix * vpp;
     const int r = pix / XW;
     const int c = pix - r * XW;
     const int gr = y0 - R + r, gc = x0 - R + c;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr >= 0 && gr < H && gc >= 0 && gc < W)
-      val = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)gr * W + gc) * Cin) + v);
-    *reinterpret_cast<uint4*>(sX + (size_t)pix * CSi + v * 8) = val;
+    const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
+    const bf16* src = inside ? xb + ((size_t)gr * W + gc) * Cin + v * 8 : xb;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     sx + 2u * (uint32_t)(pix * CSi + v * 8)),
+                 "l"(src), "r"(inside ? 16 : 0)
+                 : "memory");
   }
+  copy_commit();
+  copy_wait();
   __syncthreads();
 
-  const bf16* w = static_cast<const bf16*>(p.w);
-  const bf16* w121 = w;
-  const bf16* w122 = w121 + (size_t)9 * Cin * Cout;
-  const bf16* w341 = w122 + (size_t)9 * Cout * Cout;
-  const bf16* w342 = w341 + (size_t)k * Cin * Cout;
-  const bf16* w343 = w342 + (size_t)k * Cout * Cout;
-  const bf16* w5 = w343 + (size_t)9 * Cout * Cout;
+  // Resident weights go into the slot once the last stage is done with it,
+  // but G's go into the tail of x's buffer where they fit (free once A1
+  // and B1 are formed, beyond what B2 writes and G reads there): then G's
+  // load during B2 and Y's into the slot during G.
+  const int nS0 = (int)(sB1 - s0);
+  const bool early = ck == 0 && (long)(nS0 - nM - TAIL * CSo) * 2 >= wb.w122 + wb.w343;
+  const uint32_t wg = early ? (uint32_t)__cvta_generic_to_shared(s0 + nM + TAIL * CSo) : ws;
+  const uint32_t res2 = ck == 0 ? 1u : 0u;  // resident: a stage's second conv follows its first
+  const ConvM c121{sX, w121, ws, XW, CSi, Cin, 3, 3, R - 3, R - 3};
+  const ConvM c341{sX, w341, ws + res2 * (uint32_t)wb.w121, XW, CSi, Cin, 1, k, 0, 0};
+  const ConvM c342{sB1, w342, ws, MW, CSo, Cout, k, 1, 0, 0};
+  const ConvM c122{sA1, w122, wg, MW, CSo, Cout, 3, 3, 0, 0};
+  const ConvM c343{sB2, w343, wg + res2 * (uint32_t)wb.w122, MW, CSo, Cout, 3, 3, 0, 0};
+  const ConvM c5{sG, w5, ws, TW + 2, CSo, Cout, 3, 3, 0, 0};
 
-  const ConvM c121{sX, w121, XW, CSi, Cin, 3, 3, R - 3, R - 3};
-  const ConvM c341{sX, w341, XW, CSi, Cin, 1, k, 0, 0};
-  const ConvM c342{sB1, w342, MW, CSo, Cout, k, 1, 0, 0};
-  const ConvM c122{sA1, w122, MW, CSo, Cout, 3, 3, 0, 0};
-  const ConvM c343{sB2, w343, MW, CSo, Cout, 3, 3, 0, 0};
-  const ConvM c5{sG, w5, TW + 2, CSo, Cout, 3, 3, 0, 0};
+  // one stage's resident weights, copied at `at` while nothing else runs
+  auto resident = [&](uint32_t at, const char* a, long na, const char* b, long nb) {
+    copy_async<NTH>(at, a, (int)na);
+    if (nb) copy_async<NTH>(at + (uint32_t)na, b, (int)nb);
+    copy_commit();
+    copy_wait();
+    __syncthreads();
+  };
 
-  stage_mma<STORE, NTH>(c121, c121, p.vec, B121, 0, 0, 0, sA1, CSo, MH, MW, y0 - 2, x0 - 2, H, W, Cout);
-  stage_mma<STORE, NTH>(c341, c341, p.vec, B341, 0, 0, 0, sB1, CSo, XH, MW, y0 - R, x0 - 2, H, W, Cout);
+  stage_mma<STORE, NTH>(c121, c121, p.vec, B121, 0, 0, 0, sA1, CSo, MH, MW, y0 - 2, x0 - 2, H,
+                            W, Cout, ring);
+  stage_mma<STORE, NTH>(c341, c341, p.vec, B341, 0, 0, 0, sB1, CSo, XH, MW, y0 - R, x0 - 2, H,
+                            W, Cout, ring);
   __syncthreads();
-  stage_mma<STORE, NTH>(c342, c342, p.vec, B342, 0, 0, 0, sB2, CSo, MH, MW, y0 - 2, x0 - 2, H, W, Cout);
+  if (ck == 0) resident(ws, w342, wb.w342, nullptr, 0);
+  if (early) {  // G's weights load while B2 runs
+    copy_async<NTH>(wg, w122, (int)wb.w122);
+    copy_async<NTH>(wg + (uint32_t)wb.w122, w343, (int)wb.w343);
+    copy_commit();
+  }
+  stage_mma<STORE, NTH>(c342, c342, p.vec, B342, 0, 0, 0, sB2, CSo, MH, MW, y0 - 2, x0 - 2, H,
+                            W, Cout, ring);
+  copy_wait();
   __syncthreads();
-  stage_mma<GELU, NTH>(c122, c343, p.vec, B122, S12, B343, S34, sG, CSo, TH + 2, TW + 2, y0 - 1,
-                  x0 - 1, H, W, Cout);
+  if (early) {
+    copy_async<NTH>(ws, w5, (int)wb.w5);
+    copy_commit();
+  } else if (ck == 0) {
+    resident(ws, w122, wb.w122, w343, wb.w343);
+  }
+  stage_mma<GELU, NTH>(c122, c343, p.vec, B122, S12, B343, S34, sG, CSo, TH + 2, TW + 2,
+                           y0 - 1, x0 - 1, H, W, Cout, ring);
+  copy_wait();
   __syncthreads();
-  stage_mma<OUT, NTH>(c5, c5, p.vec, B5, S5, 0, 0, yb, Cout, TH, TW, y0, x0, H, W, Cout);
+  if (ck == 0 && !early) resident(ws, w5, wb.w5, nullptr, 0);
+  stage_mma<OUT, NTH>(c5, c5, p.vec, B5, S5, 0, 0, yb, Cout, TH, TW, y0, x0, H, W, Cout, ring);
 }
 
-size_t smem_bytes_mma(int TH, int TW, int Cin, int Cout, int k) {
+// Shared-memory bytes of the activation buffers.
+size_t act_bytes_mma(int TH, int TW, int Cin, int Cout, int k) {
   const long R = k / 2 + 2;
   const long XH = TH + 2 * R, XW = TW + 2 * R, MH = TH + 4, MW = TW + 4;
   const long CSi = Cin + PADC, CSo = Cout + PADC;
@@ -580,58 +792,177 @@ size_t smem_bytes_mma(int TH, int TW, int Cin, int Cout, int k) {
   return (size_t)n * sizeof(bf16);
 }
 
+// Shared-memory bytes of the weights: the largest stage's (ck = 0), or the
+// ring's two slots of ck steps.
+size_t weight_bytes_mma(int Cin, int Cout, int k, int ck) {
+  return ck > 0 ? (size_t)2 * ck * 32 * Cout : (size_t)WeightBytes(Cin, Cout, k).stage_max();
+}
+
 // The tensor cores take Cin a multiple of 16 and Cout of 32 (every model's
-// blocks), and tiles 12 or 28 columns wide: a region of TW + 4 columns is
-// whole M tiles.
+// blocks).
 bool mma_takes(int Cin, int Cout) { return Cin % 16 == 0 && Cout % (8 * NT) == 0; }
 
-bool choose_tile_mma(int B, int H, int W, int Cin, int Cout, int k, int* th, int* tw) {
-  static const int cand[][2] = {{16, 28}, {8, 28}, {16, 12}, {8, 12}, {4, 12}, {2, 12}, {1, 12}};
+// Threads a block: more warp items a round with the ring.
+int threads_mma(int ck) { return ck > 0 ? 512 : 256; }
+
+template <int NTH>
+int call_mma(int smem, int* blocks_per_sm, const Params* p, int B, cudaStream_t stream) {
+  static bool opted[64] = {};
+  if (int err = opt_in_shared_memory(crosscnn_fused_mma_kernel<NTH>, opted)) return err;
+  if (blocks_per_sm)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, crosscnn_fused_mma_kernel<NTH>, NTH, smem);
+  dim3 grid((p->W + p->TW - 1) / p->TW, (p->H + p->TH - 1) / p->TH, B);
+  crosscnn_fused_mma_kernel<NTH><<<grid, NTH, smem, stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+// The blocks an SM holds at `smem` bytes (p null), or the launch of p.
+int call_mma(int ck, int smem, int* blocks_per_sm, const Params* p, int B, cudaStream_t stream) {
+  return threads_mma(ck) == 512 ? call_mma<512>(smem, blocks_per_sm, p, B, stream)
+                                : call_mma<256>(smem, blocks_per_sm, p, B, stream);
+}
+
+// A launch's plan: the tile and the ring's ck steps a slot (0: resident
+// weights).
+struct PlanM {
+  int TH, TW, ck;
+  size_t smem;
+  double cost;
+};
+
+// Estimated SM clocks of one block (see the notes above).  Per stage: the
+// MMAs of the busiest of the SM's four schedulers, at 4.4 clocks of the SM
+// each (measured: this kernel's rate).  Resident weights add their copy,
+// exposed, at 24 bytes a clock (an SM's share of L2) and a latency (not G's
+// and Y's where they load during the stage before).  The ring takes the
+// longer of the MMAs and its copy (once a round), plus a latency a pass and
+// 800 clocks a chunk (every warp in step at a barrier: measured, 0.42-0.45
+// us a chunk).  x's bytes at 16 a clock.
+double block_cost(int TH, int TW, int Cin, int Cout, int k, int ck) {
+  constexpr double CLK_MMA = 4.4, LAT = 600.0, L2_BYTES = 24.0, CHUNK = 800.0;
+  const int R = k / 2 + 2, NW = threads_mma(ck) / 32;
+  const int ncg = Cout / (8 * NT);
+  const WeightBytes wb(Cin, Cout, k);
+  struct St { int OH, OW, steps, passes; long bytes; };
+  const St st[5] = {{TH + 4, TW + 4, 9 * Cin / 16, 1, wb.w121},
+                    {TH + 2 * R, TW + 4, k * Cin / 16, 1, wb.w341},
+                    {TH + 4, TW + 4, k * Cout / 16, 1, wb.w342},
+                    {TH + 2, TW + 2, 18 * Cout / 16, 2, wb.w122 + wb.w343},
+                    {TH, TW, 9 * Cout / 16, 1, wb.w5}};
+  double clk = (double)(TH + 2 * R) * (TW + 2 * R) * Cin * 2 / 16.0 + LAT;
+  // resident: do G's weights load during B2 (and Y's during G)?
+  const long XH = TH + 2 * R, XW = TW + 2 * R, CSi = Cin + PADC, CSo = Cout + PADC;
+  const long nX = XH * XW * CSi, nM = (TH + 4) * (TW + 4) * CSo;
+  const bool early = (nX > nM ? nX : nM) + TAIL * (CSi > CSo ? CSi : CSo) - nM - TAIL * CSo >=
+                     (wb.w122 + wb.w343) / 2;
+  for (const St& s : st) {
+    const int items = ((s.OH * ((s.OW + 15) / 16) + MT - 1) / MT) * ncg;
+    const int rounds = (items + NW - 1) / NW;
+    const int per_sched = ck > 0 ? rounds * (NW / 4) : (items + 3) / 4;
+    const double mma = 4.0 * per_sched * s.steps * MT * NT * CLK_MMA;
+    if (ck > 0) {
+      const int chunks = s.passes * ((s.steps / s.passes + ck - 1) / ck);
+      const double copy = (double)rounds * s.bytes / L2_BYTES;
+      clk += (mma > copy ? mma : copy) + rounds * (s.passes * LAT + chunks * CHUNK);
+    } else {
+      clk += mma + (early && &s >= &st[3] ? 0.0 : s.bytes / L2_BYTES + LAT);
+    }
+  }
+  return clk;
+}
+
+// The plan at tile TH x TW with ck ring steps a slot, costed (block_cost x
+// rounds of blocks over the SMs), if its buffers fit and an SM holds a block.
+bool plan_at(int B, int H, int W, int Cin, int Cout, int k, int TH, int TW, int ck, PlanM* out) {
+  if ((H + TH - 1) / TH > 65535) return false;
+  const size_t smem = act_bytes_mma(TH, TW, Cin, Cout, k) + weight_bytes_mma(Cin, Cout, k, ck);
+  if (smem > (size_t)SMEM_LIMIT) return false;
+  int bps = 0;
+  if (call_mma(ck, (int)smem, &bps, nullptr, 0, nullptr) || bps < 1) return false;
+  const long blocks = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  const long waves = (blocks + (long)NUM_SMS * bps - 1) / ((long)NUM_SMS * bps);
+  *out = PlanM{TH, TW, ck, smem, (double)waves * bps * block_cost(TH, TW, Cin, Cout, k, ck)};
+  return true;
+}
+
+// The plan of least estimated time among the tiles (TH rows of 16 j - 4
+// columns) whose buffers fit beside resident weights, or else beside a ring.
+bool choose_plan_mma(int B, int H, int W, int Cin, int Cout, int k, PlanM* out) {
+  static const int rows[] = {1, 2, 4, 8, 12, 16, 24, 32};
+  static const int cols[] = {12, 28, 44, 60};
+  static const int cks[] = {1, 2, 4, 8, 16, 32};
+  const int max_steps = 18 * (Cin > Cout ? Cin : Cout) / 16;  // G's, or more
   bool found = false;
-  for (int i = 0; i < 7; ++i) {
-    const int TH = cand[i][0], TW = cand[i][1];
-    if (smem_bytes_mma(TH, TW, Cin, Cout, k) > (size_t)SMEM_LIMIT) continue;
-    *th = TH;
-    *tw = TW;
+  auto consider = [&](int TH, int TW, int ck) {
+    PlanM pl;
+    if (!plan_at(B, H, W, Cin, Cout, k, TH, TW, ck, &pl)) return false;
+    if (!found || pl.cost < out->cost) *out = pl;
     found = true;
-    const long blocks = (long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-    if (blocks >= NUM_SMS || i >= 4) break;
+    return true;
+  };
+  for (int TH : rows) {
+    for (int TW : cols) {
+      if (consider(TH, TW, 0)) continue;  // a ring only where the weights do not fit
+      for (int ck : cks)
+        if (ck <= max_steps) consider(TH, TW, ck);
+    }
   }
   return found;
 }
 
-template <int NTH>
-int launch_mma_threads(const Params& p, int B, size_t smem, cudaStream_t stream) {
-  static bool opted[64] = {};
-  if (int err = opt_in_shared_memory(crosscnn_fused_mma_kernel<NTH>, opted)) return err;
-  dim3 grid((p.W + p.TW - 1) / p.TW, (p.H + p.TH - 1) / p.TH, B);
-  crosscnn_fused_mma_kernel<NTH><<<grid, NTH, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// choose_plan_mma, remembered by device and shape: the occupancy queries
+// stay out of the launches after the first.
+bool plan_mma(int B, int H, int W, int Cin, int Cout, int k, PlanM* out) {
+  static std::mutex mu;
+  static std::map<std::array<int, 7>, PlanM> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  const std::array<int, 7> key{dev, B, H, W, Cin, Cout, k};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return true;
+  }
+  if (!choose_plan_mma(B, H, W, Cin, Cout, k, out)) return false;
+  cache.emplace(key, *out);
+  return true;
 }
 
-int launch_mma(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes_mma(p.TH, p.TW, p.Cin, p.Cout, p.k);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  // the items of the A1 stage, one of the two smallest besides Y's
-  const int items = (((p.TH + 4) * ((p.TW + 4) / 16) + MT - 1) / MT) * (p.Cout / (8 * NT));
-  return items >= 12 ? launch_mma_threads<512>(p, B, smem, stream)
-                     : launch_mma_threads<256>(p, B, smem, stream);
+bool shape_ok(int B, int H, int W, int Cin, int Cout, int k, int dtype) {
+  if (Cin % 8 || Cout % 8 || k < 3 || k % 2 == 0 || B < 1 || H < 1 || W < 1 || B > 65535)
+    return false;
+  return dtype == 0 || (dtype == 1 && mma_takes(Cin, Cout));
+}
+
+int launch_mma(Params p, const PlanM& pl, int B, cudaStream_t stream) {
+  p.TH = pl.TH;
+  p.TW = pl.TW;
+  p.ck = pl.ck;
+  return call_mma(pl.ck, (int)pl.smem, nullptr, &p, B, stream);
 }
 
 }  // namespace
 
-// The tile the launch would choose: writes tile[0] = TH and tile[1] = TW and
-// returns the block's shared-memory bytes, or -1 if no tile fits or the type
-// does not take these channel counts.
-extern "C" long long tcct_crosscnn_fused_tile(int B, int H, int W, int Cin, int Cout, int k,
-                                              int dtype, int* tile) {
+// The plan the launch would choose: writes (TH, TW, ring steps a slot (0:
+// resident weights), threads a block, the shared-memory bytes of the
+// weights) to plan[0..4] and returns the block's shared-memory bytes, or -1
+// if no plan fits or the type does not take these channel counts.
+extern "C" long long tcct_crosscnn_fused_plan(int B, int H, int W, int Cin, int Cout, int k,
+                                              int dtype, int* plan) {
   if (dtype == 1) {
-    if (!mma_takes(Cin, Cout) || !choose_tile_mma(B, H, W, Cin, Cout, k, &tile[0], &tile[1]))
-      return -1;
-    return (long long)smem_bytes_mma(tile[0], tile[1], Cin, Cout, k);
+    PlanM pl;
+    if (!mma_takes(Cin, Cout) || !plan_mma(B, H, W, Cin, Cout, k, &pl)) return -1;
+    const int out[5] = {pl.TH, pl.TW, pl.ck, threads_mma(pl.ck),
+                        (int)weight_bytes_mma(Cin, Cout, k, pl.ck)};
+    for (int i = 0; i < 5; ++i) plan[i] = out[i];
+    return (long long)pl.smem;
   }
-  if (!choose_tile(B, H, W, Cin, Cout, k, &tile[0], &tile[1])) return -1;
-  return (long long)smem_bytes(tile[0], tile[1], Cin, Cout, k);
+  if (!choose_tile(B, H, W, Cin, Cout, k, &plan[0], &plan[1])) return -1;
+  plan[2] = plan[4] = 0;
+  plan[3] = THREADS;
+  return (long long)smem_bytes(plan[0], plan[1], Cin, Cout, k);
 }
 
 // x [B,H,W,Cin] -> y [B,H,W,Cout], both NHWC in the type `dtype` names
@@ -645,14 +976,29 @@ extern "C" long long tcct_crosscnn_fused_tile(int B, int H, int W, int Cin, int 
 extern "C" int tcct_crosscnn_fused_fwd(const void* x, const void* w, const float* vec, void* y,
                                        int B, int H, int W, int Cin, int Cout, int k, int dtype,
                                        void* stream) {
-  if (Cin % 8 || Cout % 8 || k < 3 || k % 2 == 0 || B < 1 || H < 1 || W < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && !mma_takes(Cin, Cout)) return (int)cudaErrorInvalidValue;
-  Params p{x, w, vec, y, H, W, Cin, Cout, k, 0, 0};
-  const bool ok = dtype == 1 ? choose_tile_mma(B, H, W, Cin, Cout, k, &p.TH, &p.TW)
-                             : choose_tile(B, H, W, Cin, Cout, k, &p.TH, &p.TW);
-  if (!ok || (p.H + p.TH - 1) / p.TH > 65535) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, H, W, Cin, Cout, k, dtype)) return (int)cudaErrorInvalidValue;
+  Params p{x, w, vec, y, H, W, Cin, Cout, k, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_mma(p, B, s) : launch(p, B, s);
+  if (dtype == 1) {
+    PlanM pl;
+    if (!plan_mma(B, H, W, Cin, Cout, k, &pl)) return (int)cudaErrorInvalidValue;
+    return launch_mma(p, pl, B, s);
+  }
+  if (!choose_tile(B, H, W, Cin, Cout, k, &p.TH, &p.TW) || (p.H + p.TH - 1) / p.TH > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch(p, B, s);
+}
+
+// For tests: tcct_crosscnn_fused_fwd in bf16 at tile TH x TW (TW one of 12,
+// 28, 44, 60) with ck ring steps a slot (0: resident weights) in place of
+// the launch's own plan.  cudaErrorInvalidValue where that plan does not fit.
+extern "C" int tcct_crosscnn_fused_fwd_at(const void* x, const void* w, const float* vec, void* y,
+                                          int B, int H, int W, int Cin, int Cout, int k, int TH,
+                                          int TW, int ck, void* stream) {
+  PlanM pl;
+  if (!shape_ok(B, H, W, Cin, Cout, k, 1) || TH < 1 || TW < 12 || TW > 60 || TW % 16 != 12 ||
+      ck < 0 || !plan_at(B, H, W, Cin, Cout, k, TH, TW, ck, &pl))
+    return (int)cudaErrorInvalidValue;
+  Params p{x, w, vec, y, H, W, Cin, Cout, k, 0, 0, 0};
+  return launch_mma(p, pl, B, static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,8 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
+from tcct_tpu_torch.models.ftc import unused_prefixes
+
 _LEAVES = {
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
@@ -137,10 +139,8 @@ def load_into(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> Tuple[l
     and a ``vitu`` without its CNN projections, as the JAX package's
     variables do, while a model that runs both branches may not."""
     res = model.load_state_dict(state, strict=False)
-    base = getattr(model, "base", model)
-    prefix = "base." if base is not model else ""
-    unused = tuple(prefix + p for p in getattr(base, "unused_prefixes", tuple)())
-    if base is not model:
+    unused = unused_prefixes(model)
+    if getattr(model, "base", model) is not model:
         unused += _LOSS_HEADS
     needed = [k for k in res.missing_keys
               if not k.startswith(unused) and not any(u in k for u in _NEVER_RUN)]

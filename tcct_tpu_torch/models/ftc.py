@@ -43,6 +43,15 @@ from tcct_tpu_torch.models.mpvit import MPViT, MPViTConfig
 from tcct_tpu_torch.ops.resize import resize_bilinear
 
 
+
+def unused_prefixes(model: nn.Module) -> Tuple[str, ...]:
+    """State-dict prefixes, in ``model`` (an :class:`FTC`, or a module that
+    holds one as ``base``), of the modules its forward never runs under the
+    FTC's flags (:meth:`FTC.unused_prefixes`)."""
+    base = getattr(model, "base", model)
+    prefix = "base." if base is not model else ""
+    return tuple(prefix + p for p in getattr(base, "unused_prefixes", tuple)())
+
 class MPUpBlock(nn.Module):
     """conv3-BN-LReLU -> 2x bilinear up (align_corners=True) -> +skip ->
     1x1 conv (reference tcct.py:887-914)."""

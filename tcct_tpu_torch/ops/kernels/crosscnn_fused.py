@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -167,22 +167,40 @@ def _fn(name: str):
     if name == "tcct_crosscnn_fused_fwd":
         fn.argtypes = [p] * 4 + [i] * 7 + [p]
         fn.restype = i
-    else:  # tcct_crosscnn_fused_tile
+    elif name == "tcct_crosscnn_fused_fwd_at":  # the bf16 launch at a given plan, for tests
+        fn.argtypes = [p] * 4 + [i] * 9 + [p]
+        fn.restype = i
+    else:  # tcct_crosscnn_fused_plan
         fn.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_longlong
     return fn
 
 
-def fused_tile(B: int, H: int, W: int, cin: int, cout: int, k: int,
-               dtype: torch.dtype) -> Tuple[int, int, int]:
-    """(tile_h, tile_w, shared-memory bytes a block) that the launch picks
-    for this shape.  Needs the built library."""
-    tile = (ctypes.c_int * 2)()
-    smem = _fn("tcct_crosscnn_fused_tile")(B, H, W, cin, cout, k, _DTYPES[dtype], tile)
+class FusedPlan(NamedTuple):
+    """How a launch runs: the tile (``th`` x ``tw`` output pixels a block);
+    in bf16 the steps of each of the weights' two ring slots (``ring``; 0:
+    each stage's weights resident in shared memory); ``threads`` a block;
+    the block's shared-memory bytes (``smem``) and those of the weights among
+    them (``weight_smem``)."""
+
+    th: int
+    tw: int
+    ring: int
+    threads: int
+    smem: int
+    weight_smem: int
+
+
+def fused_plan(B: int, H: int, W: int, cin: int, cout: int, k: int,
+               dtype: torch.dtype) -> FusedPlan:
+    """The :class:`FusedPlan` the launch picks for this shape (the f32
+    kernel's has ``ring = weight_smem = 0``).  Needs the built library."""
+    plan = (ctypes.c_int * 5)()
+    smem = _fn("tcct_crosscnn_fused_plan")(B, H, W, cin, cout, k, _DTYPES[dtype], plan)
     if smem < 0:
-        raise build.KernelError(f"fused_cross_block: no tile for Cin {cin} Cout {cout} k {k} "
+        raise build.KernelError(f"fused_cross_block: no plan for Cin {cin} Cout {cout} k {k} "
                                 f"{dtype}")
-    return tile[0], tile[1], int(smem)
+    return FusedPlan(*plan[:4], int(smem), plan[4])
 
 
 def fused_cross_block(x: torch.Tensor, block) -> torch.Tensor:

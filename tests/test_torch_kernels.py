@@ -4,6 +4,8 @@ them each one skips (``chip_smoke.py`` repeats these checks on the card
 at the serving and train shapes).  Run on a GPU machine with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -q``."""
 
+import os
+
 import pytest
 import torch
 
@@ -16,9 +18,11 @@ from tcct_tpu_torch.ops.kernels.bnstats import (
     bn_stats_reference,
 )
 from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
+    _fn,
     fused_cross_block,
     fused_cross_block_reference,
-    fused_tile,
+    fused_plan,
+    pack_cross_block,
 )
 from tcct_tpu_torch.ops.kernels.dwconv import (
     dwconv3x3,
@@ -324,6 +328,7 @@ K4_SHAPES = [
     (8, 128, 288, 32, 64, 11, False), (8, 64, 144, 64, 96, 9, False),
     (8, 32, 72, 96, 128, 7, False), (8, 16, 36, 128, 256, 5, False),
     (8, 64, 144, 32, 32, 9, True), (8, 4, 8, 32, 32, 5, False),
+    (3, 20, 44, 128, 256, 5, False),  # the weights stream through the ring; no tile divides H, W
 ]
 
 
@@ -342,10 +347,52 @@ def test_fused_cross_block_kernel_matches_plain(cuda, shape, dtype):
         assert fused_cross_block.launches == n + 1
         want = fused_cross_block_reference(x, blk)
     assert got.shape == (B, H, W, cout) and got.dtype == dtype
-    th, tw, smem = fused_tile(B, H, W, cin, cout, 3 if plain else k, dtype)
-    assert th >= 1 and smem <= 232448
-    assert tw in ((12, 28) if dtype == torch.bfloat16 else (1, 2, 4, 8, 16))
+    plan = fused_plan(B, H, W, cin, cout, 3 if plain else k, dtype)
+    assert plan.th >= 1 and plan.smem <= 232448
+    assert plan.tw in ((12, 28, 44, 60) if dtype == torch.bfloat16 else (1, 2, 4, 8, 16))
     _k4_close(got, want, dtype)
+
+
+# (th, tw, ring steps a slot; 0: resident weights) in place of the launch's own plan, bf16
+K4_PLANS = [(8, 28, 0), (24, 12, 0), (16, 12, 0), (4, 12, 0), (4, 28, 1), (8, 12, 3),
+            (4, 12, 8), (2, 12, 16)]
+
+
+@pytest.mark.parametrize("plan", K4_PLANS)
+@pytest.mark.parametrize("shape", [(2, 37, 61, 32, 32, 13), (3, 20, 44, 32, 64, 7),
+                                   (2, 9, 30, 64, 96, 5)])
+def test_fused_cross_block_plans_bitwise(cuda, shape, plan):
+    """Every plan (tile, resident or streamed weights at any chunk, and so
+    256 or 512 threads a block) gives the launch's own output bit for bit:
+    each accumulator takes its MMAs in the same order."""
+    B, H, W, cin, cout, k = shape
+    th, tw, ring = plan
+    blk = _cross_block(cuda, cin, cout, k, torch.bfloat16, 14)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((B, H, W, cin), generator=g, device=cuda).to(torch.bfloat16)
+    pk = pack_cross_block(blk, torch.bfloat16)
+    with torch.inference_mode():
+        want = fused_cross_block(x, blk)
+        got = torch.empty_like(want)
+        err = _fn("tcct_crosscnn_fused_fwd_at")(
+            x.data_ptr(), pk.wf.data_ptr(), pk.vec.data_ptr(), got.data_ptr(), B, H, W, cin, cout,
+            k, th, tw, ring, torch.cuda.current_stream().cuda_stream)
+        if err == 1:  # cudaErrorInvalidValue: these weights do not fit beside the tile
+            assert cout > 32 and ring == 0
+            return
+        build.check(err, f"K4 at plan {plan}")
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_cross_block_against_its_own_source(cuda):
+    """``chip_smoke.py --k4-against`` with this tree's own source: the other
+    library binds and launches, and agrees bit for bit."""
+    import chip_smoke
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert chip_smoke.compare_fused_block_with(root, "", rows=(4, 8, 10, 11), timed=False) == [
+        True] * 4
 
 
 @pytest.mark.parametrize("k", [3, 5, 7, 9, 11, 13])
@@ -386,7 +433,7 @@ def test_fused_cross_block_refuses(cuda):
         with pytest.raises(ValueError, match="multiple of 16"):
             fused_cross_block(torch.zeros(2, 9, 11, 8, device=cuda).bfloat16(), narrow)
         with pytest.raises(build.KernelError):
-            fused_tile(2, 9, 11, 8, 24, 5, torch.bfloat16)
+            fused_plan(2, 9, 11, 8, 24, 5, torch.bfloat16)
         f32 = fused_cross_block(torch.ones(2, 9, 11, 8, device=cuda), narrow.float())
         assert f32.shape == (2, 9, 11, 24)  # f32 takes multiples of 8
 

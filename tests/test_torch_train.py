@@ -25,6 +25,7 @@ from tcct_tpu.train.schedule import cyclic_lr as jax_cyclic_lr
 from tcct_tpu.train.state import create_train_state
 from tcct_tpu.train.state import make_optimizer as jax_make_optimizer
 from tcct_tpu.train.step import build_loss_fn as jax_build_loss_fn
+from tcct_tpu_torch.infer.importer import flatten_variables, from_jax_variables
 from tcct_tpu_torch.models import RegNet, get_model
 from tcct_tpu_torch.models.layers import init_weights
 from tcct_tpu_torch.train import (
@@ -270,3 +271,21 @@ def test_cast_floating_and_trainable_set():
     assert not any(("crpe" in k or "cls_head" in k or ".fuse." in k) for k in names)
     with pytest.raises(NotImplementedError):
         build_train_step(m, make_optimizer(1), TrainConfig(augment=True), "cpu")
+
+
+@pytest.mark.parametrize("name", ["stc_tt", "cnnu", "vitu"])
+def test_trainable_set_is_the_jax_params_tree(name):
+    """The trained set follows the model's flags: the port trains exactly
+    the parameters of the JAX train state's ``params`` tree (shapes from
+    ``jax.eval_shape``, no JAX compute).  ``cnnu`` has no ViT branch and no
+    ``tran_*`` projections there, ``vitu`` no ``tran_cnn*``."""
+    net = JaxRegNet(base=jax_get_model(name, 5, variant="train"), out_channels=5)
+    state = jax.eval_shape(lambda: create_train_state(
+        net, jax_make_optimizer(steps_per_epoch=1, lr=LR), jax.random.PRNGKey(0),
+        jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 5))))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), state.params)
+    want = set(from_jax_variables(flatten_variables({"params": zeros})))
+    m = RegNet(get_model(name, 5, variant="train"), out_channels=5)
+    shared = {k for k, _ in m.named_parameters(remove_duplicate=False)} - set(
+        dict(m.named_parameters()))
+    assert set(trainable_parameters(m)) == want - shared
