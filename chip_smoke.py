@@ -10,12 +10,14 @@ toolkit (``nvcc``):
    every kernel of ``tcct_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once);
 2. holds each kernel (MetaPool forward and backward, depthwise 3x3
-   forward and backward at strides 1 and 2, train BatchNorm) against its
-   plain PyTorch version on the card, at every shape the duke serving
-   path and the train step give it (the depthwise forward also at
-   MPViT-small's, ``stc_st``), in bf16 and in f32 (TF32 off), and
-   times kernel, plain version and the one-call PyTorch yardstick on the
-   device (CUDA-graph replay, inputs beyond L2); the depthwise forward's
+   forward and backward at strides 1 and 2, train BatchNorm forward and
+   backward) against its plain PyTorch version on the card, at every
+   shape the duke serving path and the train step give it (the depthwise
+   forward also at MPViT-small's, ``stc_st``), in bf16 and in f32 (TF32
+   off), and times kernel, plain version and the one-call PyTorch
+   yardstick on the device (CUDA-graph replay, inputs beyond L2); one
+   train BatchNorm forward and backward captured in a CUDA graph and
+   replayed, bit for bit the eager calls; the depthwise forward's
    two kernels at several strip heights; its bias-and-residual epilogue
    (the ConvPosEnc site) bit for bit against the three passes it
    replaces, and timed against them; then the fused CrossCNN
@@ -39,8 +41,9 @@ toolkit (``nvcc``):
 6. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
    256x256, seeded random weights and a seeded banded batch) for 5 steps
    with the launch counts read around the first, checks every loss is
-   finite, and prints ms/step, peak memory and the profile of a sixth, and
-   whether one step run twice from one state repeats bit for bit;
+   finite, prints ms/step, peak memory and the device profile of a sixth
+   by group with its launch count, and holds one step run twice from one
+   state and one generator to bitwise-equal parameters and statistics;
 7. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +57,15 @@ e.g. the parent commit, whose ``tcct_crosscnn_fused_fwd`` has this one's C
 signature) beside this one's and holds the two against each other in bf16
 at every fused-block shape: bitwise equal or not, and device us per launch
 in turns.
+
+    python3 chip_smoke.py --train-profile DIR
+
+imports ``tcct_tpu_torch`` from DIR (another checkout, or ``.``), builds
+its kernels and prints its train step's diagnostics, not held: ms/step,
+the device time of one step by group (train BatchNorm forward and
+backward, polarization bins and bilinear backward named apart) and its
+launch count, the ops that ``torch.use_deterministic_algorithms`` names,
+and which state tensors differ when one step runs twice from one state.
 """
 
 from __future__ import annotations
@@ -195,6 +207,22 @@ def check_within(name, got, want, limit):
     return float(err.max())
 
 
+def check_bn_backward(name, x, w, mean, var, gy, leaky, got):
+    """K3b's (dx, dweight, dbias) against the plain adjoint on the same
+    inputs, within ``bn_act_train_backward_tolerance``.  Returns dx's max
+    abs error."""
+    from tcct_tpu_torch.ops.kernels.bnstats import (
+        bn_act_train_backward_reference,
+        bn_act_train_backward_tolerance,
+    )
+
+    want = bn_act_train_backward_reference(x, w, mean, var, gy, 1e-5, leaky)
+    lims = bn_act_train_backward_tolerance(x, w, mean, var, gy, 1e-5, leaky)
+    errs = [check_within(f"{name} {what}", a.double(), b.double(), lim)
+            for what, a, b, lim in zip(("dx", "dweight", "dbias"), got, want, lims)]
+    return errs[0]
+
+
 def train_shapes(cfg, batch: int, hw, n_class: int):
     """Launch counts per train step, by (input shape, dtype), of every kernel
     of the stc_tt train step with the MetaPool mixer, bf16 compute, loss
@@ -250,6 +278,8 @@ def kernel_tables(serve, train, serve_small):
 
     from tcct_tpu_torch.ops.kernels.bnstats import (
         bn_act_train,
+        bn_act_train_backward,
+        bn_act_train_backward_reference,
         bn_normalize_reference,
         bn_stats_reference,
     )
@@ -393,6 +423,51 @@ def kernel_tables(serve, train, serve_small):
         # x read, y written; weight, bias, mean, var as f32 vectors
         return 2 * x.numel() * x.element_size() + 16 * x.shape[1], 8 * x.numel()
 
+    # --- K3b ---------------------------------------------------------------------
+    # args: x, weight, the forward's mean and var, gy; then, for the library
+    # call only, t = act(x) and 1/sqrt(var + eps), as autograd saves them
+    def bnb_args(leaky):
+        def make(shape, dtype):
+            x, w, _ = bn_args(leaky)(shape, dtype)
+            mean, var = bn_stats_reference(x, leaky)
+            gy = randn(shape, dtype).contiguous(memory_format=torch.channels_last)
+            t = F.leaky_relu(x, 0.01) if leaky else x
+            return (x, w, mean, var, gy, t, torch.rsqrt(var + 1e-5))
+        return make
+
+    def bnb_kern(leaky):
+        return lambda x, w, m, v, g, *_: bn_act_train_backward(x, w, m, v, g, 1e-5, leaky)
+
+    def bnb_plain(leaky):
+        return lambda x, w, m, v, g, *_: bn_act_train_backward_reference(x, w, m, v, g, 1e-5,
+                                                                          leaky)
+
+    def bnb_lib(leaky):
+        def f(x, w, m, v, g, t, invstd):  # autograd's backward of leaky_relu + F.batch_norm
+            gt, gw, gb = torch.ops.aten.native_batch_norm_backward(
+                g, t, w, None, None, m, invstd, True, 1e-5, [True, True, True])
+            if leaky:
+                gt = torch.ops.aten.leaky_relu_backward(gt, x, 0.01, False)
+            return gt, gw, gb
+        return f
+
+    def bnb_check(leaky):
+        def check(name, args, dn):
+            x, w, mean, var, gy = args[:5]
+            got = bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+            torch.cuda.synchronize()
+            err = check_bn_backward(name, x, w, mean, var, gy, leaky, got)
+            again = bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"{name}: differs between two runs")
+            return err
+        return check
+
+    def bnb_cost(args):
+        x = args[0]
+        # x, gy read, dx written; weight, mean, var read, dweight, dbias written
+        return 3 * x.numel() * x.element_size() + 20 * x.shape[1], 12 * x.numel()
+
     def serve_rows(c):  # the serving path runs bf16
         return Counter({(k, "bfloat16"): n for k, n in c.items()})
 
@@ -421,8 +496,14 @@ def kernel_tables(serve, train, serve_small):
                     bn_check(leaky), bn_cost, " leaky" if leaky else "")
 
     mp_src, dw_src = "tcct_tpu_torch/csrc/metapool.cu", "tcct_tpu_torch/csrc/dwconv3x3.cu"
+    def bnb_spec(leaky):
+        return spec(bnb_kern(leaky), bnb_plain(leaky), bnb_lib(leaky), bnb_args(leaky),
+                    bnb_check(leaky), bnb_cost, " leaky" if leaky else "")
+
     bn_rows = [(bn_spec(leaky), Counter(), Counter({(shape, d): n}))
                for (shape, leaky, d), n in sorted(train["bn"].items())]
+    bnb_rows = [(bnb_spec(leaky), Counter(), Counter({(shape, d): n}))
+                for (shape, leaky, d), n in sorted(train["bn"].items())]
     return [
         _table("metapool_tokens", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
                [(mp_fwd, serve_rows(serve[0]), train["mp"])]),
@@ -438,6 +519,8 @@ def kernel_tables(serve, train, serve_small):
                [(dw_bwd(2), Counter(), train["s2"])]),
         _table("bn_act_train", "tcct_tpu_torch/csrc/bnstats.cu",
                "tcct_tpu/ops/pallas/bnstats.py:129", bn_rows),
+        _table("bn_act_train_backward", "tcct_tpu_torch/csrc/bnstats.cu",
+               "tcct_tpu/ops/pallas/bnstats.py:181", bnb_rows),
     ]
 
 
@@ -513,6 +596,46 @@ def bench_kernels(report, tables):
                          small_library_ms=tot["small_library_ms"])
         entries.append(entry)
     report["kernels"] = entries
+
+
+def check_bn_capture() -> None:
+    """One K3 call and one K3b call at a bf16 train shape captured in a CUDA
+    graph, then replayed on new inputs copied into the captured ones: the
+    outputs equal the eager calls' bit for bit (the train step's capture
+    needs both launches capturable)."""
+    import torch
+
+    from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shape, cl = (8, 32, 128, 128), torch.channels_last
+
+    def inputs(scale):
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+        w = (torch.rand(shape[1], generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        b = torch.randn(shape[1], generator=gen, device="cuda").to(torch.bfloat16)
+        gy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return [x.contiguous(memory_format=cl), w, b, gy.contiguous(memory_format=cl)]
+
+    def both(x, w, b, gy):
+        y, mean, var = bn_act_train(x, w, b, 1e-5, True)
+        return (y, mean, var) + bn_act_train_backward(x, w, mean, var, gy, 1e-5, True)
+
+    static = inputs(2.0)
+    both(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both(*static)
+    new = inputs(0.5)
+    for dst, src in zip(static, new):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(outs, both(*new))):
+        fail("K3 and K3b replayed from a CUDA graph differ from the eager calls")
+    print(f"train BN: one K3 and one K3b call {list(shape)} bf16 captured in a CUDA graph and "
+          f"replayed: bitwise equal to eager", flush=True)
 
 
 def bench_dwconv_variants(card):
@@ -632,7 +755,7 @@ def bench_convposenc(report, card, sites, sites_small):
 
 def _counted():
     """(row name, wrapper, attribute) of every launch count."""
-    from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
+    from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_backward
     from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
     from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_backward
     from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
@@ -643,7 +766,8 @@ def _counted():
             ("metapool_tokens_backward", metapool_tokens_backward, "launches"),
             ("dwconv3x3_backward", dwconv3x3_backward, "launches"),
             ("dwconv3x3_backward_s2", dwconv3x3_backward, "launches_s2"),
-            ("bn_act_train", bn_act_train, "launches")]
+            ("bn_act_train", bn_act_train, "launches"),
+            ("bn_act_train_backward", bn_act_train_backward, "launches")]
 
 
 def reset_counters() -> None:
@@ -662,6 +786,7 @@ def read_counters():
         "dwconv3x3_backward_s1": raw["dwconv3x3_backward"] - raw["dwconv3x3_backward_s2"],
         "dwconv3x3_backward_s2": raw["dwconv3x3_backward_s2"],
         "bn_act_train": raw["bn_act_train"],
+        "bn_act_train_backward": raw["bn_act_train_backward"],
         "fused_cross_block": raw["fused_cross_block"],
     }
 
@@ -1228,19 +1353,30 @@ _GROUPS = (
     ("metapool kernels (K1, K1b)", ("metapool_kernel",)),
     ("dwconv3x3 kernels (K2, K2b)", ("dwconv3x3_fwd", "dwconv3x3_bwd_kernel",
                                      "dw_finalize_kernel")),
-    ("train BN kernel (K3)", ("bn_stats_kernel", "bn_finalize_kernel", "bn_norm_kernel")),
+    ("train BN forward kernels (K3)", ("bn_stats_kernel", "bn_finalize_kernel", "bn_norm_kernel",
+                                       "bn_act_fwd_kernel")),
+    ("train BN backward kernel (K3b)", ("bn_act_bwd_kernel",)),
     ("layer_norm", ("layer_norm",)),
+    ("bilinear upsample backward", ("upsample_bilinear2d_backward",)),
     ("bilinear upsample", ("upsample",)),
     ("max_pool", ("max_pool",)),
     ("sort (polarization bins)", ("sort", "radix")),
-    ("index_add / scatter (polarization bins)", ("index", "scatter")),
+    ("index_add (polarization bins)", ("index_add", "indexfunclargeindex",
+                                       "indexfuncsmallindex")),
+    ("index_select / gather / scatter", ("index", "scatter", "gather")),
     ("optimizer (foreach)", ("foreach", "multi_tensor")),
     ("reductions", ("reduce",)),
-    ("cuDNN conv", ("conv", "xmma", "implicit_gemm", "nhwc", "winograd", "dgrad", "wgrad",
+    ("cuDNN conv", ("conv", "implicit_gemm", "nhwc", "winograd", "dgrad", "wgrad", "fprop",
                     "cudnn")),
-    ("matmul (Linear)", ("gemm", "cutlass", "cublas")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
     ("elementwise and copies", ("elementwise", "copy", "cat", "fill")),
+    ("memcpy / memset", ("memcpy", "memset")),
 )
+
+
+def _group_of(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    return next((name for name, subs in _GROUPS if any(s in low for s in subs)), "other")
 
 
 def profile_device(fn, wall_ms: float, what: str, counts=None):
@@ -1271,8 +1407,7 @@ def profile_device(fn, wall_ms: float, what: str, counts=None):
     groups = Counter()
     launches = Counter()
     for t, n, key in rows:
-        low = key.lower()
-        g = next((name for name, subs in _GROUPS if any(s in low for s in subs)), "other")
+        g = _group_of(key)
         groups[g] += t
         launches[g] += n
     if counts is not None:
@@ -1373,25 +1508,214 @@ def drive_train(report, card, train_counts):
           f"step 0 {times[0]:.1f} ms, step 1 {times[1]:.1f} ms), "
           f"{TRAIN_BATCH / steady * 1e3:.1f} B-scans/s; peak device memory {peak:.2f} GiB",
           flush=True)
-    profile_device(lambda: step(imgs, labs), steady, "one bf16 train step")
+    profile_train_step(lambda: step(imgs, labs), steady, card)
+    off, worst, n = train_repeat(cfg, imgs, labs)
+    print(f"train: one step twice from one state and one generator: {n - len(off)} of {n} "
+          f"tensors bitwise equal", flush=True)
+    if off:
+        fail(f"train step does not repeat: {len(off)} of {n} tensors differ, by up to "
+             f"{worst:.3e} ({', '.join(off[:8])} ...)")
 
-    # printed, not held (ROADMAP C.2): does a step repeat bit for bit?  The
-    # polarization bins sum with index_add, whose float atomics on the card
-    # may add in another order from run to run
+
+# (label, module, attribute) of the functions whose device time a train
+# profile names apart; an attribute the tree lacks is skipped
+_TRAIN_LABELS = (
+    ("K3 forward (bn_act_train)", "tcct_tpu_torch.ops.kernels.bnstats", "_BNActTrain.forward"),
+    ("train BN backward", "tcct_tpu_torch.ops.kernels.bnstats", "_BNActTrain.backward"),
+    ("polarization bins, forward", "tcct_tpu_torch.losses.polar", "points_selection_bins"),
+    ("bilinear backward (adjoint)", "tcct_tpu_torch.ops.resize", "_ResizeBilinear.backward"),
+)
+
+
+def _wrap_labels():
+    """Wrap each function of _TRAIN_LABELS in a profiler range of its label;
+    returns the undo list."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    undo = []
+    for label, mod_name, path in _TRAIN_LABELS:
+        obj = importlib.import_module(mod_name)
+        *outer, attr = path.split(".")
+        for name in outer:
+            obj = getattr(obj, name, None)
+        if obj is None or not hasattr(obj, attr):
+            continue
+        raw = obj.__dict__[attr] if isinstance(obj, type) else getattr(obj, attr)
+        fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+
+        setattr(obj, attr, staticmethod(wrapped) if isinstance(raw, staticmethod) else wrapped)
+        undo.append((obj, attr, raw))
+    return undo
+
+
+def profile_train_step(fn, wall_ms: float, card: str):
+    """Device time of one train step by group: the ranges of _TRAIN_LABELS
+    (every kernel launched inside one, whatever its name), then the other
+    kernels by name (_GROUPS); the step's launch count and idle share.
+    Returns {group: (ms, launches)}, empty if the profiler saw no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = {label for label, _, _ in _TRAIN_LABELS}
+    undo = _wrap_labels()
+    try:
+        fn()  # warm: a first call through the wrappers
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, raw in undo:
+            setattr(obj, attr, raw)
+    # every kernel by name; those launched by an op inside a labelled range
+    # go to the label, the rest to the name's group (the port's own kernels,
+    # launched through ctypes and not by an op, are found by name)
+    by_name_ms, by_name_n = Counter(), Counter()
+    ms, n = Counter(), Counter()
+    inside = {label: Counter() for label in labels}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if getattr(ev, "is_user_annotation", False) or ev.name in labels:
+                continue  # the ranges' own marks on the device timeline
+            by_name_ms[ev.name] += ev.time_range.elapsed_us() / 1e3
+            by_name_n[ev.name] += 1
+        elif ev.device_type == DeviceType.CPU and ev.kernels:
+            up = ev
+            while up is not None and up.name not in labels:
+                up = up.cpu_parent
+            if up is None:
+                continue
+            for k in ev.kernels:
+                ms[up.name] += k.duration / 1e3
+                n[up.name] += 1
+                inside[up.name][_group_of(k.name)] += k.duration / 1e3
+                by_name_ms[k.name] -= k.duration / 1e3
+                by_name_n[k.name] -= 1
+    for name, t in by_name_ms.items():
+        if by_name_n[name] > 0:
+            ms[_group_of(name)] += t
+            n[_group_of(name)] += by_name_n[name]
+    busy = sum(ms.values())
+    if busy == 0:
+        print("train profile: no device time recorded (not measured)", flush=True)
+        return {}
+    print(f"train profile [{card}]: one bf16 step: {sum(n.values())} kernel launches, device busy "
+          f"{busy:.3f} ms = "
+          f"{busy / wall_ms * 100:.1f}% of {wall_ms:.3f} ms/step "
+          f"(idle share {max(0.0, 1 - busy / wall_ms) * 100:.1f}%)", flush=True)
+    for g, t in ms.most_common():
+        within = ", ".join(f"{k} {v:.3f}" for k, v in inside.get(g, Counter()).most_common(4))
+        print(f"  {t:8.3f} ms {t / busy * 100:5.1f}%  x{n[g]:<5d} {g}"
+              + (f" (by kernel group: {within})" if within else ""), flush=True)
+    rest = sorted(((t, name) for name, t in by_name_ms.items() if by_name_n[name] > 0),
+                  reverse=True)
+    print("train profile: top kernels outside the named ranges:", flush=True)
+    for t, name in rest[:10]:
+        print(f"  {t:8.3f} ms  x{by_name_n[name]:<5d} {name[:110]}", flush=True)
+    return {g: (ms[g], n[g]) for g in ms}
+
+
+def train_repeat(cfg, imgs, labs, deterministic_cudnn: bool = False):
+    """One bf16 step of a fresh seeded model twice, from one state and one
+    generator: (names of the state tensors that differ, max abs
+    difference, tensor count)."""
+    import torch
+
+    from tcct_tpu_torch.models import RegNet, get_model
+    from tcct_tpu_torch.models.layers import init_weights
+    from tcct_tpu_torch.train import build_train_step, make_optimizer
+
     ends = []
     for _ in range(2):
         m = RegNet(get_model("stc_tt", TRAIN_NC, variant="train", drop_path_rate=0.1),
                    out_channels=TRAIN_NC)
         init_weights(m, torch.Generator().manual_seed(SEED))
         g = torch.Generator(device="cuda").manual_seed(SEED)
-        build_train_step(m, make_optimizer(1, lr=LR), cfg, device="cuda", generator=g)(imgs, labs)
+        step = build_train_step(m, make_optimizer(1, lr=LR), cfg, device="cuda", generator=g)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=deterministic_cudnn):
+            step(imgs, labs)
         ends.append({k: v.detach().clone() for k, v in m.state_dict().items()})
     off = [k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k])]
     worst = max((float((ends[0][k].double() - ends[1][k].double()).abs().max()) for k in off),
                 default=0.0)
-    print(f"train: one step twice from one state and one generator: parameters and statistics "
-          f"bitwise equal: {not off} ({len(off)} of {len(ends[0])} tensors differ, max abs "
-          f"difference {worst:.3e})", flush=True)
+    return off, worst, len(ends[0])
+
+
+def _summary(names) -> str:
+    """State-dict names counted by their first two components."""
+    c = Counter(".".join(k.split(".")[:2]) for k in names)
+    return ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+
+
+def train_diagnostics(card: str) -> None:
+    """The train step's diagnostics, printed and not held, for the tree on
+    ``sys.path`` (this checkout or another's, ``--train-profile DIR``):
+    ms/step over 5 steps, the device profile of one step by group, the ops
+    that ``torch.use_deterministic_algorithms`` names in one step, and
+    which state tensors differ when one step runs twice from one state,
+    with cuDNN as it is and with ``cudnn.deterministic``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import tcct_tpu_torch
+    from tcct_tpu_torch.models import RegNet, get_model
+    from tcct_tpu_torch.models.layers import init_weights
+    from tcct_tpu_torch.train import TrainConfig, build_train_step, make_optimizer
+
+    print(f"train diagnostics: package {os.path.dirname(tcct_tpu_torch.__file__)}", flush=True)
+    model = RegNet(get_model("stc_tt", TRAIN_NC, variant="train", drop_path_rate=0.1),
+                   out_channels=TRAIN_NC)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    cfg = TrainConfig(crop_hw=TRAIN_HW, n_class=TRAIN_NC, ds=True, udh=True, reg=True,
+                      augment=False, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = build_train_step(model, make_optimizer(1, lr=LR), cfg, device="cuda", generator=gen)
+    imgs, labs = banded_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_NC, SEED)
+    times = []
+    for _ in range(TRAIN_STEPS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _ = step(imgs, labs)
+        float(metrics["total"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    steady = float(np.mean(times[3:]))
+    print(f"train diagnostics [{card}]: {steady:.2f} ms/step (mean of steps 3-{len(times) - 1}: "
+          + ", ".join(f"{t:.1f}" for t in times[3:]) + ")", flush=True)
+    profile_train_step(lambda: step(imgs, labs), steady, card)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(imgs, labs)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    named = Counter(str(w.message).split(" does not have")[0].strip()
+                    for w in caught if "deterministic" in str(w.message))
+    print(f"train diagnostics: ops named by use_deterministic_algorithms in one step: "
+          f"{dict(named) or 'none'}", flush=True)
+    for det, flag in ((False, False), (True, False), (False, True)):
+        if flag:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            off, worst, n = train_repeat(cfg, imgs, labs, det)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"train diagnostics: one step twice, cudnn.deterministic={det}, "
+              f"use_deterministic_algorithms={flag}: {len(off)} of {n} tensors differ (max abs "
+              f"difference {worst:.3e}): {_summary(off) or '-'}", flush=True)
 
 
 def _port_slice(sd0, device):
@@ -1516,7 +1840,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-profile":
+        root = os.path.abspath(sys.argv[2])
+    sys.path.insert(0, root)
     try:
         from tcct_tpu_torch.ops.kernels import build
     except ImportError as e:
@@ -1538,8 +1865,11 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--k4-against":
         compare_fused_block_with(sys.argv[2], card)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-profile":
+        train_diagnostics(card)
+        return 0
     if len(sys.argv) > 1:
-        fail(f"usage: chip_smoke.py [--k4-against DIR], not {sys.argv[1:]}")
+        fail(f"usage: chip_smoke.py [--k4-against DIR | --train-profile DIR], not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
     from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config
@@ -1556,11 +1886,12 @@ def main() -> int:
     train_counts = {"metapool_tokens": per_step["mp"], "metapool_tokens_backward": per_step["mp"],
                     "dwconv3x3_s1": per_step["s1"], "dwconv3x3_backward_s1": per_step["s1"],
                     "dwconv3x3_s2": per_step["s2"], "dwconv3x3_backward_s2": per_step["s2"],
-                    "bn_act_train": per_step["bn"]}
+                    "bn_act_train": per_step["bn"], "bn_act_train_backward": per_step["bn"]}
     print(f"kernels vs plain versions at the {DB} serving shapes (batch {BATCH}) and the "
           f"train-step shapes (batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:",
           flush=True)
     bench_kernels(report, kernel_tables(serve, train, serve_small))
+    check_bn_capture()
     bench_dwconv_variants(card)
     bench_convposenc(report, card, cpe_shapes(vit, BATCH, get_geometry(DB).prep_hw),
                      cpe_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw))

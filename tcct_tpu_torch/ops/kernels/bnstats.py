@@ -1,13 +1,13 @@
 """Train-mode BatchNorm with an optional LeakyReLU(0.01) in front:
-hand-written CUDA kernel (``csrc/bnstats.cu``) and its plain PyTorch
-versions (statistics, normalize, backward).
+hand-written CUDA kernels (``csrc/bnstats.cu``), forward (K3) and backward
+(K3b), and their plain PyTorch versions (statistics, normalize, backward).
 
 Replaces the TPU kernels ``tcct_tpu/ops/pallas/bnstats.py::_stats_kernel``
 (``pallas_call`` at bnstats.py:129) and ``::_norm_kernel`` (bnstats.py:149),
-via ``bn_act_train_packed_pallas``, on the port's own layout: NCHW tensors
-in channels_last memory, channels the fast axis.  The TPU kernel's packed
-layout, phantom masks and phase-fold matmul are TPU layout artifacts and
-have no counterpart here.
+via ``bn_act_train_packed_pallas``, and its backward (``::_bwd``, plain
+jnp), on the port's own layout: NCHW tensors in channels_last memory,
+channels the fast axis.  The TPU kernel's packed layout, phantom masks and
+phase-fold matmul are TPU layout artifacts and have no counterpart here.
 
 The arithmetic is the JAX package's default train BatchNorm
 (``tcct_tpu/models/layers.py::BatchNorm``), not the TPU kernel's folded
@@ -16,11 +16,11 @@ The arithmetic is the JAX package's default train BatchNorm
 reductions, ``inv = rsqrt(var + eps) * weight`` in f32, and
 ``y = (t - mean) * inv + bias`` in the input dtype.
 
-:func:`bn_act_train` is a ``torch.autograd.Function``.  Its forward
-launches the kernel (a statistics sweep and a normalize sweep) on a CUDA
-tensor and runs the plain versions on a CPU tensor; its backward is the
-plain analytic adjoint on both, as the JAX package's own backward
-(``bnstats.py::_bwd``) is plain jnp.
+:func:`bn_act_train` is a ``torch.autograd.Function``.  On a CUDA tensor
+its forward launches K3 and its backward :func:`bn_act_train_backward`,
+K3b: each one cooperative launch that sums per channel in a fixed order,
+then normalizes (or forms dx) in the same launch.  On a CPU tensor both
+run the plain versions.
 """
 
 from __future__ import annotations
@@ -89,46 +89,131 @@ def bn_act_train_backward_reference(x, weight, mean, var, gy, eps: float = 1e-5,
     return dt.to(x.dtype), (ginv * r).to(weight.dtype), gsum.to(weight.dtype)
 
 
+def bn_act_train_backward_tolerance(x, weight, mean, var, gy, eps: float = 1e-5,
+                                    leaky: bool = False):
+    """Per-element bounds on ``|K3b - plain|`` for ``(dx, dweight, dbias)``,
+    f64.  The two differ in the order of the f32 sums ``sum(gy)`` and
+    ``sum(gy * t)`` only (the kernel rounds every other product and sum in
+    the plain version's order), so dx may differ by one rounding to x's
+    dtype plus what 1e-5 of ``sum|gy|`` and of ``sum|gy * t| + |mean|
+    sum|gy|`` moves it by through gmean and gvar, plus 1e-6 of its terms;
+    dweight and dbias by 1e-5 of ``r * (sum|gy * t| + |mean| sum|gy|)`` and
+    of ``sum|gy|``, plus one rounding to weight's dtype."""
+    def ulp_share(dtype):  # spacing of dtype's values near v, as a share of |v|
+        return 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+
+    want = bn_act_train_backward_reference(x, weight, mean, var, gy, eps, leaky)
+    n = x.numel() // x.shape[1]
+    t, g = _act(x, leaky).double(), gy.double()
+    m, w = mean.double(), weight.double()
+    r = torch.reciprocal(torch.sqrt(var.double() + eps))
+    s_g, s_gt = g.abs().sum(_DIMS), (g * t).abs().sum(_DIMS)
+    d_ginv, d_gsum = 1e-5 * (s_gt + m.abs() * s_g), 1e-5 * s_g
+    d_gvar = 0.5 * w.abs() * r ** 3 * d_ginv
+    d_gmean = (w * r).abs() * d_gsum + 2 * m.abs() * d_gvar
+    gvar = -0.5 * ((g * t).sum(_DIMS) - m * g.sum(_DIMS)) * w * r ** 3
+    gmean = -w * r * g.sum(_DIMS) - 2 * m * gvar
+    terms = ((g * _per_channel(w * r)).abs() + _per_channel(gmean / n).abs()
+             + (_per_channel(2 * gvar / n) * t).abs())
+    lim_dx = (_per_channel(d_gmean / n) + _per_channel(2 * d_gvar / n) * t.abs() + 1e-6 * terms
+              + ulp_share(x.dtype) * want[0].double().abs() + 1e-30)
+    lim_dw = r * d_ginv + ulp_share(weight.dtype) * want[1].double().abs() + 1e-30
+    lim_db = d_gsum + ulp_share(weight.dtype) * want[2].double().abs() + 1e-30
+    return lim_dx, lim_dw, lim_db
+
+
 @functools.cache
 def _fn(name: str):
     """A C entry point of the library, typed (built and loaded on first use)."""
     fn = getattr(build.load("bnstats"), name)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "tcct_bn_act_train_parts":
-        fn.argtypes = [ll]
-    else:  # tcct_bn_act_train
-        fn.argtypes = [p] * 8 + [ll, i, ctypes.c_float, i, i, p]
-    fn.restype = i
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes, fn.restype = {
+        "tcct_bn_act_workspace": ([ll, i, i, i], ll),
+        "tcct_bn_act_train": ([p] * 6 + [ll, i, f, i, i, i, i, p], i),
+        "tcct_bn_act_train_backward": ([p] * 9 + [ll, i, f, i, i, i, p], i),
+    }[name]
     return fn
 
 
-def _kernel(x, weight, bias, eps, leaky):
+def _check(x, what, **params):
     if x.device.type != "cuda":
-        raise ValueError(f"bn_act_train: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError(f"bn_act_train: want NCHW float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+        raise ValueError(f"{what}: want NCHW float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
     C = x.shape[1]
-    for name, p in (("weight", weight), ("bias", bias)):
-        if tuple(p.shape) != (C,) or p.device != x.device:
-            raise ValueError(f"bn_act_train: want {name} [{C}] on {x.device}, got "
-                             f"{tuple(p.shape)} on {p.device}")
+    for name, t in params.items():
+        if tuple(t.shape) != (C,) or t.device != x.device:
+            raise ValueError(f"{what}: want {name} [{C}] on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    M = x.numel() // C if C else 0
+    if M == 0:
+        raise ValueError(f"{what}: empty batch {tuple(x.shape)}")
+    return M, C
+
+
+def _param(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel parameter as the kernel reads it: f32 or bf16, contiguous."""
+    return (t if t.dtype in _DTYPES else t.float()).contiguous()
+
+
+def _workspace(x, M, C, backward: bool) -> torch.Tensor:
+    n = _fn("tcct_bn_act_workspace")(M, C, _DTYPES[x.dtype], int(backward))
+    if n < 0:
+        raise ValueError(f"bn_act_train: channels {C} in {x.dtype} are more than one block "
+                         "of words")
+    return torch.empty(n, dtype=torch.float32, device=x.device)
+
+
+def _kernel(x, weight, bias, eps, leaky):
+    M, C = _check(x, "bn_act_train", weight=weight, bias=bias)
     xc = x.contiguous(memory_format=torch.channels_last)
     y = torch.empty_like(xc, memory_format=torch.channels_last)
     stats = torch.empty((3, C), dtype=torch.float32, device=x.device)  # mean, var, inv
-    M = x.numel() // C
-    if M == 0:
-        raise ValueError(f"bn_act_train: empty batch {tuple(x.shape)}")
-    part = torch.empty((_fn("tcct_bn_act_train_parts")(M), 2, C), dtype=torch.float32,
-                       device=x.device)
-    w32 = weight.float().contiguous()
-    b32 = bias.float().contiguous()
+    part = _workspace(x, M, C, False)
+    w, b = _param(weight), _param(bias)
     err = _fn("tcct_bn_act_train")(
-        xc.data_ptr(), y.data_ptr(), w32.data_ptr(), b32.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), stats[2].data_ptr(), part.data_ptr(), M, C, float(eps), int(leaky),
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        xc.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), stats.data_ptr(),
+        part.data_ptr(), M, C, float(eps), int(leaky), _DTYPES[x.dtype], _DTYPES[w.dtype],
+        _DTYPES[b.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"bn_act_train {tuple(x.shape)} {x.dtype} leaky={leaky}")
     bn_act_train.launches += 1
     return y, stats[0], stats[1]
+
+
+def _kernel_backward(x, weight, mean, var, gy, eps, leaky):
+    M, C = _check(x, "bn_act_train_backward", weight=weight, mean=mean, var=var)
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
+        raise ValueError(f"bn_act_train_backward: want gy like x {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(gy.shape)} {gy.dtype} on {gy.device}")
+    xc = x.contiguous(memory_format=torch.channels_last)
+    gc = gy.contiguous(memory_format=torch.channels_last)
+    dx = torch.empty_like(xc, memory_format=torch.channels_last)
+    w = _param(weight)
+    dwb = torch.empty((2, C), dtype=w.dtype, device=x.device)  # dweight, dbias
+    coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
+    part = _workspace(x, M, C, True)
+    m32, v32 = mean.float().contiguous(), var.float().contiguous()
+    err = _fn("tcct_bn_act_train_backward")(
+        xc.data_ptr(), gc.data_ptr(), dx.data_ptr(), w.data_ptr(), m32.data_ptr(),
+        v32.data_ptr(), coef.data_ptr(), dwb.data_ptr(), part.data_ptr(), M, C, float(eps),
+        int(leaky), _DTYPES[x.dtype], _DTYPES[w.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"bn_act_train_backward {tuple(x.shape)} {x.dtype} leaky={leaky}")
+    bn_act_train_backward.launches += 1
+    return dx, dwb[0].to(weight.dtype), dwb[1].to(weight.dtype)
+
+
+def bn_act_train_backward(x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
+                          var: torch.Tensor, gy: torch.Tensor, eps: float = 1e-5,
+                          leaky: bool = False):
+    """The adjoint of :func:`bn_act_train` at ``gy``, given the forward's
+    batch ``mean`` and ``var``: ``(dx in x's dtype, dweight, dbias in
+    weight's dtype)``.  A CPU tensor takes
+    :func:`bn_act_train_backward_reference`; a CUDA tensor launches K3b,
+    or the call raises."""
+    if x.device.type == "cpu":
+        return bn_act_train_backward_reference(x, weight, mean, var, gy, eps, leaky)
+    return _kernel_backward(x, weight, mean, var, gy, eps, leaky)
 
 
 class _BNActTrain(torch.autograd.Function):
@@ -148,7 +233,7 @@ class _BNActTrain(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy, _gmean, _gvar):
         x, weight, mean, var = ctx.saved_tensors
-        dx, dw, db = bn_act_train_backward_reference(x, weight, mean, var, gy, ctx.eps, ctx.leaky)
+        dx, dw, db = bn_act_train_backward(x, weight, mean, var, gy, ctx.eps, ctx.leaky)
         return dx, dw, db.to(ctx.bias_dtype), None, None
 
 
@@ -165,3 +250,4 @@ def bn_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps:
 
 
 bn_act_train.launches = 0
+bn_act_train_backward.launches = 0

@@ -13,7 +13,9 @@ from tcct_tpu_torch.models.crosscnn import seeded_cross_block
 from tcct_tpu_torch.ops.kernels import build
 from tcct_tpu_torch.ops.kernels.bnstats import (
     bn_act_train,
+    bn_act_train_backward,
     bn_act_train_backward_reference,
+    bn_act_train_backward_tolerance,
     bn_normalize_reference,
     bn_stats_reference,
 )
@@ -204,10 +206,19 @@ def _bn_inputs(cuda, shape, dtype, seed):
     return x, w, b
 
 
+# The train step's BatchNorm shapes (every one of the 18 of a bf16 stc_tt
+# step, batch 8 at 256x256), then odd ones: one channel, C not a multiple
+# of a 16-byte word, C above 256, rows fewer than a block's lanes.
+BN_SHAPES = [(8, 1, 256, 256), (8, 32, 16, 16), (8, 32, 32, 32), (8, 32, 64, 64),
+             (8, 32, 128, 128), (8, 32, 256, 256), (8, 64, 128, 128), (8, 96, 64, 64),
+             (8, 96, 128, 128), (8, 128, 32, 32), (8, 128, 64, 64), (8, 160, 16, 16),
+             (8, 160, 32, 32),
+             (2, 32, 12, 10), (4, 96, 33, 17), (2, 1, 64, 64), (3, 4, 7, 5), (2, 300, 5, 6)]
+
+
 @pytest.mark.parametrize("leaky", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 32, 12, 10), (8, 32, 128, 128), (4, 96, 33, 17),
-                                   (2, 1, 64, 64), (3, 4, 7, 5), (2, 300, 5, 6)])
+@pytest.mark.parametrize("shape", BN_SHAPES)
 def test_bn_train_kernel_matches_plain(cuda, shape, dtype, leaky):
     """K3: batch mean and var within 1e-5 of E[|t|] and E[t^2] (f32 sums
     in another order); y equal to the plain normalize given those
@@ -228,18 +239,108 @@ def test_bn_train_kernel_matches_plain(cuda, shape, dtype, leaky):
     assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)
 
 
+def _bn_bwd_close(x, w, mean, var, gy, leaky, got):
+    """K3b against the plain adjoint on the same inputs, within
+    bn_act_train_backward_tolerance: one rounding to x's dtype of the plain
+    dx plus what 1e-5 of the two f32 sums moves it by; dweight and dbias
+    within 1e-5 of r * sum|gy * t| (+ |mean| sum|gy|) and of sum|gy|."""
+    want = bn_act_train_backward_reference(x, w, mean, var, gy, 1e-5, leaky)
+    lims = bn_act_train_backward_tolerance(x, w, mean, var, gy, 1e-5, leaky)
+    assert got[0].dtype == x.dtype and got[0].shape == x.shape
+    assert got[1].dtype == got[2].dtype == w.dtype
+    assert bool(torch.isfinite(got[0].float()).all())
+    for a, c, lim in zip(got, want, lims):
+        err = (a.double() - c.double()).abs()
+        assert bool((err <= lim).all()), (float(err.max()), float((err - lim).max()))
+
+
+@pytest.mark.parametrize("leaky", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_train_backward_kernel_matches_plain(cuda, shape, dtype, leaky):
+    """K3b against the plain adjoint at the forward kernel's statistics
+    (bounds in _bn_bwd_close); one launch a call; repeated runs bitwise
+    equal."""
+    x, w, b = _bn_inputs(cuda, shape, dtype, 5)
+    _, mean, var = bn_act_train(x, w, b, 1e-5, leaky)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    n = bn_act_train_backward.launches
+    got = bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+    torch.cuda.synchronize()
+    assert bn_act_train_backward.launches == n + 1
+    _bn_bwd_close(x, w, mean, var, gy, leaky, got)
+    again = bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_train_backward_on_card_matches_plain(cuda, dtype):
-    """K3's backward (plain analytic adjoint) through autograd on the card
-    equals the plain function called with the kernel's statistics."""
+    """Autograd through bn_act_train on the card runs K3b (one launch), and
+    its gradients are the plain adjoint's at the bounds of _bn_bwd_close,
+    also for a gradient that comes in NCHW-contiguous."""
     x, w, b = _bn_inputs(cuda, (4, 32, 16, 16), dtype, 5)
     xr = x.detach().requires_grad_()
     wr, br = w.detach().requires_grad_(), b.detach().requires_grad_()
     y, mean, var = bn_act_train(xr, wr, br, 1e-5, True)
-    gy = torch.randn_like(y)
+    gy = torch.randn(y.shape, device=cuda).to(dtype)  # contiguous, not channels_last
+    n = bn_act_train_backward.launches
     got = torch.autograd.grad(y, (xr, wr, br), gy)
-    want = bn_act_train_backward_reference(x, w, mean, var, gy, 1e-5, True)
-    for a, c in zip(got, want):
+    assert bn_act_train_backward.launches == n + 1
+    _bn_bwd_close(x, w, mean, var, gy, True, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_kernels_are_one_launch_each(cuda, dtype):
+    """A K3 call and a K3b call each put one kernel on the device and
+    nothing else (train shape, channels_last gradient)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b = _bn_inputs(cuda, (8, 64, 128, 128), dtype, 8)
+    gy = torch.randn_like(x).contiguous(memory_format=torch.channels_last)
+    _, mean, var = bn_act_train(x, w, b, 1e-5, False)
+    bn_act_train_backward(x, w, mean, var, gy, 1e-5, False)
+    torch.cuda.synchronize()
+    for call, kernel in ((lambda: bn_act_train(x, w, b, 1e-5, False), "bn_act_fwd_kernel"),
+                         (lambda: bn_act_train_backward(x, w, mean, var, gy, 1e-5, False),
+                          "bn_act_bwd_kernel")):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.parametrize("leaky", [False, True])
+def test_bn_train_kernels_capture_and_replay(cuda, leaky):
+    """One K3 call and one K3b call at a train shape, captured in a CUDA
+    graph and replayed on new inputs copied into the captured ones, give
+    the eager results bit for bit."""
+    shape, dtype = (8, 32, 128, 128), torch.bfloat16
+    x, w, b = _bn_inputs(cuda, shape, dtype, 9)
+    gy = torch.randn(shape, device=cuda).to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def both(x, w, b, gy):
+        y, mean, var = bn_act_train(x, w, b, 1e-5, leaky)
+        return (y, mean, var) + bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+
+    both(x, w, b, gy)  # builds and warms up outside the capture
+    torch.cuda.synchronize()
+    sx, sw, sb, sg = (t.clone() for t in (x, w, b, gy))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both(sx, sw, sb, sg)
+    x2, w2, b2 = _bn_inputs(cuda, shape, dtype, 10)
+    gy2 = (torch.randn(shape, device=cuda) * 0.5).to(dtype)
+    for dst, src in zip((sx, sw, sb, sg), (x2, w2, b2, gy2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = both(x2, w2, b2, gy2.contiguous(memory_format=torch.channels_last))
+    for a, c in zip(outs, want):
         assert torch.equal(a, c)
 
 
@@ -458,6 +559,13 @@ def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         bn_act_train(torch.zeros(2, 4, 3, 3, device=cuda, dtype=torch.float16),
                      torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
+    x = torch.zeros(2, 4, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="gy"):
+        bn_act_train_backward(x, torch.ones(4, device=cuda), torch.zeros(4, device=cuda),
+                              torch.ones(4, device=cuda), torch.zeros(2, 4, 3, 4, device=cuda))
+    with pytest.raises(ValueError, match="channels"):  # more than one block of words
+        bn_act_train(torch.zeros(1, 4099, 1, 1, device=cuda), torch.ones(4099, device=cuda),
+                     torch.zeros(4099, device=cuda))
 
 
 def test_build_all(cuda):
