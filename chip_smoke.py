@@ -17,7 +17,10 @@ toolkit (``nvcc``):
    off), and times kernel, plain version and the one-call PyTorch
    yardstick on the device (CUDA-graph replay, inputs beyond L2); one
    train BatchNorm forward and backward captured in a CUDA graph and
-   replayed, bit for bit the eager calls; the depthwise forward's
+   replayed, bit for bit the eager calls; the depthwise backward at the
+   ConvPosEnc site (the residual and the bias gradient in its one
+   launch) against the kernel and the two plain passes, and one such call
+   captured in a CUDA graph and replayed; the depthwise forward's
    two kernels at several strip heights; its bias-and-residual epilogue
    (the ConvPosEnc site) bit for bit against the three passes it
    replaces, and timed against them; then the fused CrossCNN
@@ -57,6 +60,15 @@ e.g. the parent commit, whose ``tcct_crosscnn_fused_fwd`` has this one's C
 signature) beside this one's and holds the two against each other in bf16
 at every fused-block shape: bitwise equal or not, and device us per launch
 in turns.
+
+    python3 chip_smoke.py --k2b-against DIR
+
+builds DIR's ``tcct_tpu_torch/csrc/dwconv3x3.cu`` (a checkout whose K2b is
+the first version, two launches a call) beside this one's and holds this
+tree's K2b against it at every train-step shape in bf16 and f32: dx bit
+for bit (a difference fails), device us per call in turns; then the
+ConvPosEnc site's backward, one launch against the other kernel plus the
+two plain passes it needed.
 
     python3 chip_smoke.py --train-profile DIR
 
@@ -353,20 +365,24 @@ def kernel_tables(serve, train, serve_small):
     def dw_bwd_check(stride):
         def check(name, args, dn):
             x, w, g = args
-            dx, dw = dwconv3x3_backward(x, w, g, stride)
+            dx, dw, db = dwconv3x3_backward(x, w, g, stride, bias=True)
             torch.cuda.synchronize()
-            rdx, _ = dwconv3x3_backward_reference(x, w, g, stride)
+            rdx, _, _ = dwconv3x3_backward_reference(x, w, g, stride)
             err = check_close(name + " dx", dx, rdx, dn)
             # dw sums B*Ho*Wo products: 1e-5 of sum|x*g| per tap (summation
-            # order), plus one bf16 rounding, against the plain version in f32
+            # order), plus one bf16 rounding, against the plain version in f32;
+            # db likewise of sum|g|
+            one = 2.0 ** -7 if dn == "bfloat16" else 0.0
             ref32 = dwconv3x3_backward_reference(x.float(), w.float(), g.float(), stride)[1]
             mag = dwconv3x3_backward_reference(x.float().abs(), w.float(), g.float().abs(),
                                                stride)[1]
-            lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * ref32.abs() if dn == "bfloat16" else 0)
-            check_within(name + " dw", dw, ref32, lim)
-            _, dw2 = dwconv3x3_backward(x, w, g, stride)
-            if not torch.equal(dw, dw2):
-                fail(f"{name}: dw differs between two runs")
+            check_within(name + " dw", dw, ref32, 1e-5 * mag + 1e-6 + one * ref32.abs())
+            gsum = g.float().sum((0, 1, 2))
+            check_within(name + " db", db, gsum,
+                         1e-5 * g.float().abs().sum((0, 1, 2)) + 1e-6 + one * gsum.abs())
+            _, dw2, db2 = dwconv3x3_backward(x, w, g, stride, bias=True)
+            if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+                fail(f"{name}: dw or db differs between two runs")
             return err
         return check
 
@@ -635,6 +651,85 @@ def check_bn_capture() -> None:
     if not all(torch.equal(a, c) for a, c in zip(outs, both(*new))):
         fail("K3 and K3b replayed from a CUDA graph differ from the eager calls")
     print(f"train BN: one K3 and one K3b call {list(shape)} bf16 captured in a CUDA graph and "
+          f"replayed: bitwise equal to eager", flush=True)
+
+
+def bench_convposenc_backward(report, card, sites):
+    """The ConvPosEnc site's backward at the train step's shapes: one K2b
+    launch that adds g to dx and sums the bias gradient, against the kernel
+    followed by the two plain passes it replaces (``dx + g``,
+    ``g.sum``): dx bit for bit, db within 1e-5 of sum|g| plus a rounding,
+    in bf16 and f32, timed against them and a bound of x and g read and
+    dx written once.  Then one such call captured in a CUDA graph and
+    replayed on new inputs: bitwise the eager call (the launch allocates
+    nothing)."""
+    import torch
+
+    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    print(f"ConvPosEnc backward site: one launch vs the kernel and two passes [{card}]:",
+          flush=True)
+
+    def one(x, w, g):
+        return dwconv3x3_backward(x, w, g, 1, bias=True, residual=True)
+
+    def three(x, w, g):
+        dx, dw, _ = dwconv3x3_backward(x, w, g, 1)
+        return dx + g, dw, g.sum((0, 1, 2))
+
+    def inputs(shape, dtype, scale=1.0):
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+        w = (torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") / 3).to(dtype)
+        g = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+        return x, w, g
+
+    tot = Counter()
+    for shape in sorted(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            x, w, g = inputs(shape, dtype)
+            got, want = one(x, w, g), three(x, w, g)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                fail(f"ConvPosEnc backward {list(shape)} {dn}: dx or dw differs from the passes")
+            gsum = g.float().sum((0, 1, 2))
+            lim = 1e-5 * g.float().abs().sum((0, 1, 2)) + 1e-6 + (
+                2.0 ** -7 * gsum.abs() if dtype == torch.bfloat16 else 0)
+            check_within(f"ConvPosEnc backward {list(shape)} {dn} db", got[2], gsum, lim)
+            nbytes = 3 * x.numel() * x.element_size()
+            copies = [(x.clone(), w, g.clone()) for _ in range(n_copies(nbytes))]
+            t_1, t_3 = device_ms(one, copies), device_ms(three, copies)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            n = sites[shape]
+            print(f"  {list(shape)} {dn} x{n}/step: dx bitwise equal; one launch {t_1 * 1e3:.1f} "
+                  f"us, kernel + two passes {t_3 * 1e3:.1f} us, bound {bound * 1e3:.1f} us",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                tot["ms"] += n * t_1
+                tot["three_ms"] += n * t_3
+            del copies
+    for e in report["kernels"]:
+        if e["name"] == "dwconv3x3_backward_s1":
+            e.update(convposenc_ms=tot["ms"], convposenc_three_pass_ms=tot["three_ms"])
+    print(f"  per bf16 train step: {sum(sites.values())} sites {tot['ms']:.4f} ms in one launch "
+          f"each, {tot['three_ms']:.4f} ms as the kernel and two passes", flush=True)
+
+    shape = max(sites)
+    static = list(inputs(shape, torch.bfloat16))
+    one(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = one(*static)
+    new = inputs(shape, torch.bfloat16, 0.5)
+    for dst, src in zip(static, new):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(outs, one(*new))):
+        fail("K2b replayed from a CUDA graph differs from the eager call")
+    print(f"K2b: one call {list(shape)} bf16 (bias, residual) captured in a CUDA graph and "
           f"replayed: bitwise equal to eager", flush=True)
 
 
@@ -1111,6 +1206,116 @@ def compare_fused_block_with(other_root: str, card: str, rows=None, timed: bool 
     return verdicts
 
 
+def _parent_k2b(other_root: str):
+    """K2b built from another checkout's source whose C entry points are
+    the first version's (``tcct_dwconv3x3_bwd_parts`` and a 13-argument
+    ``tcct_dwconv3x3_bwd``), as a function (x, w, g, stride) -> (dx, dw)."""
+    import ctypes
+
+    import torch
+
+    from tcct_tpu_torch.ops.kernels import build
+
+    src = os.path.join(other_root, "tcct_tpu_torch", "csrc", "dwconv3x3.cu")
+    with open(src) as f:
+        if "tcct_dwconv3x3_bwd_parts" not in f.read():
+            fail(f"{src}: not the first version's K2b (no tcct_dwconv3x3_bwd_parts)")
+    lib = os.path.join(build.BUILD_DIR, "other", "libdwconv3x3.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        fail(f"cannot build {src}: {done.stdout[-2000:]}")
+    dll = ctypes.CDLL(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    parts, run = dll.tcct_dwconv3x3_bwd_parts, dll.tcct_dwconv3x3_bwd
+    parts.argtypes, parts.restype = [p] * 4 + [i] * 6, ctypes.c_longlong
+    run.argtypes, run.restype = [p] * 6 + [i] * 6 + [p], i
+    dts = {torch.float32: 0, torch.bfloat16: 1}
+
+    def k2b(x, w, g, stride):
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        B, H, W, C = x.shape
+        ptrs = (x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr())
+        part = torch.empty((parts(*ptrs, B, H, W, C, stride, dts[x.dtype]), 9, C),
+                           dtype=torch.float32, device=x.device)
+        build.check(run(*ptrs, dw.data_ptr(), part.data_ptr(), B, H, W, C, stride,
+                        dts[x.dtype], torch.cuda.current_stream().cuda_stream),
+                    f"the other K2b at {tuple(x.shape)}")
+        return dx, dw
+    return k2b
+
+
+def compare_k2b_with(other_root: str, card: str) -> None:
+    """``--k2b-against DIR``: K2b against the first version's kernel built
+    from DIR's source, at every train-step shape in bf16 and f32: dx bitwise
+    equal or not (a difference fails the run), device us per call in turns
+    (other, this, this, other); then the ConvPosEnc site's backward, one
+    launch with the residual and the bias against the other kernel plus
+    the two plain passes (``dx + g``, ``g.sum``) it needed."""
+    import torch
+
+    from tcct_tpu_torch.models.mpvit import MPViTConfig
+    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3_backward
+
+    other = _parent_k2b(other_root)
+    train = train_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    print(f"K2b: this tree against {other_root}'s kernel [{card}]:", flush=True)
+
+    def inputs(shape, stride, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") / 3).to(dtype)
+        Ho, Wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
+        g = torch.randn((shape[0], Ho, Wo, shape[3]), generator=gen, device="cuda").to(dtype)
+        return x, w, g
+
+    tot = Counter()
+    for stride, key in ((1, "s1"), (2, "s2")):
+        for shape in sorted({k[0] for k in train[key]}):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                n = train[key].get((shape, dn), 0)
+                x, w, g = inputs(shape, stride, dtype)
+                same = torch.equal(dwconv3x3_backward(x, w, g, stride)[0],
+                                   other(x, w, g, stride)[0])
+                if not same:
+                    fail(f"K2b s{stride} {list(shape)} {dn}: dx differs from the other kernel's")
+                copies = [tuple(t.clone() for t in (x, w, g))
+                          for _ in range(n_copies(3 * x.numel() * x.element_size()))]
+                mine = lambda a, b, c: dwconv3x3_backward(a, b, c, stride)  # noqa: E731
+                theirs = lambda a, b, c: other(a, b, c, stride)  # noqa: E731
+                us = [device_ms(f, copies) * 1e3 for f in (theirs, mine, mine, theirs)]
+                for k, u in (("other", us[0] + us[3]), ("this", us[1] + us[2])):
+                    tot[f"s{stride} {k}"] += n * u / 2e3
+                print(f"  s{stride} {list(shape)} {dn}" + (f" x{n}/step" if n else "")
+                      + f": dx bitwise equal; us other {us[0]:.1f}, {us[3]:.1f}; this "
+                      f"{us[1]:.1f}, {us[2]:.1f}", flush=True)
+                del copies
+    print(f"  per bf16/f32 train step: s1 other {tot['s1 other']:.4f} ms, this "
+          f"{tot['s1 this']:.4f}; s2 other {tot['s2 other']:.4f}, this {tot['s2 this']:.4f}",
+          flush=True)
+
+    # the ConvPosEnc site of the train step: conv(x) + bias + x at stride 1
+    for shape in sorted(cpe_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW)):
+        x, w, g = inputs(shape, 1, torch.bfloat16)
+        copies = [(x.clone(), w, g.clone()) for _ in range(n_copies(3 * x.numel() * 2))]
+
+        def fused(a, b, c):
+            return dwconv3x3_backward(a, b, c, 1, bias=True, residual=True)
+
+        def passes(a, b, c):
+            dx, dw = other(a, b, c, 1)
+            return dx + c, dw, c.sum((0, 1, 2))
+
+        if not torch.equal(fused(x, w, g)[0], passes(x, w, g)[0]):
+            fail(f"ConvPosEnc backward {list(shape)}: dx + g differs from the other kernel's")
+        us = [device_ms(f, copies) * 1e3 for f in (passes, fused, fused, passes)]
+        print(f"  ConvPosEnc backward site {list(shape)} bf16: dx + g bitwise equal; us other "
+              f"kernel + two passes {us[0]:.1f}, {us[3]:.1f}; this, one launch {us[1]:.1f}, "
+              f"{us[2]:.1f}", flush=True)
+
+
 def expected_launches(model, batch: int, hw, fused: bool):
     """Launches per serving batch of each kernel, from the model's config."""
     base = model.base
@@ -1524,6 +1729,8 @@ _TRAIN_LABELS = (
     ("train BN backward", "tcct_tpu_torch.ops.kernels.bnstats", "_BNActTrain.backward"),
     ("polarization bins, forward", "tcct_tpu_torch.losses.polar", "points_selection_bins"),
     ("bilinear backward (adjoint)", "tcct_tpu_torch.ops.resize", "_ResizeBilinear.backward"),
+    ("depthwise backward (K2b and the passes around it)", "tcct_tpu_torch.ops.kernels.dwconv",
+     "_DWConv3x3.backward"),
 )
 
 
@@ -1581,6 +1788,7 @@ def profile_train_step(fn, wall_ms: float, card: str):
     by_name_ms, by_name_n = Counter(), Counter()
     ms, n = Counter(), Counter()
     inside = {label: Counter() for label in labels}
+    inside_n = {label: Counter() for label in labels}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             if getattr(ev, "is_user_annotation", False) or ev.name in labels:
@@ -1597,6 +1805,7 @@ def profile_train_step(fn, wall_ms: float, card: str):
                 ms[up.name] += k.duration / 1e3
                 n[up.name] += 1
                 inside[up.name][_group_of(k.name)] += k.duration / 1e3
+                inside_n[up.name][_group_of(k.name)] += 1
                 by_name_ms[k.name] -= k.duration / 1e3
                 by_name_n[k.name] -= 1
     for name, t in by_name_ms.items():
@@ -1612,7 +1821,8 @@ def profile_train_step(fn, wall_ms: float, card: str):
           f"{busy / wall_ms * 100:.1f}% of {wall_ms:.3f} ms/step "
           f"(idle share {max(0.0, 1 - busy / wall_ms) * 100:.1f}%)", flush=True)
     for g, t in ms.most_common():
-        within = ", ".join(f"{k} {v:.3f}" for k, v in inside.get(g, Counter()).most_common(4))
+        within = ", ".join(f"{k} {v:.3f} (x{inside_n[g][k]})"
+                           for k, v in inside.get(g, Counter()).most_common(4))
         print(f"  {t:8.3f} ms {t / busy * 100:5.1f}%  x{n[g]:<5d} {g}"
               + (f" (by kernel group: {within})" if within else ""), flush=True)
     rest = sorted(((t, name) for name, t in by_name_ms.items() if by_name_n[name] > 0),
@@ -1868,8 +2078,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--train-profile":
         train_diagnostics(card)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--k2b-against":
+        compare_k2b_with(sys.argv[2], card)
+        return 0
     if len(sys.argv) > 1:
-        fail(f"usage: chip_smoke.py [--k4-against DIR | --train-profile DIR], not {sys.argv[1:]}")
+        fail(f"usage: chip_smoke.py [--k4-against DIR | --k2b-against DIR | --train-profile DIR], "
+             f"not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
     from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config
@@ -1892,6 +2106,7 @@ def main() -> int:
           flush=True)
     bench_kernels(report, kernel_tables(serve, train, serve_small))
     check_bn_capture()
+    bench_convposenc_backward(report, card, cpe_shapes(vit, TRAIN_BATCH, TRAIN_HW))
     bench_dwconv_variants(card)
     bench_convposenc(report, card, cpe_shapes(vit, BATCH, get_geometry(DB).prep_hw),
                      cpe_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw))

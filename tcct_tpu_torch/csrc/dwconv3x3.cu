@@ -56,37 +56,79 @@
 // height and the block size (128 or 256 threads) are chosen per call
 // (choose_geom()) so that the launch fills the card in whole rounds.
 //
-// Backward, for the output gradient g [B, Ho, Wo, C]: one fused pass reads
-// x and g once and produces
+// Backward, for the output gradient g [B, Ho, Wo, C]: one cooperative
+// launch reads x and g once and produces
 //   dx[b, p, q, c] = sum over (i, a), (j, t) with s*i + a - 1 = p and
 //                    s*j + t - 1 = q of g[b, i, j, c] * w[a, t, c]
 //   dw[a, t, c]    = sum_{b, i, j} x[b, s*i + a - 1, s*j + t - 1, c] * g[b, i, j, c]
-// dx in x's type, dw accumulated in f32 and cast to the taps' type.
+// and optionally db[c] = sum_{b, i, j} g[b, i, j, c] (the bias), dx + g
+// (the residual, stride 1: dx rounded to x's type, g added in f32 and the
+// sum rounded, bitwise the plain add), or no dx at all.  dx in x's type;
+// dw and db summed in f32 in a fixed order and cast once.
 // Bound: bytes (x and g read, dx written; 36 f32 operations per g element).
-// Threads map as in the forward's direct kernel: a channel word of one
-// output column j and a strip of TH output rows, walking down the block's
-// share of rows.  For stride 1 the thread loads the x and g windows of its
-// strip (rows i0-1 .. i0+TH, columns j-1 .. j+1) and forms dx at its own
-// positions as a
-// correlation of g with the flipped taps.  For stride 2 it owns the 2x2
-// input pixels (2i, 2i+1) x (2j, 2j+1) of each of its g positions: even
-// rows and columns take the centre tap, odd ones the two outer taps of g
-// at i and i + 1 (j and j + 1); an odd last input row or column is even
-// and needs only the centre tap.  Each thread sums its nine dw taps in
-// registers; the block adds those of its threads in a fixed order through
-// shared memory and writes one f32 partial [9, C] per block, and a second
-// small kernel adds the partials in a fixed order.  No float atomics, so
-// two runs give bitwise-equal dw.
+// Design, against what held the first version (two launches, a fresh
+// workspace each call, 8-byte words widened with cvt.f32.bf16 up to three
+// times, every thread loading its whole window from L2):
+//  - Rows are flattened: a row of W*C elements is contiguous, and a block
+//    owns a tile of N of them (N a multiple of lcm(4, C): at most 1,024 in
+//    bf16, 512 in f32), four consecutive elements a thread, over a strip of
+//    rows.  For C a multiple of 4 a thread's four elements are four
+//    channels of one pixel and its neighbours are whole words C elements
+//    away (one 8- or 16-byte shared-memory read each); for the narrow
+//    channels (C = 1, 2, 3, 5, 6, 7) a thread holds four consecutive pixels
+//    or parts of them, reads its neighbours element by element, and keeps
+//    its dw sums per element.  Every tile gives a thread the same channels,
+//    so the sums are added per channel only at the end.  Rows of at most
+//    half a tile (the loss heads' C = 1 at W = 256) are packed side by
+//    side, one image each, so that a block still has its threads busy.
+//  - The rows stream through a ring of BWD_NST groups of BWD_RS slots in
+//    shared memory (a barrier a group), filled with 16-byte cp.async where
+//    x, g and the rows are 16-byte aligned (else one element a copy), so
+//    each word crosses L2 once a strip plus the strip's halo rows and the
+//    tile's C-element halo.  Each word read from the ring is widened once
+//    (widen(): a shift and a mask) and used for every output it meets.
+//    Stride 1 walks a strip upwards, one step a g row: g row r ends dx row
+//    r + 1 (kernel row 2), continues row r and starts row r - 1 (kernel row
+//    0), so each dx element takes its nine fmaf in the first version's
+//    order (a = 0, 1, 2; t = 0, 1, 2) and dx is bitwise the first version's;
+//    x row r + 1, staged in the same slot, meets the g centres of rows
+//    r + 2, r + 1, r, kept in registers.  Stride 2 walks down, one step a g
+//    row and two x rows, with the first version's 2x2 formulas: row i forms
+//    input row 2i and the inner terms of 2i + 1, row i + 1 ends it.
+//  - A thread keeps 4 elements: nine taps, nine dw sums and a bias sum (76
+//    f32) plus three dx sums and three g centres; 8 elements would pass 255
+//    registers.  ptxas gives the f32 kernels about 140-150 registers, so
+//    their blocks are 128 threads, three an SM; the bf16 four-wide kernels
+//    fit 128 registers without spilling, two 256-thread blocks an SM.  What
+//    bounds the large shapes (40-60 % of their byte bound) is the rate at
+//    which an SM starts instructions: a step is 72 fmaf against about as
+//    many integer and shared-memory instructions.
+//  - Work is a list of (images, strip, tile) items; the grid is at most as
+//    many blocks as the card holds at once (256 threads an SM under 4 MiB
+//    of x, where a call is latency-bound), and a block walks its items as
+//    one sequence of ring steps.  The strip height is the one with the
+//    fewest steps on the busiest block (bwd_geometry()).
+//  - One launch: each block adds its slots' sums per channel in a fixed
+//    order into one [10, C] partial; after a grid barrier
+//    (cg::this_grid().sync()) L lanes finish each entry: each adds the
+//    partials of its stride, then a fixed shuffle tree.  No float atomics,
+//    so two runs give bitwise-equal dw and db.  The partials live in a
+//    workspace the caller keeps, so the launch allocates nothing and
+//    captures into a CUDA graph.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <cmath>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
-// output rows a thread of the direct forward and of the backward computes:
+// output rows a thread of the direct forward computes:
 // its input strip is (TH-1)*S+3 rows
 template <int S> constexpr int TH = S == 1 ? 4 : 2;
 // the forward's ring kernel: tallest strip; stride-1 inputs of fewer bytes
@@ -135,17 +177,6 @@ __device__ __forceinline__ typename Vec<T, VEC>::type load_word(const T* base, i
   if (gy >= 0 && gy < H && gx >= 0 && gx < W)
     return *reinterpret_cast<const V*>(base + ((size_t)gy * W + gx) * C);
   return zero_word<V>();
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_word(T* base, int gy, int gx, int W, int C,
-                                           const float* v) {
-  using V = typename Vec<T, VEC>::type;
-  V out;
-  T* e = reinterpret_cast<T*>(&out);
-#pragma unroll
-  for (int q = 0; q < VEC; ++q) e[q] = from_f32<T>(v[q]);
-  *reinterpret_cast<V*>(base + ((size_t)gy * W + gx) * C) = out;
 }
 
 // ---------------------------------------------------------------------------
@@ -575,235 +606,648 @@ int dispatch_fwd(const void* x, const void* w, const void* bias, void* y, int B,
 // ---------------------------------------------------------------------------
 // backward
 
-// Block geometry of the backward, shared by the launch and the workspace
-// query so that both agree on the number of dw partials.
-struct BwdGeom {
-  int Ho, Wo, cgv, n_cgroups, P, rows, gx, gy;
-  long long blocks(int B) const { return (long long)gx * gy * B * n_cgroups; }
+constexpr int BWD_THREADS = 256;           // most threads of a block
+constexpr int BWD_NST = 4;                 // ring groups: three in flight while one is read
+constexpr int BWD_TILE = BWD_THREADS * 4;  // most elements of a tile: four a thread
+// steps of a ring group, read between two barriers: stride 1 three (one
+// turn of its rotating roles), stride 2 two
+template <int S> constexpr int BWD_RS = S == 1 ? 3 : 2;
+constexpr long long BWD_SMALL_BYTES = 4 << 20;
+// blocks an SM is built to hold: two (at most 128 registers a thread) where
+// ptxas fits the bf16 four-wide kernels in that without spilling, else one
+template <typename T, bool VL> constexpr int BWD_MIN_BLOCKS = sizeof(T) == 2 && VL ? 2 : 1;
+
+// One call's geometry, shared by the launch and the workspace query.
+struct BwdParams {
+  const void* x;
+  const void* w;
+  const void* g;
+  void* dx;       // null: no dx
+  void* dw;
+  void* db;       // null: no bias gradient
+  float* part;    // [nb, 10, C] block partials
+  int B, H, W, C, Ho, Wo;
+  int N;          // elements of a tile: NB pieces of Np
+  int NB;         // images a tile packs side by side (rows shorter than half a tile), else 1
+  int Np;         // elements of one image's piece: a multiple of C and of 4
+  int nt;         // tiles of a g row
+  int R;          // g rows of a strip
+  int ns;         // strips
+  int items;      // ceil(B / NB) * ns * nt
+  int gseg, xseg; // elements of one piece's staged g / x row segment
+  int xoff;       // where a slot's x rows start: after its NB g segments
+  int slot;       // elements of a ring slot: NB g segments, then NB x segments of one
+                  // (stride 1) or two (stride 2) x rows
+  int residual;   // stride 1: dx + g, rounded as the plain add rounds
+  int threads;    // of a block: N / 4 rounded up to a warp
 };
 
-template <int VEC, int S>
-BwdGeom bwd_geom(int B, int H, int W, int C) {
-  BwdGeom g;
-  g.Ho = (H - 1) / S + 1;
-  g.Wo = (W - 1) / S + 1;
-  const int ncv = C / VEC;
-  g.cgv = ncv < THREADS ? ncv : THREADS;
-  g.n_cgroups = (ncv + g.cgv - 1) / g.cgv;
-  g.P = THREADS / g.cgv;
-  g.gx = (g.Wo + g.P - 1) / g.P;
-  // rows of output a block walks: as many as keep >= 1024 blocks in the grid
-  g.rows = TH<S> * 8;
-  while (g.rows > TH<S>) {
-    g.gy = (g.Ho + g.rows - 1) / g.rows;
-    if (g.blocks(B) >= 1024) break;
-    g.rows /= 2;
-  }
-  g.gy = (g.Ho + g.rows - 1) / g.rows;
-  return g;
+__device__ __forceinline__ float widen1(float v) { return v; }
+__device__ __forceinline__ float widen1(__nv_bfloat16 v) {
+  return __uint_as_float((uint32_t)__bfloat16_as_ushort(v) << 16);
+}
+// an f32 value rounded to T and back: the result of one op in type T
+template <typename T> __device__ __forceinline__ float rnd(float v);
+template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return widen1(__float2bfloat16_rn(v));
 }
 
-template <typename T, int VEC, int S>
-__global__ void __launch_bounds__(THREADS)
-dwconv3x3_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ g, T* __restrict__ dx, float* __restrict__ part,
-                     int H, int W, int C, BwdGeom geo) {
-  using V = typename Vec<T, VEC>::type;
-  extern __shared__ float red[];  // [blockDim.x][9 * VEC]
-  const int ncv = C / VEC;
-  const int tc = threadIdx.x % geo.cgv;
-  const int tp = threadIdx.x / geo.cgv;
-  const int b = blockIdx.z / geo.n_cgroups;
-  const int cg = blockIdx.z - b * geo.n_cgroups;
-  const int cvi = cg * geo.cgv + tc;
-  const int j = blockIdx.x * geo.P + tp;
-  const int Ho = geo.Ho, Wo = geo.Wo;
-  const bool active = cvi < ncv && j < Wo;
-  const int c = cvi * VEC;
+// Four consecutive elements of a staged segment, as f32: one 8- or 16-byte
+// shared-memory load where the offset is a multiple of four (VL), else four.
+template <typename T, bool VL>
+__device__ __forceinline__ void read4(const T* s, int off, float (&out)[4]) {
+  if constexpr (VL) {
+    const typename Vec<T, 4>::type v = *reinterpret_cast<const typename Vec<T, 4>::type*>(s + off);
+    widen<T, 4>(v, out);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q] = widen1(s[off + q]);
+  }
+}
 
-  float dwacc[9][VEC];
+// Four elements at per-slot offsets (stride 2, narrow channels).
+template <typename T>
+__device__ __forceinline__ void read4_at(const T* s, const int (&off)[4], int d,
+                                         float (&out)[4]) {
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) dwacc[t][q] = 0.f;
+  for (int q = 0; q < 4; ++q) out[q] = widen1(s[off[q] + d]);
+}
 
-  if (active) {
-    float k[9][VEC];
+// Store four consecutive elements rounded to T (elements at or past `end`
+// are not stored; VL: all four or none).
+template <typename T, bool VL>
+__device__ __forceinline__ void store4(T* dst, int at, int end, const float (&v)[4]) {
+  if constexpr (VL) {
+    if (at >= end) return;
+    typename Vec<T, 4>::type o;
+    if constexpr (sizeof(T) == 2) {
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&o);
+      e[0] = __floats2bfloat162_rn(v[0], v[1]);
+      e[1] = __floats2bfloat162_rn(v[2], v[3]);
+    } else {
+      o = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    *reinterpret_cast<typename Vec<T, 4>::type*>(dst + at) = o;
+  } else {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) unpack<T, VEC>(*reinterpret_cast<const V*>(w + t * C + c), k[t]);
-    const T* xb = x + (size_t)b * H * W * C + c;
-    const T* gb = g + (size_t)b * Ho * Wo * C + c;
-    T* dxb = dx + (size_t)b * H * W * C + c;
-    const int r_begin = blockIdx.y * geo.rows;
-    const int r_end = min(r_begin + geo.rows, Ho);
-    for (int i0 = r_begin; i0 < r_end; i0 += TH<S>) {
-      if constexpr (S == 1) {
-        V xin[TH<1> + 2][3], gin[TH<1> + 2][3];
+    for (int q = 0; q < 4; ++q)
+      if (at + q < end) dst[at + q] = from_f32<T>(v[q]);
+  }
+}
+
+// One element a slot at per-slot positions (stride 2, narrow channels).
+template <typename T>
+__device__ __forceinline__ void store4_at(T* dst, const int (&at)[4], int d, int end,
+                                          const float (&v)[4]) {
 #pragma unroll
-        for (int r = 0; r < TH<1> + 2; ++r)
+  for (int q = 0; q < 4; ++q)
+    if (at[q] + d < end) dst[at[q] + d] = from_f32<T>(v[q]);
+}
+
+// acc += g * (three taps of one kernel row), t = 0, 1, 2 in order; `first` starts at 0
+__device__ __forceinline__ void taps3(float (&acc)[4], const float (&gv)[3][4],
+                                      const float (&k)[9][4], int a, bool first) {
 #pragma unroll
-          for (int t = 0; t < 3; ++t) {
-            xin[r][t] = load_word<T, VEC>(xb, i0 - 1 + r, j - 1 + t, H, W, C);
-            gin[r][t] = load_word<T, VEC>(gb, i0 - 1 + r, j - 1 + t, Ho, Wo, C);
-          }
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-        for (int o = 0; o < TH<1>; ++o) {
-          const int i = i0 + o;
-          if (i >= Ho) break;
-          float gc[VEC], acc[VEC];
-          unpack<T, VEC>(gin[o + 1][1], gc);
+    for (int q = 0; q < 4; ++q)
+      acc[q] = fmaf(gv[t][q], k[a * 3 + t][q], (first && t == 0) ? 0.f : acc[q]);
+}
+
+// dw[a][t] += x[t] * g, t = 0, 1, 2
+__device__ __forceinline__ void dw3(float (&dw)[9][4], const float (&xv)[3][4],
+                                    const float (&gc)[4], int a) {
 #pragma unroll
-          for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-          for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int t = 0; t < 3; ++t) {
-              float xv[VEC], gv[VEC];
-              unpack<T, VEC>(xin[o + a][t], xv);
-              unpack<T, VEC>(gin[o + 2 - a][2 - t], gv);
-#pragma unroll
-              for (int q = 0; q < VEC; ++q) {
-                dwacc[a * 3 + t][q] = fmaf(xv[q], gc[q], dwacc[a * 3 + t][q]);
-                acc[q] = fmaf(gv[q], k[a * 3 + t][q], acc[q]);
-              }
-            }
-          store_word<T, VEC>(dxb, i, j, W, C, acc);
-        }
-      } else {
-        constexpr int IR = (TH<2> - 1) * 2 + 3;
-        V xin[IR][3], gin[TH<2> + 1][2];
-#pragma unroll
-        for (int r = 0; r < IR; ++r)
-#pragma unroll
-          for (int t = 0; t < 3; ++t)
-            xin[r][t] = load_word<T, VEC>(xb, 2 * i0 - 1 + r, 2 * j - 1 + t, H, W, C);
-#pragma unroll
-        for (int r = 0; r < TH<2> + 1; ++r)
-#pragma unroll
-          for (int t = 0; t < 2; ++t) gin[r][t] = load_word<T, VEC>(gb, i0 + r, j + t, Ho, Wo, C);
-#pragma unroll
-        for (int o = 0; o < TH<2>; ++o) {
-          const int i = i0 + o;
-          if (i >= Ho) break;
-          float g00[VEC], g01[VEC], g10[VEC], g11[VEC];  // g at (i|i+1, j|j+1)
-          unpack<T, VEC>(gin[o][0], g00);
-          unpack<T, VEC>(gin[o][1], g01);
-          unpack<T, VEC>(gin[o + 1][0], g10);
-          unpack<T, VEC>(gin[o + 1][1], g11);
-#pragma unroll
-          for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int t = 0; t < 3; ++t) {
-              float xv[VEC];
-              unpack<T, VEC>(xin[2 * o + a][t], xv);
-#pragma unroll
-              for (int q = 0; q < VEC; ++q)
-                dwacc[a * 3 + t][q] = fmaf(xv[q], g00[q], dwacc[a * 3 + t][q]);
-            }
-          float d00[VEC], d01[VEC], d10[VEC], d11[VEC];
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) {
-            d00[q] = g00[q] * k[4][q];
-            d01[q] = fmaf(g01[q], k[3][q], g00[q] * k[5][q]);
-            d10[q] = fmaf(g10[q], k[1][q], g00[q] * k[7][q]);
-            d11[q] = fmaf(g11[q], k[0][q],
-                          fmaf(g10[q], k[2][q], fmaf(g01[q], k[6][q], g00[q] * k[8][q])));
-          }
-          const int p = 2 * i, qc = 2 * j;
-          store_word<T, VEC>(dxb, p, qc, W, C, d00);
-          if (qc + 1 < W) store_word<T, VEC>(dxb, p, qc + 1, W, C, d01);
-          if (p + 1 < H) {
-            store_word<T, VEC>(dxb, p + 1, qc, W, C, d10);
-            if (qc + 1 < W) store_word<T, VEC>(dxb, p + 1, qc + 1, W, C, d11);
-          }
-        }
+    for (int q = 0; q < 4; ++q) dw[a * 3 + t][q] = fmaf(xv[t][q], gc[q], dw[a * 3 + t][q]);
+}
+
+__host__ __device__ __forceinline__ int floor_to(int v, int m) {
+  const int r = v % m;
+  return v - (r < 0 ? r + m : r);
+}
+
+// A work item: a tile of N elements of the flattened g row, over a strip
+// of g rows [r0, r1) of image b.  A block walks its items (blockIdx.x,
+// + gridDim.x, ...) as one sequence of steps, so the ring runs on across
+// items.  A cursor is one step of that sequence, with what the steps of
+// its item share worked out once.
+struct Cursor {
+  int it, r, r0, r1;
+  int b;   // the tile's first image
+  int f0;  // the tile's first element of a row
+  int gs;  // where the staged g segment starts (flat element index), aligned to a chunk
+  int xs;  // and the x segment
+};
+
+template <int S, int E>
+__device__ __forceinline__ bool cursor_at(Cursor& c, int it, const BwdParams& p) {
+  c.it = it;
+  if (it >= p.items) return false;
+  const int tile = it % p.nt, rest = it / p.nt;
+  const int strip = rest % p.ns;
+  c.b = rest / p.ns * p.NB;
+  c.r0 = strip * p.R;
+  c.r1 = min(c.r0 + p.R, p.Ho);
+  c.f0 = tile * p.Np;
+  // stride 1: g and x at columns j - 1 .. j + 1 of the tile; stride 2: g at
+  // j, j + 1, x at 2j - 1 .. 2j + 1
+  c.gs = floor_to(S == 1 ? c.f0 - p.C : c.f0, E);
+  c.xs = S == 1 ? c.gs : floor_to(2 * c.f0 - p.C, E);
+  // stride 1 walks up, from g row r1 (its dx row r1 - 1) to r0 - 2 (x row
+  // r0 - 1 only); stride 2 walks down, g rows r0 .. r1 (r1: dx only)
+  c.r = S == 1 ? c.r1 : c.r0;
+  return true;
+}
+template <int S, int E>
+__device__ __forceinline__ bool cursor_next(Cursor& c, const BwdParams& p) {
+  if constexpr (S == 1) {
+    if (--c.r >= c.r0 - 2) return true;
+  } else {
+    if (++c.r <= c.r1) return true;
+  }
+  return cursor_at<S, E>(c, c.it + gridDim.x, p);
+}
+
+template <typename T, int S, bool VL, bool CH16>
+__global__ void __launch_bounds__(BWD_THREADS, (BWD_MIN_BLOCKS<T, VL>))
+    dwconv3x3_bwd_kernel(const BwdParams p) {
+  using VC = typename std::conditional<CH16, uint4, T>::type;  // a staged chunk
+  constexpr int E = (int)(sizeof(VC) / sizeof(T));             // elements of a chunk
+  extern __shared__ uint4 bwd_smem[];
+  T* ring = reinterpret_cast<T*>(bwd_smem);
+  const T* x = static_cast<const T*>(p.x);
+  const T* g = static_cast<const T*>(p.g);
+  const T* w = static_cast<const T*>(p.w);
+  T* dx = static_cast<T*>(p.dx);
+  const bool need_dx = dx != nullptr;
+  const int C = p.C, H = p.H, Ho = p.Ho;
+  const int Lx = p.W * C, Lg = p.Wo * C;  // flattened row lengths
+  const int tid = threadIdx.x;
+  const int s4 = 4 * tid;           // the thread's first slot of a tile
+  const int pc = VL ? 0 : s4 / p.Np;  // its piece: the image b + pc of the tile (VL: one)
+  const int fl = s4 - pc * p.Np;    // its first element of the piece
+  const bool in_tile = s4 < p.N;
+
+  // --- staging: the slot of one step --------------------------------------
+  // A slot is NB g segments, then NB segments of each x row, copied in
+  // chunks of E elements.  stage_rows copies one row's NB segments: the
+  // rows of the tile's images in the same place (row: the first image's,
+  // null for zeros, a row outside the image), `plane` elements apart; the
+  // tile's images past the batch (from nimg on) are left as they are.
+  auto stage_rows = [&](VC* dst, const T* row, size_t plane, int s0, int seg, int L, int nimg) {
+    const int per = seg / E;  // chunks of a segment
+    if constexpr (VL) {  // four-wide channels: one image a tile
+      for (int q = tid; q < per; q += blockDim.x) {
+        const int e0 = s0 + q * E;
+        const bool ok = row != nullptr && (unsigned)e0 <= (unsigned)(L - E);
+        stage_word<VC>(dst + q, reinterpret_cast<const VC*>(ok ? row + e0 : g), ok);
       }
+    } else {
+      for (int q = tid; q < nimg * per; q += blockDim.x) {
+        const int i = q / per;  // the image
+        const int e0 = s0 + (q - i * per) * E;
+        const bool ok = row != nullptr && (unsigned)e0 <= (unsigned)(L - E);
+        stage_word<VC>(dst + q, reinterpret_cast<const VC*>(ok ? row + i * plane + e0 : g), ok);
+      }
+    }
+  };
+  auto stage_step = [&](const Cursor& c, int sl) {
+    T* dst = ring + (size_t)sl * p.slot;
+    const int r = c.r;
+    const size_t gplane = (size_t)Ho * Lg, xplane = (size_t)H * Lx;
+    const T* gi = g + c.b * gplane;
+    const T* xi = x + c.b * xplane;
+    VC* gd = reinterpret_cast<VC*>(dst);
+    VC* xd = reinterpret_cast<VC*>(dst + p.xoff);
+    const int nimg = min(p.NB, p.B - c.b);
+    if constexpr (S == 1) {
+      if (r >= c.r0 - 1)  // g row r; rows outside the image are zeros
+        stage_rows(gd, r >= 0 && r < Ho ? gi + (size_t)r * Lg : nullptr, gplane, c.gs, p.gseg, Lg,
+                   nimg);
+      if (r <= c.r1 - 1 && r + 1 >= 0 && r + 1 < H)  // x row r + 1
+        stage_rows(xd, xi + (size_t)(r + 1) * Lx, xplane, c.xs, p.xseg, Lx, nimg);
+    } else {
+      stage_rows(gd, r < Ho ? gi + (size_t)r * Lg : nullptr, gplane, c.gs, p.gseg, Lg, nimg);
+      if (2 * r - 1 >= 0 && 2 * r - 1 < H)
+        stage_rows(xd, xi + (size_t)(2 * r - 1) * Lx, xplane, c.xs, p.xseg, Lx, nimg);
+      if (r < c.r1 && 2 * r < H)
+        stage_rows(xd + p.NB * p.xseg / E, xi + (size_t)(2 * r) * Lx, xplane, c.xs, p.xseg, Lx,
+                   nimg);
+    }
+  };
+
+  constexpr int RS = BWD_RS<S>;
+  Cursor sc;  // the step staged next
+  bool s_ok = cursor_at<S, E>(sc, blockIdx.x, p);
+  auto stage_group = [&](int grp) {
+#pragma unroll 1
+    for (int sub = 0; sub < RS && s_ok; ++sub) {
+      stage_step(sc, grp * RS + sub);
+      s_ok = cursor_next<S, E>(sc, p);
+    }
+    stage_commit();
+  };
+  int slot_in = 0, slot = 0;
+#pragma unroll 1
+  for (int s = 0; s < BWD_NST - 1; ++s) stage_group(slot_in++);
+
+  // the channel of each slot (the same in every tile: N is a multiple of
+  // C), the taps of those channels (loaded while the first copies fly), and
+  // the sums
+  int ch[4];
+  float k[9][4], dwa[9][4], dba[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    ch[q] = (fl + q) % C;
+    dba[q] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      k[t][q] = in_tile ? widen1(w[t * C + ch[q]]) : 0.f;
+      dwa[t][q] = 0.f;
     }
   }
 
-  // the block's dw partial: threads of one channel word added in column order
-  float* mine = red + threadIdx.x * 9 * VEC;
+  // wait for the group read now; the group read last goes to the one NST - 1 ahead
+  auto next = [&]() {
+    stage_wait<BWD_NST - 2>();
+    __syncthreads();
+    stage_group(slot_in);
+    slot_in = slot_in + 1 == BWD_NST ? 0 : slot_in + 1;
+  };
+  // the slot of the step computed next: a new group every RS steps
+  const T* base = ring;
+  int sub = 0;
+  auto step_slot = [&]() {
+    if (sub == 0) {
+      next();
+      base = ring + (size_t)slot * RS * p.slot;
+      slot = slot + 1 == BWD_NST ? 0 : slot + 1;
+    }
+    const T* sl = base + (size_t)sub * p.slot;
+    sub = sub + 1 == RS ? 0 : sub + 1;
+    return sl;
+  };
+
+  Cursor cc;  // the step computed now
+  bool c_ok = cursor_at<S, E>(cc, blockIdx.x, p);
+  if constexpr (S == 1) {
+    // Step r: g row r ends dx row r + 1 (kernel row 2), continues row r
+    // (kernel row 1) and starts row r - 1 (kernel row 0): the fmaf of each
+    // dx element in the order a = 0, 1, 2, t = 0, 1, 2.  x row r + 1 meets
+    // the g centres of rows r + 2, r + 1, r (taps a = 0, 1, 2); a centre is
+    // kept as zero where its row is not the strip's, so that every step
+    // runs the same arithmetic.  Roles of the three dx sums and the three g
+    // centres rotate.
+    auto step = [&](const T* sl, float (&P)[4], float (&Q)[4], float (&Z)[4], float (&gP)[4],
+                    float (&gQ)[4], float (&gZ)[4]) {
+      if (!in_tile || cc.b + pc >= p.B) return;
+      const int r = cc.r, r0 = cc.r0, r1 = cc.r1;
+      const int f = cc.f0 + fl;  // the thread's first element of the row
+      const int o = f - cc.gs;   // its offset in its piece's segments
+      const bool own = r >= r0 && r < r1;
+      sl += pc * p.gseg;
+      if (r >= r0 - 1) {
+        float gv[3][4];  // g[j + 1 - t]
+        read4<T, VL>(sl, o + C, gv[0]);
+        read4<T, VL>(sl, o, gv[1]);
+        read4<T, VL>(sl, o - C, gv[2]);
+        if (need_dx) {
+          taps3(P, gv, k, 2, false);
+          taps3(Q, gv, k, 1, false);
+          taps3(Z, gv, k, 0, true);
+          if (r + 1 >= r0 && r + 1 < r1) {
+            if (p.residual) {
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+              for (int q = 0; q < 4; ++q) P[q] = rnd<T>(P[q]) + gP[q];
+            }
+            store4<T, VL>(dx + ((size_t)(cc.b + pc) * H + r + 1) * Lx, f, Lx, P);
+          }
+        }
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) mine[t * VEC + q] = dwacc[t][q];
+        for (int q = 0; q < 4; ++q) gQ[q] = own ? gv[1][q] : 0.f;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gQ[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dba[q] += gQ[q];
+      if (r <= r1 - 1 && r + 1 >= 0 && r + 1 < H) {
+        const T* xs = sl + p.xoff + pc * (p.xseg - p.gseg);
+        float xv[3][4];  // x[j + t - 1]
+        read4<T, VL>(xs, o - C, xv[0]);
+        read4<T, VL>(xs, o, xv[1]);
+        read4<T, VL>(xs, o + C, xv[2]);
+        dw3(dwa, xv, gZ, 0);
+        dw3(dwa, xv, gP, 1);
+        dw3(dwa, xv, gQ, 2);
+      }
+    };
+    float A0[4], A1[4], A2[4], G0[4], G1[4], G2[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) A0[q] = A1[q] = A2[q] = G0[q] = G1[q] = G2[q] = 0.f;
+#pragma unroll 1
+    while (c_ok) {
+      step(step_slot(), A0, A1, A2, G0, G1, G2);
+      if (!(c_ok = cursor_next<1, E>(cc, p))) break;
+      step(step_slot(), A1, A2, A0, G1, G2, G0);
+      if (!(c_ok = cursor_next<1, E>(cc, p))) break;
+      step(step_slot(), A2, A0, A1, G2, G0, G1);
+      c_ok = cursor_next<1, E>(cc, p);
+    }
+  } else {
+    // Step i: g row i ends input row 2i - 1 (started by row i - 1) and forms
+    // input row 2i and the start of 2i + 1 -- the 2x2 formulas, in their
+    // order; x row 2i - 1 meets g rows i (a = 0) and i - 1 (a = 2), x row
+    // 2i meets g row i (a = 1).  g row r1 (the strip's last step) forms dx
+    // only: its centre is kept as zero.
+    float p10[4], p11[4], gprev[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p10[q] = p11[q] = gprev[q] = 0.f;
+#pragma unroll 1
+    while (c_ok) {
+      const T* sl = step_slot();
+      if (in_tile && cc.b + pc < p.B) {
+        const int r = cc.r, r0 = cc.r0, r1 = cc.r1;
+        const int f = cc.f0 + fl;
+        const int og = pc * p.gseg + f - cc.gs;
+        // per slot: x[2j + t - 1, c] is at 2f - c + (t - 1)C of the x row
+        int xo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xo[q] = 2 * (f + q) - ch[q];
+        float g0[4], g1[4];  // g at (i, j), (i, j + 1)
+        read4<T, VL>(sl, og, g0);
+        read4<T, VL>(sl, og + C, g1);
+        if (need_dx) {
+          T* img = dx + (size_t)(cc.b + pc) * H * Lx;
+          int at[4];  // x flat index of pixel 2j of each slot; Lx: none
+#pragma unroll
+          for (int q = 0; q < 4; ++q) at[q] = f + q < Lg ? xo[q] : Lx;
+          float d0[4], d1[4];  // a row's two input columns 2j, 2j + 1
+          auto store_row = [&](int row_i) {
+            T* row = img + (size_t)row_i * Lx;
+            if constexpr (VL) {
+              store4<T, true>(row, at[0], Lx, d0);
+              store4<T, true>(row, at[0] + C, Lx, d1);
+            } else {
+              store4_at<T>(row, at, 0, Lx, d0);
+              store4_at<T>(row, at, C, Lx, d1);
+            }
+          };
+          if (r > r0 && 2 * r - 1 < H) {  // input row 2i - 1
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              d0[q] = fmaf(g0[q], k[1][q], p10[q]);
+              d1[q] = fmaf(g1[q], k[0][q], fmaf(g0[q], k[2][q], p11[q]));
+            }
+            store_row(2 * r - 1);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            d0[q] = g0[q] * k[4][q];
+            d1[q] = fmaf(g1[q], k[3][q], g0[q] * k[5][q]);
+            p10[q] = g0[q] * k[7][q];
+            p11[q] = fmaf(g1[q], k[6][q], g0[q] * k[8][q]);
+          }
+          if (r < r1) store_row(2 * r);  // input row 2i
+        }
+        float gw[4];  // g row i's centre where the row is the strip's, else zero
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          gw[q] = r < r1 ? g0[q] : 0.f;
+          dba[q] += gw[q];
+          xo[q] -= cc.xs - pc * p.xseg;
+        }
+        float xv[3][4];
+        if (2 * r - 1 >= 0 && 2 * r - 1 < H) {  // x row 2i - 1
+          const T* xs = sl + p.xoff;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            if constexpr (VL) read4<T, true>(xs, xo[0] + (t - 1) * C, xv[t]);
+            else read4_at<T>(xs, xo, (t - 1) * C, xv[t]);
+          }
+          dw3(dwa, xv, gw, 0);
+          dw3(dwa, xv, gprev, 2);
+        }
+        if (r < r1) {  // x row 2i
+          const T* xs = sl + p.xoff + p.NB * p.xseg;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            if constexpr (VL) read4<T, true>(xs, xo[0] + (t - 1) * C, xv[t]);
+            else read4_at<T>(xs, xo, (t - 1) * C, xv[t]);
+          }
+          dw3(dwa, xv, gw, 1);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gprev[q] = gw[q];
+      }
+      c_ok = cursor_next<2, E>(cc, p);
+    }
+  }
+  stage_wait<0>();
   __syncthreads();
-  const int per_word = 9 * VEC;
-  const int entries = geo.cgv * per_word;
-  const size_t blk = ((size_t)(b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    const int word = e / per_word, k = e - word * per_word;
-    const int tap = k / VEC, q = k - tap * VEC;
-    const int ch = (cg * geo.cgv + word) * VEC + q;
-    if (ch >= C) continue;
-    float sum = 0.f;
-    for (int p = 0; p < geo.P; ++p) sum += red[(p * geo.cgv) * per_word + e];
-    part[(blk * 9 + tap) * C + ch] = sum;
+
+  // --- the block's partial: per channel, slots c, c + C, ... in order ------
+  // red [10][N]: the nine taps and the bias sum of every slot.  A channel's
+  // nper slots are added in nrun runs (run `run`: slots c + C (run + nrun m),
+  // at most 32, in order) into red2 [10 C][nrun], then the runs in order.
+  // A thread takes one (channel, run) pair for all ten entries at once.
+  float* red = reinterpret_cast<float*>(bwd_smem);
+  const int N = p.N, nper = N / C, nrun = (nper + 31) / 32;
+  float* red2 = red + 10 * N;
+  if (in_tile) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      *reinterpret_cast<float4*>(red + t * N + s4) =
+          make_float4(dwa[t][0], dwa[t][1], dwa[t][2], dwa[t][3]);
+    *reinterpret_cast<float4*>(red + 9 * N + s4) = make_float4(dba[0], dba[1], dba[2], dba[3]);
+  }
+  __syncthreads();
+  for (int pr = tid; pr < C * nrun; pr += blockDim.x) {
+    const int c = pr / nrun, run = pr - c * nrun;  // neighbouring pairs: neighbouring banks
+    const float* r = red + run * C + c;
+    float sum[10];
+#pragma unroll
+    for (int e = 0; e < 10; ++e) sum[e] = 0.f;
+    for (int m = run; m < nper; m += nrun, r += nrun * C) {
+#pragma unroll
+      for (int e = 0; e < 10; ++e) sum[e] += r[e * N];
+    }
+#pragma unroll
+    for (int e = 0; e < 10; ++e) red2[(e * C + c) * nrun + run] = sum[e];
+  }
+  __syncthreads();
+  for (int ent = tid; ent < 10 * C; ent += blockDim.x) {
+    float s = 0.f;
+    for (int run = 0; run < nrun; ++run) s += red2[ent * nrun + run];
+    p.part[(size_t)blockIdx.x * 10 * C + ent] = s;
+  }
+
+  // --- every block's partials in, then the finish ----------------------------
+  cg::this_grid().sync();
+  const int n_ent = p.db != nullptr ? 10 * C : 9 * C;
+  // L lanes an entry (a power of two, at most 32, no more than the partials,
+  // and few enough that all 10 C entries get their lanes at once, with or
+  // without the bias, so that dw keeps its bits): each adds the partials of
+  // its own stride, then a fixed shuffle tree over the L lanes
+  const int nb = gridDim.x;
+  int L = 1;
+  while (L < 32 && L < nb && 2 * L * 10 * C <= nb * (int)blockDim.x) L <<= 1;
+  const int lane = tid & 31, grp = lane / L, li = lane - grp * L;
+  const int per_warp = 32 / L, warps = blockDim.x / 32;
+  for (int ent0 = (blockIdx.x * warps + tid / 32) * per_warp; ent0 < n_ent;
+       ent0 += nb * warps * per_warp) {
+    const int ent = ent0 + grp;
+    float s = 0.f;
+    if (ent < n_ent) {
+#pragma unroll 8
+      for (int b = li; b < nb; b += L) s += __ldcg(p.part + (size_t)b * 10 * C + ent);
+    }
+    for (int o = L / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (li == 0 && ent < n_ent) {
+      if (ent < 9 * C) static_cast<T*>(p.dw)[ent] = from_f32<T>(s);
+      else static_cast<T*>(p.db)[ent - 9 * C] = from_f32<T>(s);
+    }
   }
 }
 
-// dw[e] = sum over the partials, e in [0, 9C), in a fixed order: 32 lanes
-// of partials per entry, then the 32 lane sums in order.
-template <typename T>
-__global__ void __launch_bounds__(1024)
-dw_finalize_kernel(const float* __restrict__ part, T* __restrict__ dw, int nparts, int n) {
-  __shared__ float acc[32][33];
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (e < n)
-    for (int p = threadIdx.y; p < nparts; p += 32) s += part[(size_t)p * n + e];
-  acc[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < n) {
-    float t = 0.f;
-#pragma unroll
-    for (int r = 0; r < 32; ++r) t += acc[r][threadIdx.x];
-    dw[e] = from_f32<T>(t);
-  }
-}
+int gcd_int(int a, int b) { return b == 0 ? a : gcd_int(b, a % b); }
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-template <typename T, int VEC, int S>
-int launch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw, float* part,
-               int B, int H, int W, int C, cudaStream_t stream) {
-  const BwdGeom geo = bwd_geom<VEC, S>(B, H, W, C);
-  dim3 grid(geo.gx, geo.gy, B * geo.n_cgroups);
-  const size_t smem = (size_t)geo.cgv * geo.P * 9 * VEC * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(dwconv3x3_bwd_kernel<T, VEC, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The tile, strip and grid of one call, and its shared memory.  N is the
+// largest multiple of lcm(4, C) that 256 threads of four slots cover, so
+// every tile gives a thread the same channels.  The strip height R is the
+// one that makes the fewest steps on the busiest block (each strip adds
+// halo steps: 3 at stride 1, 1 at stride 2); the grid is at most as many
+// blocks as the card holds at once (a cooperative launch).
+template <typename T, int S, bool VL, bool CH16>
+int bwd_geometry(BwdParams& p, int* nb, size_t* smem) {
+  auto kernel = dwconv3x3_bwd_kernel<T, S, VL, CH16>;
+  static int n_sm = 0, smem_max = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      n_sm = 0;
+      return (int)e;
+    }
+  }
+  static bool attr = false;  // one per instantiation
+  if (!attr) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     if (e != cudaSuccess) return (int)e;
+    attr = true;
   }
-  dwconv3x3_bwd_kernel<T, VEC, S><<<grid, geo.cgv * geo.P, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(g),
-      static_cast<T*>(dx), part, H, W, C, geo);
-  cudaError_t e = cudaGetLastError();
+  const int C = p.C;
+  const int l4 = 4 * C / gcd_int(4, C);
+  if (l4 > BWD_TILE) return (int)cudaErrorInvalidValue;
+  p.Ho = (p.H - 1) / S + 1;
+  p.Wo = (p.W - 1) / S + 1;
+  const int Lg = p.Wo * C;
+  // a piece: at most a tile's elements (1,024; f32: 512, so that three
+  // 128-thread blocks share an SM at the f32 kernels' registers), no more
+  // than the row needs; narrow channels' rows of at most half of that are
+  // packed side by side, an image each
+  const int tile = sizeof(T) == 4 ? BWD_TILE / 2 : BWD_TILE;
+  const int widest = max(l4, tile / l4 * l4), row = round_up(Lg, l4);
+  p.NB = !VL && 2 * row <= widest ? min(p.B, widest / row) : 1;
+  p.Np = min(widest, row);
+  const int E = CH16 ? 16 / (int)sizeof(T) : 1;
+  const int align = E > 8 ? E : 8;  // segments start on 16 bytes
+  for (;; p.Np -= l4) {  // the widest piece whose ring fits
+    if (S == 1) {
+      p.gseg = round_up(p.Np + 2 * C + E - 1, align);
+      p.xseg = p.gseg;
+    } else {
+      p.gseg = round_up(p.Np + C + E - 1, align);
+      p.xseg = round_up(2 * p.Np + C + E - 1, align);
+    }
+    p.N = p.NB * p.Np;
+    p.xoff = p.NB * p.gseg;
+    p.slot = p.NB * (p.gseg + S * p.xseg);
+    const size_t ring = (size_t)BWD_NST * BWD_RS<S> * p.slot * sizeof(T);
+    const int nrun = (p.N / C + 31) / 32;
+    const size_t red = (size_t)(10 * p.N + 10 * C * nrun) * sizeof(float);
+    *smem = ring > red ? ring : red;
+    if (*smem <= (size_t)smem_max) break;
+    if (p.Np <= l4) return (int)cudaErrorInvalidValue;
+  }
+  p.threads = round_up(p.N / 4, 32);
+  p.nt = (Lg + p.Np - 1) / p.Np;
+  int occ = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, p.threads, *smem);
   if (e != cudaSuccess) return (int)e;
-  const int n = 9 * C;
-  dw_finalize_kernel<T><<<(n + 31) / 32, dim3(32, 32), 0, stream>>>(
-      part, static_cast<T*>(dw), (int)geo.blocks(B) / geo.n_cgroups, n);
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  // under BWD_SMALL_BYTES of x a call is latency-bound: 256 threads an SM
+  // (one block, or two of 128), fewer partials to finish
+  const bool small = (long long)p.B * p.H * p.W * C * (long long)sizeof(T) < BWD_SMALL_BYTES;
+  const int per_sm = small ? min(occ, max(1, BWD_THREADS / p.threads)) : occ;
+  const long long slots = (long long)n_sm * per_sm;
+  const int halo = S == 1 ? 3 : 1;
+  long long best = -1;
+  for (int R = 1; R <= p.Ho; ++R) {
+    const long long ns = (p.Ho + R - 1) / R;
+    const long long items = (long long)((p.B + p.NB - 1) / p.NB) * ns * p.nt;
+    const long long cost = (items + slots - 1) / slots * (R + halo);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      p.R = R;
+    }
+    if (ns == 1) break;
+  }
+  p.ns = (p.Ho + p.R - 1) / p.R;
+  const long long items = (long long)((p.B + p.NB - 1) / p.NB) * p.ns * p.nt;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.items = (int)items;
+  *nb = (int)(items < slots ? items : slots);
+  return 0;
+}
+
+template <typename T, int S, bool VL, bool CH16>
+int launch_bwd(BwdParams p, long long* ws_floats, cudaStream_t stream) {
+  int nb;
+  size_t smem;
+  const int e = bwd_geometry<T, S, VL, CH16>(p, &nb, &smem);
+  if (e) return e;
+  if (ws_floats != nullptr) {  // the workspace query
+    *ws_floats = (long long)nb * 10 * p.C;
+    return 0;
+  }
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(dwconv3x3_bwd_kernel<T, S, VL, CH16>), nb, p.threads, args,
+      smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-bool bwd_vectorised(const void* x, const void* w, const void* g, const void* dx, int C) {
-  const uintptr_t p = (uintptr_t)x | (uintptr_t)w | (uintptr_t)g | (uintptr_t)dx;
-  return p % (VEC * sizeof(T)) == 0 && C % VEC == 0;
+// 16-byte staging where x, g and both flattened rows allow it; four-wide
+// shared-memory reads where C is a multiple of four.
+template <typename T, int S>
+int dispatch_bwd(BwdParams& p, long long* ws, cudaStream_t s) {
+  const bool vl = p.C % 4 == 0;
+  const int Wo = (p.W - 1) / S + 1;
+  const bool ch16 = ((uintptr_t)p.x | (uintptr_t)p.g) % 16 == 0 &&
+                    ((long long)p.W * p.C * sizeof(T)) % 16 == 0 &&
+                    ((long long)Wo * p.C * sizeof(T)) % 16 == 0;
+  if (vl)
+    return ch16 ? launch_bwd<T, S, true, true>(p, ws, s) : launch_bwd<T, S, true, false>(p, ws, s);
+  return ch16 ? launch_bwd<T, S, false, true>(p, ws, s) : launch_bwd<T, S, false, false>(p, ws, s);
 }
 
-template <typename T, int VEC, int S>
-int dispatch_bwd(const void* x, const void* w, const void* g, void* dx, void* dw, float* part,
-                 int B, int H, int W, int C, cudaStream_t stream) {
-  if (bwd_vectorised<T, VEC>(x, w, g, dx, C))
-    return launch_bwd<T, VEC, S>(x, w, g, dx, dw, part, B, H, W, C, stream);
-  return launch_bwd<T, 1, S>(x, w, g, dx, dw, part, B, H, W, C, stream);
-}
-
-template <typename T, int VEC, int S>
-long long parts_of(const void* x, const void* w, const void* g, const void* dx, int B, int H,
-                   int W, int C) {
-  const BwdGeom geo = bwd_vectorised<T, VEC>(x, w, g, dx, C) ? bwd_geom<VEC, S>(B, H, W, C)
-                                                             : bwd_geom<1, S>(B, H, W, C);
-  return geo.blocks(B) / geo.n_cgroups;
+int run_bwd(BwdParams& p, int stride, int dtype, long long* ws, cudaStream_t s) {
+  if (p.residual && stride != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && stride == 1) return dispatch_bwd<float, 1>(p, ws, s);
+  if (dtype == 0 && stride == 2) return dispatch_bwd<float, 2>(p, ws, s);
+  if (dtype == 1 && stride == 1) return dispatch_bwd<__nv_bfloat16, 1>(p, ws, s);
+  if (dtype == 1 && stride == 2) return dispatch_bwd<__nv_bfloat16, 2>(p, ws, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -826,33 +1270,44 @@ extern "C" int tcct_dwconv3x3_fwd(const void* x, const void* w, const void* bias
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's workspace: the number of f32 dw partials [nparts, 9, C]
-// that tcct_dwconv3x3_bwd needs for these pointers and shapes (nparts is
-// returned; the caller allocates nparts * 9 * C floats).
-extern "C" long long tcct_dwconv3x3_bwd_parts(const void* x, const void* w, const void* g,
-                                              const void* dx, int B, int H, int W, int C,
-                                              int stride, int dtype) {
-  if (dtype == 0 && stride == 1) return parts_of<float, 2, 1>(x, w, g, dx, B, H, W, C);
-  if (dtype == 0 && stride == 2) return parts_of<float, 2, 2>(x, w, g, dx, B, H, W, C);
-  if (dtype == 1 && stride == 1) return parts_of<__nv_bfloat16, 4, 1>(x, w, g, dx, B, H, W, C);
-  if (dtype == 1 && stride == 2) return parts_of<__nv_bfloat16, 4, 2>(x, w, g, dx, B, H, W, C);
-  return -1;
+// The backward's workspace: the floats of the f32 block partials
+// [nb, 10, C] that tcct_dwconv3x3_bwd needs for these pointers and shapes
+// (nb: the blocks of its launch), or a negative CUDA error code.
+extern "C" long long tcct_dwconv3x3_bwd_workspace(const void* x, const void* g, int B, int H,
+                                                  int W, int C, int stride, int dtype) {
+  BwdParams p{};
+  p.x = x;
+  p.g = g;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  long long n = 0;
+  const int e = run_bwd(p, stride, dtype, &n, nullptr);
+  return e ? -(long long)e : n;
 }
 
-// The fused backward.  x [B,H,W,C], w [3,3,C], g [B,Ho,Wo,C], dx [B,H,W,C],
-// dw [3,3,C], all in one type; part is the f32 workspace sized by
-// tcct_dwconv3x3_bwd_parts.  Two launches (the fused pass, then the fixed-
-// order sum of the dw partials).  Returns cudaGetLastError().
-extern "C" int tcct_dwconv3x3_bwd(const void* x, const void* w, const void* g, void* dx,
-                                  void* dw, void* part, int B, int H, int W, int C, int stride,
-                                  int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == 0 && stride == 1) return dispatch_bwd<float, 2, 1>(x, w, g, dx, dw, p, B, H, W, C, s);
-  if (dtype == 0 && stride == 2) return dispatch_bwd<float, 2, 2>(x, w, g, dx, dw, p, B, H, W, C, s);
-  if (dtype == 1 && stride == 1)
-    return dispatch_bwd<__nv_bfloat16, 4, 1>(x, w, g, dx, dw, p, B, H, W, C, s);
-  if (dtype == 1 && stride == 2)
-    return dispatch_bwd<__nv_bfloat16, 4, 2>(x, w, g, dx, dw, p, B, H, W, C, s);
-  return (int)cudaErrorInvalidValue;
+// The fused backward, one cooperative launch.  x [B,H,W,C], w [3,3,C],
+// g [B,Ho,Wo,C], dx [B,H,W,C] (null: not formed), dw [3,3,C], db [C]
+// (null: not formed), all in one type (dtype 0 float32, 1 bfloat16); part
+// is the f32 workspace sized by tcct_dwconv3x3_bwd_workspace.  residual
+// != 0 (stride 1) adds g to dx after dx is rounded, rounded again.
+// Returns the launch's CUDA error code.
+extern "C" int tcct_dwconv3x3_bwd(const void* x, const void* w, const void* g, void* dx, void* dw,
+                                  void* db, void* part, int B, int H, int W, int C, int stride,
+                                  int dtype, int residual, void* stream) {
+  BwdParams p{};
+  p.x = x;
+  p.w = w;
+  p.g = g;
+  p.dx = dx;
+  p.dw = dw;
+  p.db = db;
+  p.part = static_cast<float*>(part);
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.residual = residual;
+  return run_bwd(p, stride, dtype, nullptr, static_cast<cudaStream_t>(stream));
 }

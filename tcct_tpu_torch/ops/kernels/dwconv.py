@@ -10,8 +10,9 @@ design.
 
 :func:`dwconv3x3` is a ``torch.autograd.Function``: its forward launches
 the forward kernel (:func:`dwconv3x3_forward`) and its backward the fused
-backward kernel, which reads ``x`` and ``g`` once and gives ``dx`` and the
-nine ``dw`` taps.  The forward can add a bias and the input itself
+backward kernel, one launch that reads ``x`` and ``g`` once and gives
+``dx`` (plus ``g`` at the ConvPosEnc site), the nine ``dw`` taps and the
+bias gradient.  The forward can add a bias and the input itself
 (``conv(x) + bias + x``, the ConvPosEnc site) in the same launch, rounded
 as the three separate passes round.  On a CPU tensor the same function
 runs the plain forward and the plain backward.
@@ -49,12 +50,16 @@ def _tap_views(v: torch.Tensor, a: int, t: int, stride: int, Ho: int, Wo: int) -
 
 
 def dwconv3x3_backward_reference(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                                 stride: int = 1):
-    """Plain backward of :func:`dwconv3x3_reference` for the output
-    gradient ``g`` [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in
-    w's dtype)``.  Nine shifted multiply-adds in f32, as the kernel forms
-    them: ``dx`` scatters ``g * w[a, t]`` onto the input pixels of tap
-    (a, t), ``dw[a, t]`` sums ``x * g`` over those pixels."""
+                                 stride: int = 1, *, bias: bool = False, residual: bool = False,
+                                 need_dx: bool = True):
+    """Plain backward of :func:`dwconv3x3` for the output gradient ``g``
+    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype,
+    db [C] in g's dtype)``.  Nine shifted multiply-adds in f32, as the
+    kernel forms them: ``dx`` scatters ``g * w[a, t]`` onto the input pixels
+    of tap (a, t), ``dw[a, t]`` sums ``x * g`` over those pixels.
+    ``residual`` (the gradient of ``conv(x) + x``) adds ``g`` to ``dx`` in
+    x's dtype; ``bias`` gives ``db``, ``g`` summed over the pixels in f32
+    (else None); ``need_dx=False`` gives no ``dx`` (None)."""
     B, H, W, C = x.shape
     Ho, Wo = g.shape[1], g.shape[2]
     Hp, Wp = stride * (Ho - 1) + 3, stride * (Wo - 1) + 3
@@ -64,9 +69,14 @@ def dwconv3x3_backward_reference(x: torch.Tensor, w: torch.Tensor, g: torch.Tens
     dw = xf.new_zeros((3, 3, C))
     for a in range(3):
         for t in range(3):
-            _tap_views(dxp, a, t, stride, Ho, Wo).add_(gf * wf[a, t])
+            if need_dx:
+                _tap_views(dxp, a, t, stride, Ho, Wo).add_(gf * wf[a, t])
             dw[a, t] = (_tap_views(xp, a, t, stride, Ho, Wo) * gf).sum((0, 1, 2))
-    return dxp[:, 1:H + 1, 1:W + 1].to(x.dtype), dw.to(w.dtype)
+    dx = dxp[:, 1:H + 1, 1:W + 1].to(x.dtype) if need_dx else None
+    if dx is not None and residual:
+        dx = dx + g
+    db = gf.sum((0, 1, 2)).to(g.dtype) if bias else None
+    return dx, dw.to(w.dtype), db
 
 
 @functools.cache
@@ -78,11 +88,11 @@ def _fn(name: str):
     if name == "tcct_dwconv3x3_fwd":
         fn.argtypes = [p, p, p, p] + [i] * 8 + [p]
         fn.restype = i
-    elif name == "tcct_dwconv3x3_bwd_parts":
-        fn.argtypes = [p, p, p, p] + [i] * 6
+    elif name == "tcct_dwconv3x3_bwd_workspace":
+        fn.argtypes = [p, p] + [i] * 6
         fn.restype = ctypes.c_longlong
     else:  # tcct_dwconv3x3_bwd
-        fn.argtypes = [p] * 6 + [i] * 6 + [p]
+        fn.argtypes = [p] * 7 + [i] * 7 + [p]
         fn.restype = i
     return fn
 
@@ -143,17 +153,44 @@ def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return y
 
 
-def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride: int = 1):
+# the backward's block partials: a buffer a device, replaced by a larger one
+# when a call needs more.  The launch allocates nothing, so a CUDA graph can
+# capture it; a replaced buffer is kept alive, since a captured graph may
+# still write to it.
+_workspaces = {}
+
+
+def _workspace(x: torch.Tensor, g: torch.Tensor, stride: int) -> torch.Tensor:
+    B, H, W, C = x.shape
+    n = _fn("tcct_dwconv3x3_bwd_workspace")(x.data_ptr(), g.data_ptr(), B, H, W, C, stride,
+                                            _DTYPES[x.dtype])
+    if n < 0:
+        build.check(int(-n), f"dwconv3x3_backward {tuple(x.shape)} stride {stride} {x.dtype}")
+    bufs = _workspaces.setdefault(x.device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.empty(max(n, 1), dtype=torch.float32, device=x.device))
+    return bufs[-1]
+
+
+def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride: int = 1, *,
+                       bias: bool = False, residual: bool = False, need_dx: bool = True):
     """Gradients of :func:`dwconv3x3` for the output gradient ``g``
-    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype)``,
-    ``dw`` summed in f32 in a fixed order and cast once.
+    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype,
+    db [C] in g's dtype)``, ``dw`` and ``db`` summed in f32 in a fixed
+    order and cast once.  ``residual`` (stride 1) adds ``g`` to ``dx``,
+    rounded as the plain add rounds; ``bias`` forms ``db``, the sum of
+    ``g`` over the pixels (else None); ``need_dx=False`` forms no ``dx``
+    (None).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the fused
-    backward kernel, or the call raises."""
+    backward kernel once, or the call raises."""
     if stride not in (1, 2):
         raise ValueError(f"dwconv3x3_backward: stride must be 1 or 2, got {stride}")
+    if residual and stride != 1:
+        raise ValueError("dwconv3x3_backward: residual=True needs stride 1")
     if x.device.type == "cpu":
-        return dwconv3x3_backward_reference(x, w, g, stride)
+        return dwconv3x3_backward_reference(x, w, g, stride, bias=bias, residual=residual,
+                                            need_dx=need_dx)
     _check(x, w, stride, "dwconv3x3_backward")
     B, H, W, C = x.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
@@ -161,20 +198,20 @@ def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride
         raise ValueError(f"dwconv3x3_backward: want g [{B},{Ho},{Wo},{C}] {x.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     x, w, g = x.contiguous(), w.contiguous(), g.contiguous()
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w)
+    db = torch.empty((C,), dtype=g.dtype, device=g.device) if bias else None
     if x.numel() == 0:
-        return dx, dw.zero_()
-    dt = _DTYPES[x.dtype]
-    ptrs = (x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr())
-    nparts = _fn("tcct_dwconv3x3_bwd_parts")(*ptrs, B, H, W, C, stride, dt)
-    part = torch.empty((nparts, 9, C), dtype=torch.float32, device=x.device)
-    err = _fn("tcct_dwconv3x3_bwd")(*ptrs, dw.data_ptr(), part.data_ptr(), B, H, W, C, stride,
-                                    dt, torch.cuda.current_stream(x.device).cuda_stream)
+        return dx, dw.zero_(), None if db is None else db.zero_()
+    part = _workspace(x, g, stride)
+    err = _fn("tcct_dwconv3x3_bwd")(
+        x.data_ptr(), w.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
+        dw.data_ptr(), None if db is None else db.data_ptr(), part.data_ptr(), B, H, W, C,
+        stride, _DTYPES[x.dtype], int(residual), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"dwconv3x3_backward {tuple(x.shape)} stride {stride} {x.dtype}")
     dwconv3x3_backward.launches += 1
     dwconv3x3_backward.launches_s2 += stride == 2
-    return dx, dw
+    return dx, dw, db
 
 
 class _DWConv3x3(torch.autograd.Function):
@@ -188,12 +225,10 @@ class _DWConv3x3(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = dwconv3x3_backward(x, w, g, ctx.stride)
-        if ctx.residual:
-            dx = dx + g
-        return (dx if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None,
-                g.sum((0, 1, 2)) if ctx.needs_input_grad[2] else None, None, None)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx, dw, db = dwconv3x3_backward(x, w, g, ctx.stride, bias=need_b, residual=ctx.residual,
+                                        need_dx=need_x)
+        return dx, dw if need_w else None, db, None, None
 
 
 def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -202,8 +237,9 @@ def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     accumulation: NHWC [B,H,W,C] x [3,3,C] -> [B,Ho,Wo,C], optionally
     ``+ bias`` [C] and ``+ x`` (``residual``, stride 1) in the same launch
     (see :func:`dwconv3x3_forward`).  Differentiable in x, w and bias: the
-    backward is :func:`dwconv3x3_backward`, plus ``g`` for the residual and
-    ``g`` summed over the pixels for the bias, in plain PyTorch.
+    backward is one :func:`dwconv3x3_backward` call, which also adds ``g``
+    for the residual and sums ``g`` for the bias, and forms no ``dx`` when
+    autograd does not ask for it.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels, or the call raises."""

@@ -161,39 +161,117 @@ def test_metapool_backward_kernel_matches_plain(cuda, shape, dtype):
     _close(got, metapool_tokens_backward_reference(gy), dtype)
 
 
-def _dw_bwd_close(x, w, gy, stride, dtype):
+def _dw_bwd_close(x, w, gy, stride, dtype, **flags):
     """dx as the forward's tolerance; dw within 1e-5 of sum|x*g| per tap
     (f32 summation order) plus, in bf16, one rounding of dw (2^-7 |dw|),
-    against the plain version run in f32 and cast."""
-    dx, dw = dwconv3x3_backward(x, w, gy, stride)
+    against the plain version run in f32 and cast; db likewise within 1e-5
+    of sum|g|.  Returns the kernel's (dx, dw, db)."""
+    dx, dw, db = dwconv3x3_backward(x, w, gy, stride, **flags)
     torch.cuda.synchronize()
-    rdx, rdw = dwconv3x3_backward_reference(x, w, gy, stride)
-    assert dx.dtype == x.dtype and dw.dtype == w.dtype
-    _close(dx, rdx, dtype)
+    rdx, _, _ = dwconv3x3_backward_reference(x, w, gy, stride, **flags)
+    assert dw.dtype == w.dtype
+    if rdx is None:
+        assert dx is None
+    else:
+        assert dx.dtype == x.dtype
+        _close(dx, rdx, dtype)
     mag = dwconv3x3_backward_reference(x.float().abs(), w.float(), gy.float().abs(), stride)[1]
     ref32 = dwconv3x3_backward_reference(x.float(), w.float(), gy.float(), stride)[1]
+    one = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     err = (dw.float() - ref32).abs()
-    lim = 1e-5 * mag + 1e-6 + (2.0 ** -7 * ref32.abs() if dtype == torch.bfloat16 else 0)
+    lim = 1e-5 * mag + 1e-6 + one * ref32.abs()
     assert bool((err <= lim).all()), float((err - lim).max())
-    return dx, dw
+    if flags.get("bias"):
+        gsum = gy.float().sum((0, 1, 2))
+        lim = 1e-5 * gy.float().abs().sum((0, 1, 2)) + 1e-6 + one * gsum.abs()
+        assert db.dtype == gy.dtype and bool(((db.float() - gsum).abs() <= lim).all())
+    else:
+        assert db is None
+    return dx, dw, db
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 12, 24, 8), (1, 9, 13, 40), (2, 33, 17, 160),
-                                   (8, 64, 64, 96), (2, 31, 29, 4), (3, 20, 19, 1)])
-def test_dwconv_backward_kernel_matches_plain(cuda, shape, stride, dtype):
-    g = torch.Generator(device=cuda).manual_seed(3)
+def _dw_bwd_inputs(cuda, shape, stride, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     w = (torch.randn((3, 3, shape[-1]), generator=g, device=cuda) / 3).to(dtype)
     Ho, Wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
     gy = torch.randn((shape[0], Ho, Wo, shape[3]), generator=g, device=cuda).to(dtype)
+    return x, w, gy
+
+
+# K2b: C a multiple of 4 (four channels a thread; 16-byte copies where the
+# rows allow), the narrow channels 1-8 (parts of several pixels a thread),
+# rows around a tile (1,024 elements: 256 pixels at C = 4, 128 at C = 8),
+# H = 1, W = 1, odd sizes at stride 2, and a train shape
+DWB_SHAPES = [(2, 12, 24, 8), (1, 9, 13, 40), (2, 33, 17, 160), (8, 64, 64, 96), (2, 31, 29, 4),
+              (3, 20, 19, 1), (2, 9, 11, 2), (2, 7, 13, 3), (1, 11, 9, 5), (2, 9, 7, 6),
+              (1, 13, 11, 7), (2, 10, 12, 8), (1, 5, 257, 4), (1, 4, 129, 8), (1, 6, 255, 4),
+              (2, 1, 33, 16), (2, 17, 1, 12), (1, 1, 1, 4), (1, 9, 31, 12), (2, 1, 1, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", DWB_SHAPES)
+def test_dwconv_backward_kernel_matches_plain(cuda, shape, stride, dtype):
+    """One launch a call; dx, dw against the plain version; then each flag:
+    bias (db), residual (stride 1: bitwise dx + g), no dx; dw the same bits
+    in every call and run."""
+    x, w, gy = _dw_bwd_inputs(cuda, shape, stride, dtype, 3)
     n, n2 = dwconv3x3_backward.launches, dwconv3x3_backward.launches_s2
-    _, dw = _dw_bwd_close(x, w, gy, stride, dtype)
+    dx, dw, _ = _dw_bwd_close(x, w, gy, stride, dtype)
     assert dwconv3x3_backward.launches == n + 1
     assert dwconv3x3_backward.launches_s2 == n2 + (stride == 2)
-    _, dw2 = dwconv3x3_backward(x, w, gy, stride)
-    assert torch.equal(dw, dw2)  # fixed-order reduction: bitwise repeatable
+    res = stride == 1
+    dx1, dw1, db1 = _dw_bwd_close(x, w, gy, stride, dtype, bias=True, residual=res)
+    assert torch.equal(dx1, dx + gy if res else dx) and torch.equal(dw1, dw)
+    no_dx, dw2, db2 = _dw_bwd_close(x, w, gy, stride, dtype, bias=True, need_dx=False)
+    assert no_dx is None and torch.equal(dw2, dw) and torch.equal(db2, db1)
+    _, dw3, _ = dwconv3x3_backward(x, w, gy, stride)
+    assert torch.equal(dw3, dw)  # fixed-order reduction: bitwise repeatable
+    assert dwconv3x3_backward.launches == n + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("C", [4, 8, 3])
+def test_dwconv_backward_takes_an_offset_view(cuda, C, stride, dtype):
+    """x and g starting one element into their storage (no 16-byte copies):
+    dx bitwise the aligned copies', dw and db within the bounds."""
+    x, w, gy = _dw_bwd_inputs(cuda, (2, 9, 13, C), stride, dtype, 4)
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    xs, gs = shifted(x), shifted(gy)
+    assert xs.data_ptr() % 16 != 0 and gs.data_ptr() % 16 != 0
+    dx, _, _ = _dw_bwd_close(xs, w, gs, stride, dtype, bias=True)
+    assert torch.equal(dx, dwconv3x3_backward(x, w, gy, stride)[0])
+
+
+@pytest.mark.parametrize("stride,shape", [(1, (8, 64, 64, 96)), (1, (8, 256, 256, 1)),
+                                          (2, (8, 64, 64, 128))])
+def test_dwconv_backward_captures_and_replays(cuda, stride, shape):
+    """One K2b call (bias, and the residual at stride 1) at a train shape,
+    captured in a CUDA graph and replayed on new inputs copied into the
+    captured ones, gives the eager results bit for bit: the launch
+    allocates nothing and its workspace stays put."""
+    dtype = torch.bfloat16
+    flags = dict(bias=True, residual=stride == 1)
+    x, w, gy = _dw_bwd_inputs(cuda, shape, stride, dtype, 5)
+    dwconv3x3_backward(x, w, gy, stride, **flags)  # builds and sizes the workspace
+    torch.cuda.synchronize()
+    sx, sw, sg = x.clone(), w.clone(), gy.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = dwconv3x3_backward(sx, sw, sg, stride, **flags)
+    x2, w2, g2 = _dw_bwd_inputs(cuda, shape, stride, dtype, 6)
+    for dst, src in zip((sx, sw, sg), (x2, w2, g2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = dwconv3x3_backward(x2, w2, g2, stride, **flags)
+    for a, c in zip(outs, want):
+        assert torch.equal(a, c)
 
 
 def _bn_inputs(cuda, shape, dtype, seed):
@@ -382,9 +460,14 @@ def test_grad_fn_through_kernels(cuda, dtype):
     assert y.grad_fn is not None
     gy = torch.randn_like(y)
     gx, gw, gb = torch.autograd.grad(y, (x, w, b), gy)
-    dx, dw = dwconv3x3_backward(x.detach(), w.detach(), gy, 1)
+    dx, dw, _ = dwconv3x3_backward(x.detach(), w.detach(), gy, 1)
     assert torch.equal(gx, dx + gy) and torch.equal(gw, dw)
-    assert torch.equal(gb, gy.sum((0, 1, 2)))
+    # the bias gradient is the kernel's fixed-order f32 sum of g, cast once
+    assert torch.equal(gb, dwconv3x3_backward(x.detach(), w.detach(), gy, 1, bias=True)[2])
+    gsum = gy.float().sum((0, 1, 2))
+    lim = 1e-5 * gy.float().abs().sum((0, 1, 2)) + 1e-6 + (
+        2.0 ** -7 * gsum.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((gb.float() - gsum).abs() <= lim).all())
 
 
 def _cross_block(cuda, cin, cout, k, dtype, seed, plain=False):
@@ -556,6 +639,9 @@ def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         dwconv3x3_backward(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda),
                            torch.zeros(1, 3, 4, 8, device=cuda))
+    with pytest.raises(ValueError, match="stride 1"):
+        dwconv3x3_backward(torch.zeros(1, 4, 4, 8, device=cuda), torch.zeros(3, 3, 8, device=cuda),
+                           torch.zeros(1, 2, 2, 8, device=cuda), 2, residual=True)
     with pytest.raises(ValueError):
         bn_act_train(torch.zeros(2, 4, 3, 3, device=cuda, dtype=torch.float16),
                      torch.ones(4, device=cuda), torch.zeros(4, device=cuda))

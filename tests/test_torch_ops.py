@@ -338,8 +338,8 @@ def test_dwconv_backward_plain_is_autograd_of_plain_forward(stride):
         gt = torch.from_numpy(g).to(dt)
         xf, wf = xt.detach().float().requires_grad_(), wt.detach().float().requires_grad_()
         want = torch.autograd.grad(dwconv3x3_reference(xf, wf, stride), (xf, wf), gt.float())
-        dx, dw = dwconv3x3_backward(xt.detach(), wt.detach(), gt, stride)
-        assert dx.dtype == dw.dtype == dt
+        dx, dw, db = dwconv3x3_backward(xt.detach(), wt.detach(), gt, stride)
+        assert dx.dtype == dw.dtype == dt and db is None
         for a, b in zip((dx, dw), want):
             torch.testing.assert_close(a.float(), b.to(dt).float(), rtol=tol, atol=tol * 10)
 
