@@ -23,22 +23,32 @@ toolkit (``nvcc``):
    captured in a CUDA graph and replayed; the depthwise forward's
    two kernels at several strip heights; its bias-and-residual epilogue
    (the ConvPosEnc site) bit for bit against the three passes it
-   replaces, and timed against them; then the fused CrossCNN
+   replaces, and timed against them; the MetaPool site of the serving
+   block (LayerNorm1, K1, the residual add, LayerNorm2 in one launch) at
+   the serving shapes of ``stc_tt`` and ``stc_st``: its bare and
+   residual-only flags bit for bit against K1 and K1 + x, the whole site
+   against its plain version, timed against the four ops it replaces;
+   then the fused CrossCNN
    block kernel at the five duke levels of ``stc_tt``, the four
    channel-changing levels of ``gtc_tb``, a plain (k = 3) block, an
    input smaller than a tile and one whose weights stream through the
    ring;
 3. serves a 20-scan seeded duke volume through ``load_predictor`` at full
    width (random-init weights, batch 8, bf16) with the launch counts set
-   to 0 just before and read just after, checks the class maps (shape,
-   dtype, agreement with the f32 predictor) and the f32 model against the
-   CPU path on a small input, and times the steady state;
+   to 0 just before and read just after (one site launch a MetaPool site,
+   no bare K1), checks the class maps (shape, dtype, agreement with the f32
+   predictor, and with the maps of the same eval model called with a
+   gradient enabled, which runs each site as four ops: bf16 at least 99.9 %
+   of pixels, f32 at least 99.999 %) and the f32 model against the CPU path
+   on a small input, times the steady state and profiles one batch (no
+   LayerNorm launch may remain);
 4. serves the same volume with ``cnn_impl='fused'`` (the CNN branch
    through the fused block kernel), counts read around it, and holds its
    class maps against the plain path's (f32: at least 99.9 % of pixels);
    then ``gtc_tb`` (the wide CNN branch, gated fusion) both ways, one
    batch of every other model of the registry, and one batch of ``stc_tt``
-   in every other dataset bucket, both ways;
+   in every other dataset bucket, both ways, each bucket's maps held with
+   and without the site as for duke;
 5. holds the f32 train step on the card against the CPU path on the
    golden 64x64 parity case (step-0 gradients, one AdamW step);
 6. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
@@ -53,29 +63,26 @@ toolkit (``nvcc``):
 Any failure exits non-zero before the last line.  Without a CUDA card, or
 outside a checkout, it exits non-zero and prints no result.
 
-    python3 chip_smoke.py --k4-against DIR
+    python3 chip_smoke.py --against DIR [NAME ...]
 
-builds DIR's ``tcct_tpu_torch/csrc/crosscnn_fused.cu`` (another checkout,
-e.g. the parent commit, whose ``tcct_crosscnn_fused_fwd`` has this one's C
-signature) beside this one's and holds the two against each other in bf16
-at every fused-block shape: bitwise equal or not, and device us per launch
-in turns.
+builds DIR's kernel sources (another checkout, e.g. the parent commit
+unpacked with ``git archive``) beside this one's and holds this tree's
+kernels against them at every shape of the main paths (the kernel table's
+shapes, the MetaPool site's and the fused block's), in bf16 and f32: bit
+for bit (a difference fails the run), device us per call in turns (other,
+this, this, other), and each kernel's totals per serving batch and per
+train step.  A kernel is compared only where DIR's C entries that it calls
+are declared exactly as this tree's; NAME prefixes pick kernels by name
+(``metapool``, ``dwconv3x3_backward``, ``fused_cross_block``, ...).
 
-    python3 chip_smoke.py --k2b-against DIR
-
-builds DIR's ``tcct_tpu_torch/csrc/dwconv3x3.cu`` (a checkout whose K2b is
-the first version, two launches a call) beside this one's and holds this
-tree's K2b against it at every train-step shape in bf16 and f32: dx bit
-for bit (a difference fails), device us per call in turns; then the
-ConvPosEnc site's backward, one launch against the other kernel plus the
-two plain passes it needed.
-
-    python3 chip_smoke.py --train-profile DIR
+    python3 chip_smoke.py --profile DIR
 
 imports ``tcct_tpu_torch`` from DIR (another checkout, or ``.``), builds
-its kernels and prints its train step's diagnostics, not held: ms/step,
-the device time of one step by group (train BatchNorm forward and
-backward, polarization bins and bilinear backward named apart) and its
+its kernels and prints, not held: one duke bf16 serving batch of ``stc_tt``
+(plain and fused) and of ``stc_st`` (replayed and eager ms, device busy
+ms, launches, the layer_norm and MetaPool groups); then the train step's
+ms/step, the device time of one step by group (train BatchNorm forward
+and backward, polarization bins and bilinear backward named apart) and its
 launch count, the ops that ``torch.use_deterministic_algorithms`` names,
 and which state tensors differ when one step runs twice from one state.
 """
@@ -276,8 +283,12 @@ def train_shapes(cfg, batch: int, hw, n_class: int):
     return {"mp": mp, "s1": s1, "s2": s2, "bn": bn}
 
 
-def _table(name, src, replaces, rows):
-    return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "rows": rows}
+def _table(name, src, replaces, rows, main=None):
+    """A kernel's rows; ``main`` names the path whose run gives its
+    launches and its totals ("serve" or "train"; by default the serving
+    batch where it has serving shapes)."""
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "rows": rows,
+            "main": main}
 
 
 def kernel_tables(serve, train, serve_small):
@@ -521,8 +532,10 @@ def kernel_tables(serve, train, serve_small):
     bnb_rows = [(bnb_spec(leaky), Counter(), Counter({(shape, d): n}))
                 for (shape, leaky, d), n in sorted(train["bn"].items())]
     return [
+        # the serving path runs K1 inside the site (metapool_block): its
+        # launches are the train step's, its serving shapes are timed beside
         _table("metapool_tokens", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
-               [(mp_fwd, serve_rows(serve[0]), train["mp"])]),
+               [(mp_fwd, serve_rows(serve[0]), train["mp"])], main="train"),
         _table("dwconv3x3_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:200",
                [(dw_fwd(1), serve_rows(serve[1]), train["s1"], serve_rows(serve_small[1]))]),
         _table("dwconv3x3_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:380",
@@ -545,10 +558,10 @@ def bench_kernels(report, tables):
     at every shape of the serving batch and of the train step, timed
     against the plain version and the library yardstick.  The totals of a
     row weight each shape by its launches on its path, at the path's dtype:
-    ``ms`` etc. per serving batch for the forward kernels of the serving
-    path, per train step for the train-only kernels (``train_ms`` gives the
-    forward kernels' train-step totals, ``small_ms`` the depthwise
-    forward's totals over an ``stc_st`` serving batch)."""
+    ``ms`` etc. over the table's main path (per serving batch or per train
+    step), ``serve_ms`` / ``train_ms`` etc. over the other where the kernel
+    has shapes there, ``small_ms`` the depthwise forward's totals over an
+    ``stc_st`` serving batch."""
     import torch
 
     entries = []
@@ -593,7 +606,7 @@ def bench_kernels(report, tables):
                         tot[prefix + "bytes_ms"] += n * b_bytes
                         tot[prefix + "ops_ms"] += n * b_ops
                     del copies, args
-        main = "serve_" if tot["serve_ms"] > 0 else "train_"
+        main = (t["main"] or ("serve" if tot["serve_ms"] > 0 else "train")) + "_"
         entry = {
             "name": name, "route": t["route"], "source": t["source"], "replaces": t["replaces"],
             "launches": 0, "max_abs_err": max_err,
@@ -602,10 +615,10 @@ def bench_kernels(report, tables):
             "bound_by": "bytes" if tot[main + "bytes_ms"] >= tot[main + "ops_ms"] else "operations",
             "library_ms": tot[main + "library_ms"],
         }
-        if main == "serve_":
-            entry.update(train_ms=tot["train_ms"], train_plain_ms=tot["train_plain_ms"],
-                         train_bound_ms=tot["train_bound_ms"],
-                         train_library_ms=tot["train_library_ms"])
+        other = "train_" if main == "serve_" else "serve_"
+        if tot[other + "ms"] > 0:
+            entry.update({other + k: tot[other + k]
+                          for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
         if tot["small_ms"] > 0:
             entry.update(small_ms=tot["small_ms"], small_plain_ms=tot["small_plain_ms"],
                          small_bound_ms=tot["small_bound_ms"],
@@ -848,15 +861,142 @@ def bench_convposenc(report, card, sites, sites_small):
              f"most one elementwise kernel")
 
 
+def _site_inputs(shape, dtype, gen):
+    """Seeded tokens and LayerNorm affines of one MetaPool site."""
+    import torch
+
+    C = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    w1, w2 = ((torch.rand(C, generator=gen, device="cuda") + 0.5).to(dtype) for _ in range(2))
+    b1, b2 = ((torch.randn(C, generator=gen, device="cuda") * 0.1).to(dtype) for _ in range(2))
+    return x, w1, b1, w2, b2
+
+
+def check_site(label, got, want, args, dn):
+    """The site's (y, n2) against its plain version: f32 within
+    1e-5 |plain| + 1e-5 rms (LayerNorm sums in another order); bf16 no
+    further from the chain in f64 than 1.5x the plain passes, in the maximum
+    and the mean.  Returns the max abs difference from the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w1, b1, w2, b2 = (t.double() for t in args)
+    C = x.shape[-1]
+    n = F.layer_norm(x, (C,), w1, b1, 1e-6)
+    y = x + F.avg_pool2d(n[:, None], 3, 1, 1, count_include_pad=False)[:, 0] - n
+    truth = (y, F.layer_norm(y, (C,), w2, b2, 1e-6))
+    worst = 0.0
+    for what, a, c, t in zip(("y", "n2"), got, want, truth):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label} {what}: non-finite output")
+        d = (a.double() - c.double()).abs()
+        worst = max(worst, float(d.max()))
+        if dn == "float32":
+            rms = float(c.double().square().mean().sqrt())
+            if not bool((d <= 1e-5 * c.double().abs() + 1e-5 * rms).all()):
+                fail(f"{label} {what}: outside 1e-5 |plain| + 1e-5 rms, max diff {float(d.max())}")
+            continue
+        e_k, e_p = (a.double() - t).abs(), (c.double() - t).abs()
+        if float(e_k.max()) > 1.5 * float(e_p.max()) or \
+                float(e_k.mean()) > 1.5 * float(e_p.mean()):
+            fail(f"{label} {what}: from the f64 chain max {float(e_k.max()):.3e} mean "
+                 f"{float(e_k.mean()):.3e}, the plain passes {float(e_p.max()):.3e} / "
+                 f"{float(e_p.mean()):.3e}")
+    return worst
+
+
+def bench_metapool_block(report, card, sites, sites_small):
+    """The serving block's MetaPool site (LayerNorm1, K1, the residual add,
+    LayerNorm2) in one launch, at every site shape of a duke serving batch of
+    stc_tt and of stc_st, in bf16 and f32: its bare and residual-only flags
+    bit for bit against K1 and K1 + x, the whole site against its plain
+    version (``check_site``); timed against the plain version and the four
+    PyTorch ops it replaces (F.layer_norm, K1, the add, F.layer_norm), and
+    against a bound of 3 passes: x read, y and n2 written.  No single
+    PyTorch call computes the site: ``library_ms`` is null, ``four_ops_ms``
+    the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from tcct_tpu_torch.ops.kernels.metapool import (
+        metapool_block,
+        metapool_block_reference,
+        metapool_tokens,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    print(f"MetaPool site: LayerNorm1 + K1 + x + LayerNorm2 in one launch vs the four ops "
+          f"[{card}]:", flush=True)
+
+    def four(x, w1, b1, w2, b2):
+        C = x.shape[-1]
+        y = x + metapool_tokens(F.layer_norm(x, (C,), w1, b1, 1e-6))
+        return y, F.layer_norm(y, (C,), w2, b2, 1e-6)
+
+    tot, max_err = Counter(), 0.0
+    for shape in sorted(set(sites) | set(sites_small)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            args = _site_inputs(shape, dtype, gen)
+            x, C = args[0], shape[-1]
+            label = f"metapool_block {list(shape)} {dn}"
+            with torch.inference_mode():
+                if not torch.equal(metapool_block(x, residual=False)[0], metapool_tokens(x)):
+                    fail(f"{label}: the bare flags differ from metapool_tokens")
+                if not torch.equal(metapool_block(x)[0], metapool_tokens(x) + x):
+                    fail(f"{label}: the residual-only flags differ from metapool_tokens(x) + x")
+                got = metapool_block(*args)
+                torch.cuda.synchronize()
+                err = check_site(label, got, metapool_block_reference(*args), args, dn)
+            max_err = max(max_err, err)
+            nbytes = (3 * x.numel() + 4 * C) * x.element_size()
+            flops = 30 * x.numel()  # two LayerNorms ~8 each, the window ~12, the add
+            copies = [(x.clone(),) + args[1:] for _ in range(n_copies(nbytes))]
+            t_k = device_ms(metapool_block, copies)
+            t_p = device_ms(metapool_block_reference, copies)
+            t_4 = device_ms(four, copies)
+            b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+            bound = max(b_bytes, b_ops)
+            n, n_small = sites.get(shape, 0), sites_small.get(shape, 0)
+            per = (f" x{n}/batch" if n else "") + (f" x{n_small}/stc_st batch" if n_small else "")
+            print(f"  {label}{per}: flags bitwise, max_abs_err vs plain {err:.3e}; one launch "
+                  f"{t_k * 1e3:.1f} us, four ops {t_4 * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, "
+                  f"bound {bound * 1e3:.1f} us ({'bytes' if b_bytes >= b_ops else 'operations'}"
+                  f"), {b_bytes / t_k * 100:.0f}% of the byte bound", flush=True)
+            if dtype == torch.bfloat16:
+                for prefix, k in (("", n), ("small_", n_small)):
+                    tot[prefix + "ms"] += k * t_k
+                    tot[prefix + "plain_ms"] += k * t_p
+                    tot[prefix + "four_ops_ms"] += k * t_4
+                    tot[prefix + "bound_ms"] += k * bound
+            del copies
+    report["kernels"].append({
+        "name": "metapool_block", "route": "cuda", "source": "tcct_tpu_torch/csrc/metapool.cu",
+        "replaces": "tcct_tpu/ops/pallas/metapool.py:64", "launches": 0, "max_abs_err": max_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "four_ops_ms": tot["four_ops_ms"],
+        "small_ms": tot["small_ms"], "small_plain_ms": tot["small_plain_ms"],
+        "small_bound_ms": tot["small_bound_ms"], "small_four_ops_ms": tot["small_four_ops_ms"]})
+    print(f"  per bf16 batch: stc_tt {sum(sites.values())} sites {tot['ms']:.4f} ms in one launch "
+          f"each, {tot['four_ops_ms']:.4f} ms as four ops, bound {tot['bound_ms']:.4f} ms; stc_st "
+          f"{sum(sites_small.values())} sites {tot['small_ms']:.4f} / "
+          f"{tot['small_four_ops_ms']:.4f} / {tot['small_bound_ms']:.4f} ms", flush=True)
+
+
 def _counted():
     """(row name, wrapper, attribute) of every launch count."""
     from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_backward
     from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
     from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_backward
-    from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
+    from tcct_tpu_torch.ops.kernels.metapool import (
+        metapool_block,
+        metapool_tokens,
+        metapool_tokens_backward,
+    )
 
     return [("fused_cross_block", fused_cross_block, "launches"),
             ("metapool_tokens", metapool_tokens, "launches"),
+            ("metapool_block", metapool_block, "launches"),
             ("dwconv3x3", dwconv3x3, "launches"), ("dwconv3x3_s2", dwconv3x3, "launches_s2"),
             ("metapool_tokens_backward", metapool_tokens_backward, "launches"),
             ("dwconv3x3_backward", dwconv3x3_backward, "launches"),
@@ -875,6 +1015,7 @@ def read_counters():
     raw = {name: getattr(fn, attr) for name, fn, attr in _counted()}
     return {
         "metapool_tokens": raw["metapool_tokens"],
+        "metapool_block": raw["metapool_block"],
         "dwconv3x3_s1": raw["dwconv3x3"] - raw["dwconv3x3_s2"],
         "dwconv3x3_s2": raw["dwconv3x3_s2"],
         "metapool_tokens_backward": raw["metapool_tokens_backward"],
@@ -915,6 +1056,10 @@ def drive_slice(report, card):
     print(f"slice: bf16 vs f32 class-map agreement {agree:.6f} (threshold 0.9)", flush=True)
     if agree <= 0.9:
         fail(f"bf16 vs f32 agreement {agree}")
+    held_agreement(f"bucket {DB}: bf16 maps with vs without the site",
+                   seg, maps_without_site(pred, vol, "slice bf16"), 0.999)
+    held_agreement(f"bucket {DB}: f32 maps with vs without the site",
+                   seg32, maps_without_site(pred32, vol, "slice f32"), 0.99999)
     plain = {"pred": pred, "vol": vol, "seg": seg, "seg32": seg32, "agree": agree}
 
     # the f32 model on the card against the CPU path (plain versions), small input
@@ -948,7 +1093,11 @@ def drive_slice(report, card):
                                      by_group)
     if by_group:
         print(f"slice: elementwise and copy launches in one bf16 batch: "
-              f"{by_group.get('elementwise and copies', 0)}", flush=True)
+              f"{by_group.get('elementwise and copies', 0)}; layer_norm launches: "
+              f"{by_group.get('layer_norm', 0)}", flush=True)
+        if by_group.get("layer_norm", 0):
+            fail("the serving batch still launches a LayerNorm kernel: the site should carry "
+                 "every MHCA block's norms")
     plain.update(batch_ms=batch_ms, graph_ms=graph_ms)
     return plain
 
@@ -1138,189 +1287,240 @@ def bench_fused_block(report, card):
     })
 
 
-# the C signature the other source's entry point must have (the binding below)
-K4_FWD_SIGNATURE = re.compile(
-    r'extern "C" int tcct_crosscnn_fused_fwd\(const void\* x, const void\* w, const float\* vec, '
-    r'void\* y,\s*int B, int H, int W, int Cin, int Cout, int k, int dtype,\s*void\* stream\)')
+def _c_entries(path: str):
+    """The C entry points a source declares: {name: declaration, whitespace
+    normalised}."""
+    with open(path) as f:
+        decls = (" ".join(d.split()) for d in re.findall(r'extern "C"[^{;]*', f.read()))
+    return {re.search(r"(\w+)\(", d).group(1): d for d in decls}
 
 
-def compare_fused_block_with(other_root: str, card: str, rows=None, timed: bool = True):
-    """``--k4-against DIR``: K4 in bf16 against the same kernel built from
-    another checkout's source (DIR, e.g. the parent commit unpacked) at
-    the K4_SHAPES ``rows`` (all by default): whether the outputs are equal
-    bit for bit, and with ``timed`` device us per launch in turns (other,
-    this, this, other).  Returns the bitwise verdict of each row."""
+class _SameEntries:
+    """Another tree's kernel library showing only the C entries that it
+    declares exactly as this tree does: a wrapper that calls any other
+    entry gets AttributeError, never a call with the wrong arguments."""
+
+    def __init__(self, lib, names):
+        self._lib, self._names = lib, names
+
+    def __getattr__(self, name):
+        if name not in self._names:
+            raise AttributeError(f"{name}: not declared as in this tree")
+        return getattr(self._lib, name)
+
+
+def _build_other(other_root: str):
+    """DIR's kernel sources built beside this tree's (one ``nvcc`` each, all
+    at once): {source name: library showing the entries this tree shares}."""
     import ctypes
 
+    from tcct_tpu_torch.ops.kernels import build
+
+    out_dir = os.path.join(build.BUILD_DIR, "other")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in build.sources():
+        src = os.path.join(other_root, "tcct_tpu_torch", "csrc", name + ".cu")
+        if not os.path.exists(src):
+            continue
+        mine, theirs = _c_entries(os.path.join(build.CSRC_DIR, name + ".cu")), _c_entries(src)
+        same = {n for n, d in theirs.items() if mine.get(n) == d}
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src]
+        procs[name] = (same, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (same, lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"cannot build {other_root}'s {name}.cu: {out[-2000:]}")
+        libs[name] = _SameEntries(ctypes.CDLL(lib), same)
+        print(f"  {name}.cu: entries as in this tree: {sorted(same)}", flush=True)
+    return libs
+
+
+def _use_libraries(libs) -> None:
+    """Point the kernel wrappers at ``libs`` ({source name: library})."""
+    from tcct_tpu_torch.ops.kernels import bnstats, build, crosscnn_fused, dwconv, metapool
+
+    build._libs.update(libs)
+    for mod in (bnstats, crosscnn_fused, dwconv, metapool):
+        mod._fn.cache_clear()
+
+
+def against_cases(names):
+    """Every kernel call of the main paths as (name, source, label, make,
+    kern, iters, per-path launches): the kernel table's shapes in bf16 and
+    f32, the MetaPool site at the serving shapes of stc_tt and stc_st, the
+    fused block at K4_SHAPES in bf16.  ``names``: name prefixes to keep
+    (all when empty).  ``make()`` gives the arguments of ``kern``."""
     import torch
 
+    from tcct_tpu_torch.data.geometry import get_geometry
     from tcct_tpu_torch.models.crosscnn import seeded_cross_block
+    from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config
+    from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
+    from tcct_tpu_torch.ops.kernels.metapool import metapool_block
+
+    def keep(name):
+        return not names or any(name.startswith(n) for n in names)
+
+    hw = get_geometry(DB).prep_hw
+    serve = path_shapes(MPViTConfig(), BATCH, hw)
+    small = path_shapes(mpvit_small_config(), BATCH, hw)
+    train = train_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
+    for t in kernel_tables(serve, train, small):
+        if not keep(t["name"]):
+            continue
+        src = os.path.splitext(os.path.basename(t["source"]))[0]
+        for sp, on_serve, on_train, *rest in t["rows"]:
+            on_small = rest[0] if rest else Counter()
+            for shape in sorted({k[0] for c in (on_serve, on_train, on_small) for k in c}):
+                for dtype in (torch.bfloat16, torch.float32):
+                    dn = str(dtype).split(".")[-1]
+                    per = {p: c.get((shape, dn), 0) for p, c in
+                           (("batch", on_serve), ("step", on_train), ("stc_st batch", on_small))}
+                    yield (t["name"], src, f"{t['name']}{sp['tag']} {list(shape)} {dn}",
+                           lambda sp=sp, shape=shape, dtype=dtype: sp["make"](shape, dtype),
+                           sp["kern"], 30, per)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    if keep("metapool_block"):
+        for shape in sorted(set(serve[0]) | set(small[0])):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                per = {"batch": serve[0].get(shape, 0) if dn == "bfloat16" else 0,
+                       "stc_st batch": small[0].get(shape, 0) if dn == "bfloat16" else 0}
+                yield ("metapool_block", "metapool", f"metapool_block {list(shape)} {dn}",
+                       lambda shape=shape, dtype=dtype: _site_inputs(shape, dtype, gen),
+                       metapool_block, 30, per)
+    if keep("fused_cross_block"):
+        for i, (what, shape, cout, k, plain, n) in enumerate(K4_SHAPES):
+            def make(i=i, shape=shape, cout=cout, k=k, plain=plain):
+                blk = seeded_cross_block(shape[-1], cout, k, SEED + 30 + i, plain)
+                blk = blk.to("cuda", torch.bfloat16)
+                x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                return x, blk
+
+            def kern(x, blk):
+                with torch.inference_mode():
+                    return fused_cross_block(x, blk)
+            yield ("fused_cross_block", "crosscnn_fused",
+                   f"fused_cross_block {what} {list(shape)} -> {cout} k {k} bfloat16", make, kern,
+                   K4_ITERS, {"batch": n if what.startswith("stc_tt") else 0})
+
+
+def _same_bits(a, b) -> bool:
+    """Two kernel results (a tensor, or a tuple of tensors and Nones) equal bit for bit."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_bits(p, q) for p, q in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a, b)
+
+
+def compare_against(other_root: str, card: str, names=(), timed: bool = True):
+    """``--against DIR [NAME ...]``: this tree's kernels against DIR's at every
+    call of :func:`against_cases`: bit for bit (a difference fails the run
+    after the table), with ``timed`` device us per call in turns (other,
+    this, this, other) and each kernel's totals per path (launches x the mean
+    of each side's two turns).  A case whose C entries DIR does not declare
+    as this tree does is listed as not compared.  Returns the verdicts."""
+    import torch
+
     from tcct_tpu_torch.ops.kernels import build
-    from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block, pack_cross_block
 
-    src = os.path.join(other_root, "tcct_tpu_torch", "csrc", "crosscnn_fused.cu")
-    with open(src) as f:
-        if not K4_FWD_SIGNATURE.search(f.read()):
-            fail(f"{src}: tcct_crosscnn_fused_fwd has another C signature than this tree's")
-    lib = os.path.join(build.BUILD_DIR, "other", "libcrosscnn_fused.so")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        fail(f"cannot build {src}: {done.stdout[-2000:]}")
-    other = ctypes.CDLL(lib).tcct_crosscnn_fused_fwd
-    other.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    other.restype = ctypes.c_int
-    print(f"fused CrossCNN block kernel, bf16, this tree against {src} [{card}]:", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    verdicts = []
-    with torch.inference_mode():
-        for i, (what, shape, cout, k, plain, _) in enumerate(K4_SHAPES):
-            if rows is not None and i not in rows:
-                continue
-            B, H, W, cin = shape
-            blk = seeded_cross_block(cin, cout, k, SEED + 30 + i, plain).to("cuda", torch.bfloat16)
-            x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-            pk = pack_cross_block(blk, torch.bfloat16)
-
-            def run_other(t):
-                y = torch.empty((B, H, W, cout), dtype=t.dtype, device=t.device)
-                build.check(other(t.data_ptr(), pk.wf.data_ptr(), pk.vec.data_ptr(), y.data_ptr(),
-                                  B, H, W, cin, cout, pk.k, 1,
-                                  torch.cuda.current_stream().cuda_stream),
-                            f"the other K4 at {what}")
-                return y
-
-            same = torch.equal(run_other(x), fused_cross_block(x, blk))
-            verdicts.append(same)
-            if not timed:
-                print(f"  {what} {list(shape)} -> {cout} k {pk.k}: bitwise equal {same}",
-                      flush=True)
-                continue
-            copies = [(x.clone(),) for _ in range(n_copies(x.numel() * x.element_size()))]
-            mine = lambda t: fused_cross_block(t, blk)  # noqa: E731
-            us = [device_ms(f, copies, K4_ITERS) * 1e3 for f in (run_other, mine, mine, run_other)]
-            print(f"  {what} {list(shape)} -> {cout} k {pk.k}: bitwise equal {same}; us other "
-                  f"{us[0]:.1f}, {us[3]:.1f}; this {us[1]:.1f}, {us[2]:.1f}", flush=True)
-            del copies, x, blk
+    print(f"kernels: this tree against {other_root}'s sources [{card}]:", flush=True)
+    other = _build_other(other_root)
+    mine = {n: build.load(n) for n in other}
+    verdicts, differ, skipped, tot = [], [], Counter(), Counter()
+    for name, src, label, make, kern, iters, per in against_cases(names):
+        if src not in other:
+            skipped[name] += 1
+            continue
+        args = make()
+        _use_libraries(mine)
+        want = kern(*args)
+        _use_libraries(other)
+        try:
+            got = kern(*args)
+        except AttributeError:
+            skipped[name] += 1
+            continue
+        finally:
+            _use_libraries(mine)
+        same = _same_bits(got, want)
+        verdicts.append(same)
+        if not same:
+            differ.append(label)
+        line = f"  {label}: {'bitwise equal' if same else 'DIFFERS'}"
+        if timed:
+            nbytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+            copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                      for _ in range(n_copies(2 * nbytes))]
+            us = []
+            for libs in (other, mine, mine, other):
+                _use_libraries(libs)
+                us.append(device_ms(kern, copies, iters) * 1e3)
+            _use_libraries(mine)
+            for path, n in per.items():
+                tot[(name, path, "other")] += n * (us[0] + us[3]) / 2e3
+                tot[(name, path, "this")] += n * (us[1] + us[2]) / 2e3
+            line += (f"; us other {us[0]:.1f}, {us[3]:.1f}; this {us[1]:.1f}, {us[2]:.1f}"
+                     + "".join(f" x{n}/{p}" for p, n in per.items() if n))
+            del copies
+        print(line, flush=True)
+        del args, got, want
+    for name, n in sorted(skipped.items()):
+        print(f"  {name}: {n} calls not compared (DIR lacks an entry this tree declares)")
+    for name in dict.fromkeys(k[0] for k in tot):
+        cells = [f"per {path} {tot[(name, path, 'other')]:.4f} / {tot[(name, path, 'this')]:.4f}"
+                 for path in ("batch", "stc_st batch", "step") if tot[(name, path, "this")]]
+        if cells:
+            print(f"  {name} ms, other / this: " + "; ".join(cells), flush=True)
+    if differ:
+        fail(f"{len(differ)} calls differ from {other_root}'s kernels: {differ}")
     return verdicts
 
 
-def _parent_k2b(other_root: str):
-    """K2b built from another checkout's source whose C entry points are
-    the first version's (``tcct_dwconv3x3_bwd_parts`` and a 13-argument
-    ``tcct_dwconv3x3_bwd``), as a function (x, w, g, stride) -> (dx, dw)."""
-    import ctypes
-
+def serve_diagnostics(card: str) -> None:
+    """``--profile DIR``, first half: one duke bf16 batch of stc_tt (CNN branch
+    plain, then fused) and of stc_st, each eager and replayed as one CUDA
+    graph, then profiled: device busy ms, launches, and the layer_norm and
+    MetaPool groups.  Not held: for parent-and-change comparisons."""
+    import numpy as np
     import torch
 
-    from tcct_tpu_torch.ops.kernels import build
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
 
-    src = os.path.join(other_root, "tcct_tpu_torch", "csrc", "dwconv3x3.cu")
-    with open(src) as f:
-        if "tcct_dwconv3x3_bwd_parts" not in f.read():
-            fail(f"{src}: not the first version's K2b (no tcct_dwconv3x3_bwd_parts)")
-    lib = os.path.join(build.BUILD_DIR, "other", "libdwconv3x3.so")
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        fail(f"cannot build {src}: {done.stdout[-2000:]}")
-    dll = ctypes.CDLL(lib)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    parts, run = dll.tcct_dwconv3x3_bwd_parts, dll.tcct_dwconv3x3_bwd
-    parts.argtypes, parts.restype = [p] * 4 + [i] * 6, ctypes.c_longlong
-    run.argtypes, run.restype = [p] * 6 + [i] * 6 + [p], i
-    dts = {torch.float32: 0, torch.bfloat16: 1}
-
-    def k2b(x, w, g, stride):
-        dx, dw = torch.empty_like(x), torch.empty_like(w)
-        B, H, W, C = x.shape
-        ptrs = (x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr())
-        part = torch.empty((parts(*ptrs, B, H, W, C, stride, dts[x.dtype]), 9, C),
-                           dtype=torch.float32, device=x.device)
-        build.check(run(*ptrs, dw.data_ptr(), part.data_ptr(), B, H, W, C, stride,
-                        dts[x.dtype], torch.cuda.current_stream().cuda_stream),
-                    f"the other K2b at {tuple(x.shape)}")
-        return dx, dw
-    return k2b
-
-
-def compare_k2b_with(other_root: str, card: str) -> None:
-    """``--k2b-against DIR``: K2b against the first version's kernel built
-    from DIR's source, at every train-step shape in bf16 and f32: dx bitwise
-    equal or not (a difference fails the run), device us per call in turns
-    (other, this, this, other); then the ConvPosEnc site's backward, one
-    launch with the residual and the bias against the other kernel plus
-    the two plain passes (``dx + g``, ``g.sum``) it needed."""
-    import torch
-
-    from tcct_tpu_torch.models.mpvit import MPViTConfig
-    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3_backward
-
-    other = _parent_k2b(other_root)
-    train = train_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    print(f"K2b: this tree against {other_root}'s kernel [{card}]:", flush=True)
-
-    def inputs(shape, stride, dtype):
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        w = (torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") / 3).to(dtype)
-        Ho, Wo = (shape[1] - 1) // stride + 1, (shape[2] - 1) // stride + 1
-        g = torch.randn((shape[0], Ho, Wo, shape[3]), generator=gen, device="cuda").to(dtype)
-        return x, w, g
-
-    tot = Counter()
-    for stride, key in ((1, "s1"), (2, "s2")):
-        for shape in sorted({k[0] for k in train[key]}):
-            for dtype in (torch.bfloat16, torch.float32):
-                dn = str(dtype).split(".")[-1]
-                n = train[key].get((shape, dn), 0)
-                x, w, g = inputs(shape, stride, dtype)
-                same = torch.equal(dwconv3x3_backward(x, w, g, stride)[0],
-                                   other(x, w, g, stride)[0])
-                if not same:
-                    fail(f"K2b s{stride} {list(shape)} {dn}: dx differs from the other kernel's")
-                copies = [tuple(t.clone() for t in (x, w, g))
-                          for _ in range(n_copies(3 * x.numel() * x.element_size()))]
-                mine = lambda a, b, c: dwconv3x3_backward(a, b, c, stride)  # noqa: E731
-                theirs = lambda a, b, c: other(a, b, c, stride)  # noqa: E731
-                us = [device_ms(f, copies) * 1e3 for f in (theirs, mine, mine, theirs)]
-                for k, u in (("other", us[0] + us[3]), ("this", us[1] + us[2])):
-                    tot[f"s{stride} {k}"] += n * u / 2e3
-                print(f"  s{stride} {list(shape)} {dn}" + (f" x{n}/step" if n else "")
-                      + f": dx bitwise equal; us other {us[0]:.1f}, {us[3]:.1f}; this "
-                      f"{us[1]:.1f}, {us[2]:.1f}", flush=True)
-                del copies
-    print(f"  per bf16/f32 train step: s1 other {tot['s1 other']:.4f} ms, this "
-          f"{tot['s1 this']:.4f}; s2 other {tot['s2 other']:.4f}, this {tot['s2 this']:.4f}",
-          flush=True)
-
-    # the ConvPosEnc site of the train step: conv(x) + bias + x at stride 1
-    for shape in sorted(cpe_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW)):
-        x, w, g = inputs(shape, 1, torch.bfloat16)
-        copies = [(x.clone(), w, g.clone()) for _ in range(n_copies(3 * x.numel() * 2))]
-
-        def fused(a, b, c):
-            return dwconv3x3_backward(a, b, c, 1, bias=True, residual=True)
-
-        def passes(a, b, c):
-            dx, dw = other(a, b, c, 1)
-            return dx + c, dw, c.sum((0, 1, 2))
-
-        if not torch.equal(fused(x, w, g)[0], passes(x, w, g)[0]):
-            fail(f"ConvPosEnc backward {list(shape)}: dx + g differs from the other kernel's")
-        us = [device_ms(f, copies) * 1e3 for f in (passes, fused, fused, passes)]
-        print(f"  ConvPosEnc backward site {list(shape)} bf16: dx + g bitwise equal; us other "
-              f"kernel + two passes {us[0]:.1f}, {us[3]:.1f}; this, one launch {us[1]:.1f}, "
-              f"{us[2]:.1f}", flush=True)
+    H, W = get_geometry(DB).prep_hw
+    vol = np.random.default_rng(SEED).integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    xb = torch.from_numpy(vol).cuda()
+    for net, impl in (("stc_tt", "plain"), ("stc_tt", "fused"), ("stc_st", "plain")):
+        pred = load_predictor(DB, net=net, cnn_impl=impl, batch_size=BATCH, dtype=torch.bfloat16,
+                              device="cuda", seed=SEED)
+        pred.predict_scans(vol)
+        eager, graph, _ = batch_times(pred, xb, 20)
+        counts = Counter()
+        groups = profile_device(lambda: pred._forward(xb), eager, f"{net} {impl} bf16 batch",
+                                counts)
+        mp = next((g for g in groups if g.startswith("metapool")), "metapool")
+        print(f"serve-profile [{card}]: {net} {impl}: replayed {graph:.3f} ms, eager "
+              f"{eager:.3f} ms, device busy {sum(groups.values()):.3f} ms, "
+              f"{sum(counts.values())} launches; layer_norm {groups.get('layer_norm', 0.0):.3f} ms "
+              f"x{counts.get('layer_norm', 0)}; MetaPool {groups.get(mp, 0.0):.3f} ms "
+              f"x{counts.get(mp, 0)}", flush=True)
+        del pred
 
 
 def expected_launches(model, batch: int, hw, fused: bool):
-    """Launches per serving batch of each kernel, from the model's config."""
+    """Launches per serving batch of each kernel, from the model's config:
+    every MetaPool site is one launch of the site kernel, none of bare K1."""
     base = model.base
     mp, s1, s2 = path_shapes(base.vit_cfg, batch, hw) if base.flag_vit else ({}, {}, {})
-    return {"metapool_tokens": sum(mp.values()), "dwconv3x3_s1": sum(s1.values()),
+    return {"metapool_block": sum(mp.values()), "dwconv3x3_s1": sum(s1.values()),
             "dwconv3x3_s2": sum(s2.values()), "fused_cross_block": 5 if fused else 0}
 
 
@@ -1355,6 +1555,37 @@ def held_agreement(what: str, a, b, threshold: float) -> float:
     if agree < threshold:
         fail(f"{what}: agreement {agree} below {threshold}")
     return agree
+
+
+def maps_without_site(pred, vol, what: str):
+    """Class maps of ``pred``'s eval model (CNN branch plain) called under
+    ``torch.enable_grad()``: every MHCA block then runs norm1, K1, the add
+    and norm2 as four ops.  The launch counts are held to that: bare K1 once
+    a site, the site kernel never."""
+    import numpy as np
+    import torch
+
+    bs = pred.batch_size
+    reset_counters()
+    segs = []
+    for i in range(0, len(vol), bs):
+        chunk = vol[i: i + bs]
+        if len(chunk) < bs:
+            chunk = np.concatenate([chunk, np.zeros((bs - len(chunk),) + chunk.shape[1:],
+                                                    chunk.dtype)])
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(pred.device).to(pred.dtype) / 255.0
+        with torch.enable_grad():
+            logits = pred.model(x)[0]
+        segs.append(torch.argmax(logits.detach(), dim=-1).to(torch.uint8))
+        del logits
+    seg = torch.cat(segs)[:len(vol)].cpu().numpy()
+    counts = read_counters()
+    sites = expected_launches(pred.model, bs, pred.geo.prep_hw, False)["metapool_block"]
+    n_batches = math.ceil(len(vol) / bs)
+    if counts["metapool_block"] != 0 or counts["metapool_tokens"] != sites * n_batches:
+        fail(f"{what}: without the site: {counts['metapool_block']} site and "
+             f"{counts['metapool_tokens']} K1 launches, expected 0 and {sites * n_batches}")
+    return seg
 
 
 def batch_times(pred, xb, iters: int = 10):
@@ -1546,7 +1777,17 @@ def drive_buckets(card):
             eager, graph, peak = batch_times(pred, xb, 5)
             line.append(f"{impl}: launches {counts}, {eager:.3f} ms eager, {graph:.3f} ms "
                         f"replayed ({BATCH / graph * 1e3:.1f} B-scans/s), peak {peak:.2f} GiB")
+            if impl == "plain":
+                no_site = maps_without_site(pred, vol, f"{db} bf16")
             del pred
+        held_agreement(f"bucket {db}: bf16 maps with vs without the site", segs["plain"],
+                       no_site, 0.999)
+        pred32 = load_predictor(db, batch_size=BATCH, dtype=torch.float32, device="cuda",
+                                seed=SEED)
+        held_agreement(f"bucket {db}: f32 maps with vs without the site",
+                       pred32.predict_scans(vol), maps_without_site(pred32, vol, f"{db} f32"),
+                       0.99999)
+        del pred32
         print(f"bucket [{card}]: {db} {H}x{W} stc_tt bf16 batch {BATCH}: " + "; ".join(line),
               flush=True)
         held_agreement(f"bucket {db}: bf16 fused vs bf16 plain", segs["fused"], segs["plain"], 0.9)
@@ -1555,7 +1796,7 @@ def drive_buckets(card):
 # kernel-name substrings -> the port's layer that launched them (first match)
 _GROUPS = (
     ("fused CrossCNN block kernel (K4)", ("crosscnn_fused",)),
-    ("metapool kernels (K1, K1b)", ("metapool_kernel",)),
+    ("metapool kernels (K1, K1b, the site)", ("metapool_kernel",)),
     ("dwconv3x3 kernels (K2, K2b)", ("dwconv3x3_fwd", "dwconv3x3_bwd_kernel",
                                      "dw_finalize_kernel")),
     ("train BN forward kernels (K3)", ("bn_stats_kernel", "bn_finalize_kernel", "bn_norm_kernel",
@@ -1868,7 +2109,7 @@ def _summary(names) -> str:
 
 def train_diagnostics(card: str) -> None:
     """The train step's diagnostics, printed and not held, for the tree on
-    ``sys.path`` (this checkout or another's, ``--train-profile DIR``):
+    ``sys.path`` (this checkout or another's, ``--profile DIR``, second half):
     ms/step over 5 steps, the device profile of one step by group, the ops
     that ``torch.use_deterministic_algorithms`` names in one step, and
     which state tensors differ when one step runs twice from one state,
@@ -2051,7 +2292,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     root = os.path.dirname(os.path.abspath(__file__))
-    if len(sys.argv) == 3 and sys.argv[1] == "--train-profile":
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         root = os.path.abspath(sys.argv[2])
     sys.path.insert(0, root)
     try:
@@ -2072,17 +2313,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    if len(sys.argv) == 3 and sys.argv[1] == "--k4-against":
-        compare_fused_block_with(sys.argv[2], card)
-        return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--train-profile":
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
+        serve_diagnostics(card)
         train_diagnostics(card)
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--k2b-against":
-        compare_k2b_with(sys.argv[2], card)
+    if len(sys.argv) >= 3 and sys.argv[1] == "--against":
+        compare_against(sys.argv[2], card, sys.argv[3:])
         return 0
     if len(sys.argv) > 1:
-        fail(f"usage: chip_smoke.py [--k4-against DIR | --k2b-against DIR | --train-profile DIR], "
+        fail(f"usage: chip_smoke.py [--against DIR [NAME ...] | --profile DIR], "
              f"not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
@@ -2092,7 +2331,7 @@ def main() -> int:
     serve = path_shapes(vit, BATCH, get_geometry(DB).prep_hw)
     serve_small = path_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw)
     train = train_shapes(vit, TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
-    report = {"per_batch_launches": {"metapool_tokens": sum(serve[0].values()),
+    report = {"per_batch_launches": {"metapool_block": sum(serve[0].values()),
                                      "dwconv3x3_s1": sum(serve[1].values()),
                                      "dwconv3x3_s2": sum(serve[2].values())}}
     per_step = {"mp": sum(train["mp"].values()), "s1": sum(train["s1"].values()),
@@ -2110,6 +2349,7 @@ def main() -> int:
     bench_dwconv_variants(card)
     bench_convposenc(report, card, cpe_shapes(vit, BATCH, get_geometry(DB).prep_hw),
                      cpe_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw))
+    bench_metapool_block(report, card, serve[0], serve_small[0])
     bench_fused_block(report, card)
     plain = drive_slice(report, card)
     drive_fused(report, card, plain)

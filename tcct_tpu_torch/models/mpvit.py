@@ -5,8 +5,11 @@
 Only the ``metapool`` mixer is ported: the 3x3 average pool over the
 *(token, channel)* axes of the [B, N, C] tokens minus identity, which is
 what the shipped checkpoints were trained with.  It runs the MetaPool
-kernel (``ops/kernels/metapool.py``); every depthwise 3x3 of the branch
-runs the depthwise kernel through ``layers.Conv2d``.
+kernel (``ops/kernels/metapool.py``); an eval block with no gradient wanted
+runs its whole token pass around the mixer (``norm1``, the mixer, the
+residual add, ``norm2``) as one launch of it (``metapool_block``).  Every
+depthwise 3x3 of the branch runs the depthwise kernel through
+``layers.Conv2d``.
 
 The CRPE convs and the classification head exist for state-dict
 compatibility with the reference and are never run.  In train mode the
@@ -32,7 +35,7 @@ from tcct_tpu_torch.models.layers import (
     conv2d,
     layer_norm,
 )
-from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens
+from tcct_tpu_torch.ops.kernels.metapool import metapool_block, metapool_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +135,10 @@ class MHCABlock(nn.Module):
 
     def forward(self, x, size):
         x = self.cpe(x, size)
+        if not self.training and not torch.is_grad_enabled():  # serving: one launch
+            x, n2 = metapool_block(x, self.norm1.weight, self.norm1.bias, self.norm2.weight,
+                                   self.norm2.bias, self.norm1.eps)
+            return x + self.drop_path(self.mlp(n2))
         x = x + self.drop_path(metapool_tokens(self.norm1(x)))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 

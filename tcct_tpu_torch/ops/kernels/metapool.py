@@ -1,9 +1,10 @@
 """MetaPool token mixer: hand-written CUDA kernels (``csrc/metapool.cu``),
-forward and backward, and their plain PyTorch versions.
+forward and backward, the serving block's MetaPool site in one launch, and
+their plain PyTorch versions.
 
 Replaces the TPU kernels ``tcct_tpu/ops/pallas/metapool.py::_kernel`` and
 ``::_bwd_kernel`` (both through ``pallas_call`` at metapool.py:64; the
-backward is that file's custom VJP).  Both kernels are memory-bound (one
+backward is that file's custom VJP).  The kernels are memory-bound (one
 read and one write per element); see the source's header note for their
 design.  Unlike the TPU kernel they have no size budget: every stage of
 every geometry runs through them.
@@ -11,21 +12,27 @@ every geometry runs through them.
 :func:`metapool_tokens` is a ``torch.autograd.Function``: its forward
 launches the forward kernel and its backward the backward kernel.  On a
 CPU tensor the same function runs the plain forward and the plain
-backward.
+backward.  :func:`metapool_block` is the eval block's whole token pass
+around the mixer (``norm1``, the mixer, the residual add, ``norm2``) as one
+launch of the same forward kernel with flags; it has no backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from tcct_tpu_torch.ops.kernels import build
 from tcct_tpu_torch.ops.pool import metapool_tokens_backward_reference, metapool_tokens_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# flags of tcct_metapool_block
+_NORMS, _RESIDUAL = 1, 2
 
 
 @functools.cache
@@ -33,17 +40,24 @@ def _fn(name: str):
     """The C entry point ``name`` of the library, typed (built and loaded
     on first use)."""
     fn = getattr(build.load("metapool"), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "tcct_metapool_block":
+        fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, p]
+    else:
+        fn.argtypes = [p, p, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(entry: str, x: torch.Tensor, what: str) -> torch.Tensor:
+def _check_tokens(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"{what}: want [B,N,C] float32/bfloat16, got {tuple(x.shape)} {x.dtype}")
+
+
+def _launch(entry: str, x: torch.Tensor, what: str) -> torch.Tensor:
+    _check_tokens(x, what)
     B, N, C = x.shape
     x = x.contiguous()
     y = torch.empty_like(x)
@@ -97,6 +111,90 @@ def metapool_tokens(x: torch.Tensor) -> torch.Tensor:
     return _MetaPool.apply(x)
 
 
-# launches of the forward / backward kernel
+def metapool_block_reference(x: torch.Tensor, w1: Optional[torch.Tensor] = None,
+                             b1: Optional[torch.Tensor] = None,
+                             w2: Optional[torch.Tensor] = None,
+                             b2: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                             residual: bool = True
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of :func:`metapool_block`: the separate passes
+    ``F.layer_norm -> metapool_tokens_reference -> add -> F.layer_norm``,
+    each rounded to x's dtype, as the eval block runs them."""
+    C = x.shape[-1]
+    norms = _norms(w1, b1, w2, b2)
+    n = F.layer_norm(x, (C,), w1, b1, eps) if norms else x
+    y = metapool_tokens_reference(n)
+    if residual:
+        y = x + y
+    return y, (F.layer_norm(y, (C,), w2, b2, eps) if norms else None)
+
+
+def _norms(*affine) -> bool:
+    """Whether the site's two LayerNorms are on: all four weights given."""
+    given = [t is not None for t in affine]
+    if any(given) and not all(given):
+        raise ValueError("metapool_block: the two LayerNorms need w1, b1, w2 and b2 together")
+    return all(given)
+
+
+def metapool_block(x: torch.Tensor, w1: Optional[torch.Tensor] = None,
+                   b1: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None,
+                   b2: Optional[torch.Tensor] = None, eps: float = 1e-6, residual: bool = True
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The MetaPool site of the eval block on [B, N, C] tokens, in one
+    launch of the forward kernel:
+
+        n  = LayerNorm1(x)        (w1, b1)
+        a  = metapool(n)          rounded once, as metapool_tokens
+        y  = x + a                (residual; else y = a)
+        n2 = LayerNorm2(y)        (w2, b2)
+
+    With no weights (all four None) both LayerNorms are skipped: n = x and
+    n2 is None.
+
+    Returns ``(y, n2)``.  Each LayerNorm takes its statistics per token in
+    f32 and rounds its output to x's dtype, as ``nn.LayerNorm`` does; the
+    weights are [C] in x's dtype.  With no LayerNorm and no residual the
+    kernel is exactly :func:`metapool_tokens`'s; ``residual`` alone gives
+    ``metapool_tokens(x) + x`` bit for bit.
+
+    Inference only.  A CPU tensor takes the plain version
+    (:func:`metapool_block_reference`); a CUDA tensor launches the kernel,
+    or the call raises (also when autograd would want a gradient)."""
+    norms = _norms(w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return metapool_block_reference(x, w1, b1, w2, b2, eps, residual)
+    what = "metapool_block"
+    _check_tokens(x, what)
+    B, N, C = x.shape
+    affine = [w1, b1, w2, b2] if norms else []
+    for t in affine:
+        if t.shape != (C,) or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: LayerNorm weights must be [{C}] {x.dtype} on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *affine]):
+        raise ValueError(f"{what}: no backward; call it under torch.no_grad() or "
+                         "torch.inference_mode()")
+    x = x.contiguous()
+    w1, b1, w2, b2 = (t.contiguous() if t is not None else None for t in (w1, b1, w2, b2))
+    y = torch.empty_like(x)
+    n2 = torch.empty_like(x) if norms else None
+    if x.numel() == 0:
+        return y, n2
+    flags = (_NORMS if norms else 0) | (_RESIDUAL if residual else 0)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    err = _fn("tcct_metapool_block")(
+        x.data_ptr(), ptr(w1), ptr(b1), ptr(w2), ptr(b2), y.data_ptr(), ptr(n2), B, N, C,
+        _DTYPES[x.dtype], flags, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"{what} {tuple(x.shape)} {x.dtype} flags {flags}")
+    metapool_block.launches += 1
+    return y, n2
+
+
+# launches of the forward / backward kernel and of the site
 metapool_tokens.launches = 0
 metapool_tokens_backward.launches = 0
+metapool_block.launches = 0

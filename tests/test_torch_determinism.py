@@ -134,5 +134,7 @@ def test_bilinear_adjoint_rounds_once_to_the_gradient_dtype(dtype):
     Aw = interpolation_matrix(8, 16, True, torch.device("cpu"))
     assert Ah.dtype == torch.float32 and bool(((Ah != 0).sum(1) <= 2).all())
     torch.testing.assert_close(Ah.sum(1), torch.ones(12))
-    want = (Ah.T @ gy.float() @ Aw).to(dtype)
+    # the adjoint's own order, A_h^T (gy A_w): the other association can
+    # round an f32 value on the other side of a bf16 tie
+    want = (Ah.T @ (gy.float() @ Aw)).to(dtype)
     torch.testing.assert_close(gx.float(), want.float(), rtol=1e-6, atol=1e-6)

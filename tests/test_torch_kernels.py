@@ -8,6 +8,7 @@ import os
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tcct_tpu_torch.models.crosscnn import seeded_cross_block
 from tcct_tpu_torch.ops.kernels import build
@@ -33,7 +34,12 @@ from tcct_tpu_torch.ops.kernels.dwconv import (
     dwconv3x3_forward,
     dwconv3x3_reference,
 )
-from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
+from tcct_tpu_torch.ops.kernels.metapool import (
+    metapool_block,
+    metapool_block_reference,
+    metapool_tokens,
+    metapool_tokens_backward,
+)
 from tcct_tpu_torch.ops.pool import metapool_tokens_backward_reference, metapool_tokens_reference
 
 pytestmark = pytest.mark.gpu
@@ -159,6 +165,142 @@ def test_metapool_backward_kernel_matches_plain(cuda, shape, dtype):
     assert metapool_tokens_backward.launches == n + 1
     assert got.dtype == dtype and got.shape == gy.shape
     _close(got, metapool_tokens_backward_reference(gy), dtype)
+
+
+# K1/K1b and the MetaPool site: the serving stages of stc_tt (duke) and
+# stc_st, then odd ones: C that takes the 16-byte, the 8-byte and the
+# one-element word, C above a block's 256 words in f32 (480 / 4 = 120 is
+# not), one and two tokens, one channel
+MP_SHAPES = [(8, 9216, 96), (8, 2304, 216), (8, 576, 288), (2, 37, 5), (3, 50, 24),
+             (2, 41, 216), (2, 19, 288), (2, 33, 480), (3, 1, 24), (2, 2, 160), (4, 1, 5),
+             (2, 2, 2), (2, 70, 1), (1, 5, 1100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MP_SHAPES)
+def test_metapool_kernels_at_model_and_odd_shapes(cuda, shape, dtype):
+    """K1 and K1b against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y, dx = metapool_tokens(x), metapool_tokens_backward(x)
+    torch.cuda.synchronize()
+    _close(y, metapool_tokens_reference(x), dtype)
+    _close(dx, metapool_tokens_backward_reference(x), dtype)
+
+
+def _site_inputs(cuda, shape, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    C = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    w1, w2 = ((torch.rand(C, generator=g, device=cuda) + 0.5).to(dtype) for _ in range(2))
+    b1, b2 = ((torch.randn(C, generator=g, device=cuda) * 0.1).to(dtype) for _ in range(2))
+    return x, w1, b1, w2, b2
+
+
+def _site_f64(x, w1, b1, w2, b2, eps=1e-6):
+    """The site's chain in f64, no rounding."""
+    x = x.double()
+    C = x.shape[-1]
+    n = F.layer_norm(x, (C,), w1.double(), b1.double(), eps)
+    y = x + F.avg_pool2d(n[:, None], 3, 1, 1, count_include_pad=False)[:, 0] - n
+    return y, F.layer_norm(y, (C,), w2.double(), b2.double(), eps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MP_SHAPES)
+def test_metapool_block_flags(cuda, shape, dtype):
+    """The site's flags: none is metapool_tokens, the residual alone is
+    metapool_tokens(x) + x, both bit for bit; one launch each."""
+    x = _site_inputs(cuda, shape, dtype, 21)[0]
+    n = metapool_block.launches
+    a, none = metapool_block(x, residual=False)
+    y, _ = metapool_block(x)
+    torch.cuda.synchronize()
+    assert none is None and metapool_block.launches == n + 2
+    assert torch.equal(a, metapool_tokens(x))
+    assert torch.equal(y, metapool_tokens(x) + x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MP_SHAPES + [(8, 36864, 64)])
+def test_metapool_block_matches_plain(cuda, shape, dtype):
+    """The whole site (LayerNorm1, mixer, residual, LayerNorm2) against the
+    four separate passes on the card.  f32: within 1e-5 |ref| + 1e-5 rms
+    (the LayerNorm sums run in another order).  bf16: no further from the
+    chain in f64 than 1.5x the plain bf16 passes, in the maximum and the
+    mean error (a LayerNorm output that rounds the other way moves a value
+    by one bf16 step)."""
+    args = _site_inputs(cuda, shape, dtype, 22)
+    with torch.inference_mode():
+        got = metapool_block(*args)
+        want = metapool_block_reference(*args)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        for a, c in zip(got, want):
+            rms = float(c.double().square().mean().sqrt())
+            assert bool(((a - c).abs() <= 1e-5 * c.abs() + 1e-5 * rms).all())
+        return
+    truth = _site_f64(*args)
+    for a, c, t in zip(got, want, truth):
+        e_k, e_p = (a.double() - t).abs(), (c.double() - t).abs()
+        assert float(e_k.max()) <= 1.5 * float(e_p.max())
+        assert float(e_k.mean()) <= 1.5 * float(e_p.mean())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [24, 5, 216])
+def test_metapool_kernels_take_an_offset_view(cuda, C, dtype):
+    """Inputs one element into their storage (no 16-byte words): K1, K1b
+    and the site give the aligned copies' bits."""
+    x, w1, b1, w2, b2 = _site_inputs(cuda, (2, 29, C), dtype, 23)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = x.reshape(-1)
+    xs = flat[1:].view(x.shape)
+    assert xs.data_ptr() % 16 != 0
+    assert torch.equal(metapool_tokens(xs), metapool_tokens(x))
+    assert torch.equal(metapool_tokens_backward(xs), metapool_tokens_backward(x))
+    with torch.inference_mode():
+        for a, c in zip(metapool_block(xs, w1, b1, w2, b2), metapool_block(x, w1, b1, w2, b2)):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_metapool_block_captures_and_replays(cuda, dtype):
+    """One site at a serving shape captured in a CUDA graph and replayed on
+    new inputs copied into the captured ones: the eager bits."""
+    shape = (8, 2304, 128)
+    args = _site_inputs(cuda, shape, dtype, 24)
+    with torch.inference_mode():
+        metapool_block(*args)
+        torch.cuda.synchronize()
+        static = [a.clone() for a in args]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = metapool_block(*static)
+        new = _site_inputs(cuda, shape, dtype, 25)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, c in zip(outs, metapool_block(*new)):
+            assert torch.equal(a, c)
+
+
+def test_metapool_block_refuses(cuda):
+    x, w1, b1, w2, b2 = _site_inputs(cuda, (2, 8, 24), torch.float32, 26)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="float32/bfloat16"):
+            metapool_block(x.half(), w1.half(), b1.half(), w2.half(), b2.half())
+        with pytest.raises(ValueError, match="LayerNorm weights"):
+            metapool_block(x, w1.bfloat16(), b1, w2, b2)
+        with pytest.raises(ValueError, match="LayerNorm weights"):
+            metapool_block(x, w1[:20], b1[:20], w2, b2)
+        with pytest.raises(ValueError, match="LayerNorm weights"):
+            metapool_block(x, w1.cpu(), b1, w2, b2)
+        with pytest.raises(ValueError, match="device"):
+            metapool_block(x.to("meta"))
+    with pytest.raises(ValueError, match="no backward"):
+        metapool_block(x, w1.requires_grad_(), b1, w2, b2)
 
 
 def _dw_bwd_close(x, w, gy, stride, dtype, **flags):
@@ -570,13 +712,14 @@ def test_fused_cross_block_plans_bitwise(cuda, shape, plan):
 
 
 def test_fused_cross_block_against_its_own_source(cuda):
-    """``chip_smoke.py --k4-against`` with this tree's own source: the other
-    library binds and launches, and agrees bit for bit."""
+    """``chip_smoke.py --against`` with this tree's own sources: the other
+    library binds and launches, and agrees bit for bit at every fused-block
+    shape."""
     import chip_smoke
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    assert chip_smoke.compare_fused_block_with(root, "", rows=(4, 8, 10, 11), timed=False) == [
-        True] * 4
+    verdicts = chip_smoke.compare_against(root, "", ["fused_cross_block"], timed=False)
+    assert verdicts == [True] * len(chip_smoke.K4_SHAPES)
 
 
 @pytest.mark.parametrize("k", [3, 5, 7, 9, 11, 13])

@@ -259,11 +259,26 @@ def test_chip_smoke_expected_launches_match_the_model(monkeypatch, name):
     import tcct_tpu_torch.ops.kernels.dwconv as dw
     import tcct_tpu_torch.ops.kernels.metapool as mp
 
-    seen = Counter()
+    seen, in_site = Counter(), []
     ref_mp, ref_dw, ref_kf = (mp.metapool_tokens_reference, dw.dwconv3x3_reference,
                               kf.fused_cross_block_reference)
-    monkeypatch.setattr(mp, "metapool_tokens_reference",
-                        lambda x: seen.update(["metapool_tokens"]) or ref_mp(x))
+    ref_site = mp.metapool_block_reference
+
+    def site(*args, **kw):  # the eval block's site: one launch, the mixer inside it
+        seen.update(["metapool_block"])
+        in_site.append(1)
+        try:
+            return ref_site(*args, **kw)
+        finally:
+            in_site.pop()
+
+    def tokens(x):  # bare K1 (the train path's)
+        if not in_site:
+            seen.update(["metapool_tokens"])
+        return ref_mp(x)
+
+    monkeypatch.setattr(mp, "metapool_block_reference", site)
+    monkeypatch.setattr(mp, "metapool_tokens_reference", tokens)
     monkeypatch.setattr(dw, "dwconv3x3_reference",
                         lambda x, w, s: seen.update([f"dwconv3x3_s{s}"]) or ref_dw(x, w, s))
     monkeypatch.setattr(kf, "fused_cross_block_reference",
