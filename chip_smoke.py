@@ -57,7 +57,22 @@ toolkit (``nvcc``):
    finite, prints ms/step, peak memory and the device profile of a sixth
    by group with its launch count, and holds one step run twice from one
    state and one generator to bitwise-equal parameters and statistics;
-7. prints one JSON line of the kernels, then, as its last line,
+7. runs the f32 train step on the card for 50 steps on the golden parity
+   case and holds the losses and the final parameter L2 at the bounds of
+   ``tests/test_train_parity.py``;
+8. drives the training entry point (``drive_engine``): ``EyeSet.load``
+   (synthetic goals, 608x512), a ``Trainer`` of ``stc_tt`` at full width
+   with augmentation (bf16, batch 8, crop 256, debug) fitting 2 epochs
+   with val, the launch counts read around the fit (every train kernel and
+   the MetaPool site must launch); a resume from the epoch-0 checkpoint in
+   a new Trainer held bit for bit to the unbroken run (parameters,
+   buffers, moments, count, generator); one augmented step twice from one
+   state, bit for bit; the augmentation with no host sync; one streaming
+   epoch over 16 PNG files decoded by the native loader; the CLI as a
+   subprocess; the times (ms/step with and without augmentation in turns,
+   the augmentation's launches and device ms, val ms a scan, an epoch's
+   wall time);
+9. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -2286,6 +2301,338 @@ def check_train_f32_card_vs_cpu() -> None:
         fail(f"f32 one step card vs CPU: {n_off}/{n_el} off, drift {drift}")
 
 
+def check_train_trajectory() -> None:
+    """The f32 train step on the card for 50 steps on the golden 64x64
+    parity case (the golden ``sd0`` weights and batch, pinned boundary
+    noise, constant lr 1e-4, TF32 off), held at the bounds of
+    tests/test_train_parity.py: step-0 loss within 5e-4 and every loss
+    within 5e-3 of the reference's (relative), the final parameter L2
+    within rtol 1e-5 of ``param_l2``, the drift from the reference's final
+    weights below 0.5 of the distance they moved."""
+    import numpy as np
+
+    from tcct_tpu_torch.train import TrainConfig, build_train_step, make_optimizer
+
+    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                             "train_parity.npz"))
+    sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
+    m = _port_slice(sd0, "cuda")
+    cfg = TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, udh=True, reg=True, augment=False,
+                      pinned_reg_noise=True)
+    step = build_train_step(m, make_optimizer(1, lr=LR, weight_decay=2e-4), cfg, "cuda")
+    imgs = np.ascontiguousarray(np.moveaxis(g["x_u8"], 1, -1))
+    t0 = time.perf_counter()
+    losses = np.array([float(step(imgs, g["labels"])[0]["total"]) for _ in range(50)])
+    wall = time.perf_counter() - t0
+    ref = np.asarray(g["losses"][:50], np.float64)
+    rel = np.abs(losses - ref) / np.abs(ref)
+    final = {k: v.double().cpu().numpy() for k, v in m.state_dict().items()}
+    l2 = np.sqrt(sum(float((v ** 2).sum()) for k, v in final.items()
+                     if v.ndim > 0 and "running" not in k and "tracked" not in k))
+    l2_rel = abs(l2 - float(g["param_l2"])) / float(g["param_l2"])
+    moved2 = drift2 = 0.0
+    for key in g.files:
+        if key.startswith("sdN::"):
+            k = key[len("sdN::"):]
+            ref_final = g[key].astype(np.float64)
+            moved2 += float(((ref_final - sd0[k].astype(np.float64)) ** 2).sum())
+            drift2 += float(((final[k] - ref_final) ** 2).sum())
+    drift = float(np.sqrt(drift2 / moved2))
+    print(f"train f32 64x64, 50 steps on the card: loss rel. error step 0 {rel[0]:.3e} (bound "
+          f"5e-4), max {rel.max():.3e} at step {int(rel.argmax())} (bound 5e-3); param L2 "
+          f"{l2:.6f} vs {float(g['param_l2']):.6f}, rel. {l2_rel:.3e} (bound 1e-5); drift "
+          f"{drift:.4f} of the distance moved (bound 0.5); {wall:.2f} s", flush=True)
+    if not (rel[0] < 5e-4 and rel.max() < 5e-3 and l2_rel <= 1e-5 and drift < 0.5):
+        fail("the 50-step f32 trajectory on the card misses tests/test_train_parity.py's bounds")
+
+
+# --- the training entry point: data, augmentation, engine, checkpoints, CLI ----------
+
+ENGINE_DB, ENGINE_BATCH, ENGINE_CROP = "goals", 8, (256, 256)
+ENGINE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_engine")
+
+
+def _engine_model():
+    from tcct_tpu_torch.models import RegNet, get_model
+
+    return RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=0.1), out_channels=5)
+
+
+def _engine_cfg(augment: bool = True):
+    import torch
+
+    from tcct_tpu_torch.train import TrainConfig
+
+    return TrainConfig(n_class=5, crop_hw=ENGINE_CROP, ds=True, udh=True, reg=True,
+                       augment=augment, dtype=torch.bfloat16)
+
+
+def _state_tensors(tr):
+    """Every tensor of a Trainer's state: parameters and buffers, AdamW's
+    moments and count, and the generator's state."""
+    import torch
+
+    out = {f"model.{k}": v for k, v in tr.model.state_dict().items()}
+    for name in ("mu", "nu"):
+        out.update({f"{name}.{i}": t for i, t in enumerate(getattr(tr.state.optimizer, name))})
+    out["optimizer.count"] = torch.tensor(tr.state.optimizer.count)
+    out["generator"] = tr.state.generator.get_state()
+    return out
+
+
+def _png_bytes(arr) -> bytes:
+    """A PNG file of an 8-bit [H, W] (grey) or [H, W, 3] (RGB) array, with
+    the standard library's zlib: one IDAT, filter 0 on every row."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = arr.shape[:2]
+    color = 2 if arr.ndim == 3 else 0
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_goals_pngs(root: str, n: int = 16, hw=(800, 1100)) -> None:
+    """``n`` goals-shaped scans (native 800x1100, layered, seeded) as
+    ``<root>/goals/train_{img,lab}/*.png``, labels as class * 30."""
+    import dataclasses
+
+    from tcct_tpu_torch.data import get_geometry, synthesize_oct
+
+    geo = dataclasses.replace(get_geometry(ENGINE_DB), prep_hw=hw)
+    imgs, labs = synthesize_oct(geo, n, seed=SEED + 5)
+    for sub in ("train_img", "train_lab"):
+        os.makedirs(os.path.join(root, ENGINE_DB, sub), exist_ok=True)
+    for i in range(n):
+        for sub, arr in (("train_img", imgs[i][..., ::-1]), ("train_lab", labs[i] * 30)):
+            with open(os.path.join(root, ENGINE_DB, sub, f"scan{i:02d}.png"), "wb") as f:
+                f.write(_png_bytes(arr.copy()))
+
+
+def _steps_ms(step, batches, n: int):
+    """Host ms per step over ``n`` steps (``batches`` cycled), ended by a
+    synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(*batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def drive_engine(report, card, per_step, per_val_scan):
+    """The training entry point on the card at the full width of stc_tt:
+    ``EyeSet.load('goals')`` (synthetic, 608x512, 24 train and 8 val scans),
+    ``Trainer`` with augmentation, bf16, ds + udh + reg, crop 256, batch 8,
+    debug (12 steps an epoch), ``fit`` 2 epochs with val, the launch counts
+    read around it; a resume from the epoch-0 checkpoint in a new Trainer,
+    bit for bit the unbroken run; one augmented step twice from one state,
+    bit for bit; the augmentation free of host syncs; one streaming epoch
+    over 16 PNG files through the native loader; the CLI in a subprocess;
+    the times, beside the card's name and power limit."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from tcct_tpu_torch.data import EyeSet, apply_train, draw_train
+    from tcct_tpu_torch.train import Trainer, build_train_step
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    os.makedirs(ENGINE_DIR)
+    os.environ.pop("TCCT_DATA_ROOT", None)
+    ds = EyeSet.load(ENGINE_DB)
+    shapes = {k: v[0].shape for k, v in ds.splits.items()}
+    print(f"engine: EyeSet.load({ENGINE_DB!r}): synthetic {ds.synthetic}, {shapes}, "
+          f"oversample {ds.oversample}", flush=True)
+    if not ds.synthetic or shapes["train"] != (24, 608, 512, 3) or shapes["val"][0] != 8:
+        fail(f"engine: unexpected dataset {shapes}")
+    cfg = _engine_cfg()
+
+    def trainer(name):
+        return Trainer(_engine_model(), ds, cfg, root=os.path.join(ENGINE_DIR, name),
+                       bs=ENGINE_BATCH, device="cuda", debug=True)
+
+    # run A: the fit, launches counted around it
+    a = trainer("a")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    logs = a.fit(epochs=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counters()
+    lines = [json.loads(x) for x in open(os.path.join(a.root, "metrics.jsonl"))]
+    print(f"engine: fit 2 epochs x {a.steps_per_epoch} steps + val ({fit_s:.2f} s): "
+          + "; ".join(f"epoch {x['epoch']}: total {x['total']:.5f}, los {x['los']:.5f}, "
+                      f"udh {x['udh']:.5f}, reg {x['reg']:.5f}, val_f1s {x['val_f1s']:.5f}"
+                      for x in lines), flush=True)
+    for x in lines:
+        if not all(math.isfinite(x[k]) for k in ("total", "los", "udh", "reg", "los_epoch",
+                                                 "val_f1s", "val_iou")):
+            fail(f"engine: non-finite value in the fit's log {x}")
+    if [x["epoch"] for x in lines] != [0, 1] or not math.isfinite(logs["val_f1s"]):
+        fail(f"engine: the fit logged {lines}")
+    steps, scans = 2 * a.steps_per_epoch, 2 * min(shapes["val"][0], 9)
+    want = {k: steps * per_step.get(k, 0) + scans * per_val_scan.get(k, 0) for k in counts}
+    print(f"engine: launches in the fit ({steps} steps, {scans} val scans): {counts}; from the "
+          f"per-step and per-scan tables: {want}", flush=True)
+    for k in list(per_step) + list(per_val_scan):
+        if counts[k] == 0:
+            fail(f"kernel {k} was not launched by the engine's fit")
+    for e in report["kernels"]:
+        e["engine_launches"] = counts[e["name"]]
+
+    # run B: epoch 0, a checkpoint, a new Trainer that resumes and fits epoch 1
+    b = trainer("b")
+    b.fit(epochs=1)
+    del b
+    b = trainer("b")
+    if not b.resume("last") or b.state.epoch != 1:
+        fail("engine: resume from the epoch-0 checkpoint failed")
+    b.fit(epochs=2)
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    off = [k for k in ta if k not in tb or not torch.equal(ta[k], tb[k])]
+    print(f"engine: resume: {len(ta) - len(off)} of {len(ta)} state tensors (parameters, buffers, "
+          f"moments, count, generator) bitwise equal to the unbroken run", flush=True)
+    if off or ta.keys() != tb.keys():
+        fail(f"engine: resume is not bitwise: {len(off)} tensors differ ({', '.join(off[:8])})")
+    del b
+
+    # one augmented step twice from one state and one generator
+    imgs, labs = ds.splits["train"][0][:ENGINE_BATCH], ds.splits["train"][1][:ENGINE_BATCH]
+    off, worst, n = train_repeat(cfg, imgs, labs)
+    print(f"engine: one augmented bf16 step twice from one state and one generator: "
+          f"{n - len(off)} of {n} tensors bitwise equal", flush=True)
+    if off:
+        fail(f"augmented train step does not repeat: {len(off)} of {n} tensors differ, by up "
+             f"to {worst:.3e} ({', '.join(off[:8])} ...)")
+
+    # the augmentation: no host sync, its launches and device time
+    d_imgs, d_labs = a._dev["train"]
+    bi = torch.arange(ENGINE_BATCH, device="cuda")
+    xb, yb = d_imgs.index_select(0, bi), d_labs.index_select(0, bi)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def augment():
+        return apply_train(xb, yb, draw_train(yb, gen, ENGINE_CROP), ENGINE_CROP)
+
+    augment()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            augment()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    if syncs:
+        fail(f"the augmentation synchronises with the host at {syncs}")
+    aug_host_ms = _steps_ms(lambda: augment(), [()], 20)
+    aug_launches = Counter()
+    aug_groups = profile_device(augment, aug_host_ms, f"the augmentation of one bf16 batch of "
+                                f"{ENGINE_BATCH} at 608x512 -> {ENGINE_CROP[0]}x{ENGINE_CROP[1]}",
+                                aug_launches)
+    aug_ms = sum(aug_groups.values())
+
+    # eager ms/step with and without augmentation, in turns, on run A's model
+    plain_step = build_train_step(a.model, a.state.optimizer, _engine_cfg(augment=False),
+                                  "cuda", a.state.generator)
+    crops = [(d_imgs[i:i + ENGINE_BATCH, :ENGINE_CROP[0], :ENGINE_CROP[1]].contiguous(),
+              d_labs[i:i + ENGINE_BATCH, :ENGINE_CROP[0], :ENGINE_CROP[1]].contiguous())
+             for i in (0, 8, 16)]
+    full = [(d_imgs[i:i + ENGINE_BATCH], d_labs[i:i + ENGINE_BATCH]) for i in (0, 8, 16)]
+    turns = {"with": [], "without": []}
+    for order in (("with", "without"), ("without", "with"), ("with", "without"),
+                  ("without", "with")):
+        for k in order:
+            turns[k].append(_steps_ms(a.train_step if k == "with" else plain_step,
+                                      full if k == "with" else crops, 3))
+    with_busy = Counter()
+    profile_device(lambda: a.train_step(*full[0]), min(turns["with"]),
+                   "one augmented bf16 train step", with_busy)
+    without_busy = Counter()
+    profile_device(lambda: plain_step(*crops[0]), min(turns["without"]),
+                   "one bf16 train step without augmentation", without_busy)
+
+    # the val pass and an epoch's wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.val(epoch=5)
+    val_ms = (time.perf_counter() - t0) * 1e3 / min(shapes["val"][0], 9)
+    t0 = time.perf_counter()
+    a.train_epoch(epoch=5)
+    epoch_s = time.perf_counter() - t0
+    del a
+
+    # streaming: 16 PNG files through the native loader
+    t0 = time.perf_counter()
+    data_root = os.path.join(ENGINE_DIR, "data")
+    write_goals_pngs(data_root)
+    disk = EyeSet.load(ENGINE_DB, root=data_root)
+    if disk.synthetic or disk.splits["train"][0].shape != (16, 608, 512, 3):
+        fail(f"engine: the PNG folder loaded as {disk.splits['train'][0].shape}")
+    print(f"engine: 16 PNG scans (800x1100, native goals size) written and loaded natively in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    s = Trainer(_engine_model(), disk, cfg, root=os.path.join(ENGINE_DIR, "s"),
+                bs=ENGINE_BATCH, device="cuda", debug=True, streaming=True)
+    out = s.train_epoch_streaming(0)
+    if not all(math.isfinite(out[k]) for k in ("total", "los", "udh", "reg")):
+        fail(f"engine: streaming epoch {out}")
+    print(f"engine [{card}]: streaming epoch, {s.steps_per_epoch} batches of {ENGINE_BATCH}: "
+          f"decode {out['stream_decode_mb_s']} MB/s ({out['stream_decode_s']} s in the "
+          f"producer, {out['stream_io_scans_per_s']} scans/s), stall {out['stream_stall_s']} s, "
+          f"compute {out['stream_compute_s']} s; total {out['total']:.5f}", flush=True)
+    del s
+
+    # the CLI in a subprocess
+    cli_root = os.path.join(ENGINE_DIR, "cli")
+    cmd = [sys.executable, "-m", "tcct_tpu_torch.cli.main", "--db", ENGINE_DB, "--bug", "true",
+           "--bs", str(ENGINE_BATCH), "--ds", "true", "--udh", "true", "--reg", "true",
+           "--root", cli_root]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"engine: the CLI exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    path = os.path.join(cli_root, "metrics.jsonl")
+    cli_lines = [json.loads(x) for x in open(path)] if os.path.exists(path) else []
+    if not cli_lines or not math.isfinite(cli_lines[-1].get("total", float("nan"))):
+        fail(f"engine: the CLI wrote no metrics.jsonl line: {cli_lines}")
+    print(f"engine: CLI {' '.join(cmd[1:])}: exit 0 in {cli_s:.2f} s, {len(cli_lines)} "
+          f"metrics.jsonl line(s), total {cli_lines[-1]['total']:.5f}, val_f1s "
+          f"{cli_lines[-1]['val_f1s']:.5f}", flush=True)
+
+    w, wo = turns["with"], turns["without"]
+    crop = f"{ENGINE_CROP[0]}x{ENGINE_CROP[1]}"
+    print(f"engine [{card}]: eager ms/step, bf16 batch {ENGINE_BATCH}, in turns: with augmentation "
+          f"(608x512 -> {crop}) {', '.join(f'{t:.2f}' for t in w)}; without ({crop} as it "
+          f"comes) {', '.join(f'{t:.2f}' for t in wo)}; launches a step {sum(with_busy.values())} "
+          f"with, {sum(without_busy.values())} without", flush=True)
+    print(f"engine [{card}]: the augmentation: {sum(aug_launches.values())} launches, "
+          f"{aug_ms:.4f} ms device busy, {aug_host_ms:.3f} ms host a batch; val "
+          f"{val_ms:.2f} ms a scan (608x512, batch 1, bf16, metrics read once); an epoch of "
+          f"{ENGINE_BATCH * 12} scans {epoch_s:.2f} s wall", flush=True)
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    print(f"engine: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2359,6 +2706,8 @@ def main() -> int:
     drive_buckets(card)
     check_train_f32_card_vs_cpu()
     drive_train(report, card, train_counts)
+    check_train_trajectory()
+    drive_engine(report, card, train_counts, report["per_batch_launches"])
 
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

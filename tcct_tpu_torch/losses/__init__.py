@@ -1,6 +1,6 @@
-"""Training losses (JAX counterpart ``tcct_tpu/losses``): deep-supervision
-Dice, boundary regression and feature polarization.  NHWC tensors, the
-class axis last, as in the JAX package."""
+"""Training losses and validation scores (JAX counterpart ``tcct_tpu/losses``):
+deep-supervision Dice, boundary regression, feature polarization, and the
+Dice/IoU scores.  NHWC tensors, the class axis last, as in the JAX package."""
 
 from tcct_tpu_torch.losses.boundary import boundary_regression_loss, sampling_softmax
 from tcct_tpu_torch.losses.polar import (
@@ -8,4 +8,13 @@ from tcct_tpu_torch.losses.polar import (
     feature_polarization_loss,
     points_selection_bins,
 )
-from tcct_tpu_torch.losses.seg import MultiLoss, deep_supervision_loss, get_loss
+from tcct_tpu_torch.losses.seg import (
+    MultiLoss,
+    deep_supervision_loss,
+    get_loss,
+    mdice_score,
+    mdice_scorem,
+    mdice_scores,
+    miou_score,
+    miou_scorem,
+)

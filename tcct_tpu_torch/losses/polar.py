@@ -76,6 +76,14 @@ def points_selection_bins(feat: torch.Tensor, prob: torch.Tensor, true: torch.Te
     return _BinSum.apply(feat.float(), onehot) / nper.float()
 
 
+def polar_prototypes(num_cls: int, num_emb: int, generator: torch.Generator) -> torch.Tensor:
+    """Frozen prototypes, U[0, 1) rows L2-normalised: the ``init=False``
+    path the reference uses (reg.py:57, fcp.py:60-61), drawn from
+    ``generator`` (the JAX package draws them with ``jax.random``)."""
+    vec = torch.rand((num_cls, num_emb), generator=generator)
+    return vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+
+
 def cosinesim_loss(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """- mean(q @ k^T) / L (reference fcs.py:63-67), in q's promoted type."""
     dt = torch.promote_types(q.dtype, k.dtype)

@@ -17,7 +17,7 @@ Fusion of a pyramid level, after the 1x1 conv + BN projections of the ViT
 and the CNN features: their sum (simple fusion, ``stc_*``) or, with
 ``flag_gate`` (``gtc_*``), ``x1 * alpha + x2 * (1 - alpha)`` with alpha 0.5
 in eval mode.  The random alpha map of gated fusion in train mode is not
-ported yet (ROADMAP A9) and raises.
+ported yet (ROADMAP A.6) and raises.
 
 ``flag_vit=False`` (``cnnu``, ``pnnu``) decodes the CNN pyramid alone and
 skips the ViT branch; ``flag_cnn=False`` (``vitu``) decodes the projected
@@ -80,7 +80,7 @@ def gate_fusion(x1, x2, train: bool = False):
     if train:
         raise NotImplementedError(
             "gated fusion in train mode (random alpha map, bicubic upsample, pinned_gate) is "
-            "not ported yet: ROADMAP A9")
+            "not ported yet: ROADMAP A.6")
     alpha = 0.5
     return x1 * alpha + x2 * (1.0 - alpha)
 

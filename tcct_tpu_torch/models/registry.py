@@ -9,7 +9,7 @@ ablations, ``tcct`` = ``stc_tt``.  The two letters name the MPViT size
 package's default, or ``'train'``, the training goldens'), ``drop_path_rate``
 and ``mixer``.  Only the MetaPool mixer is ported: ``'metapool'`` and
 ``'metapool_pallas'`` both name it (one kernel route here), the others
-raise.  ``msca``, ``tcct32`` and ``relay`` are not ported yet (ROADMAP A9).
+raise.  ``msca``, ``tcct32`` and ``relay`` are not ported yet (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def _ftc(name: str, vit: str, cnn_tiny: bool, gate: bool = False, **flags):
         if variant not in ("infer", "train"):
             raise ValueError(f"{name}: variant must be 'infer' or 'train', got {variant!r}")
         if mixer not in ("metapool", "metapool_pallas"):
-            raise ValueError(f"{name}: mixer {mixer!r} is not ported (ROADMAP A9); "
+            raise ValueError(f"{name}: mixer {mixer!r} is not ported (ROADMAP A.6); "
                              "have 'metapool' (alias 'metapool_pallas')")
         return FTC(_VIT[vit](drop_path_rate=drop_path_rate), cnn_tiny=cnn_tiny,
                    out_channels=n_class, variant=variant, flag_gate=gate, **flags)

@@ -15,6 +15,9 @@ head.  The wrapper owns:
 - ``fcp.buf_grad`` — the frozen per-class prototypes of the polarization
   loss (``vec_grad`` and ``cos_dist`` are the reference's unused buffers);
 - ``tau`` — a learnable scalar, kept for parity.
+
+``con`` picks the polarization loss's distance to the prototypes:
+``'cos'`` (the reference's default) or ``'mse'`` (``--type_udh=mse``).
 """
 
 from __future__ import annotations
@@ -49,10 +52,11 @@ def _nhwc(x):
 
 class RegNet(nn.Module):
     def __init__(self, base: nn.Module, out_channels: int = 5, num_emb: int = 32,
-                 lap_reg_depth: int = 2):
+                 lap_reg_depth: int = 2, con: str = "cos"):
         super().__init__()
         nc = out_channels
         self.base = base
+        self.con = con
         self.tau = nn.Parameter(torch.full((1,), 100.0))
         self.fcp = _Prototypes(nc, num_emb)
         self.lap_epl = nn.Sequential(conv2d(nc, 1, 3, 1, 1), conv2d(1, 1, 3, 1, 1))
@@ -93,7 +97,7 @@ class RegNet(nn.Module):
 
     def regular_udh(self, feats, pred, true):
         """Feature-polarization loss (reference reg.py:86-105)."""
-        return feature_polarization_loss(feats, pred, true, self.fcp.buf_grad)
+        return feature_polarization_loss(feats, pred, true, self.fcp.buf_grad, con=self.con)
 
     def regular_epl(self, pred, true):
         """Edge-pixel loss: lap_epl(softmax(pred)) against the GT boundary

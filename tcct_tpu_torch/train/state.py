@@ -1,6 +1,9 @@
-"""The optimizer (JAX counterpart ``tcct_tpu/train/state.py``): AdamW with
-the semantics of ``optax.chain(clip_by_global_norm(12), adamw(...))``, the
-reference recipe (task1/kite/loopback.py:126-128, loop_seg.py:128).
+"""The train state, its checkpoints and the optimizer (JAX counterpart
+``tcct_tpu/train/state.py``).
+
+The optimizer is AdamW with the semantics of
+``optax.chain(clip_by_global_norm(12), adamw(...))``, the reference recipe
+(task1/kite/loopback.py:126-128, loop_seg.py:128).
 
 It follows optax's arithmetic, not ``torch.optim.AdamW`` +
 ``clip_grad_norm_``:
@@ -14,12 +17,21 @@ It follows optax's arithmetic, not ``torch.optim.AdamW`` +
   ``p - lr * u``; the learning rate of step ``t`` (from 0) is ``lr(t)``.
 
 Unlike optax it updates the parameters in place, to hold one copy of them.
-Checkpointing waits for the engine.
+
+A checkpoint holds the whole :class:`TrainState`: step and epoch, the f32
+master parameters and BN statistics, AdamW's moments and count (the cyclic
+learning rate reads the count), and the generator's state, so a resume
+continues bit for bit (the reference's checkpoints keep only
+{epoch, loss, lr}, task1/kite/loopback.py:105-121).  One directory per
+name, as orbax lays them out, holding one ``torch.save`` file.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Union
+import dataclasses
+import os
+import shutil
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -58,6 +70,15 @@ class AdamW:
         self.count = 0
         self.mu: Optional[List[torch.Tensor]] = None
         self.nu: Optional[List[torch.Tensor]] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: Dict[str, Any], device=None) -> None:
+        """Restore the count and the moments (moved to ``device``)."""
+        self.count = int(state["count"])
+        self.mu = None if state["mu"] is None else [t.to(device) for t in state["mu"]]
+        self.nu = None if state["nu"] is None else [t.to(device) for t in state["nu"]]
 
     def _lr(self) -> float:
         return self.lr(self.count) if callable(self.lr) else self.lr
@@ -101,3 +122,67 @@ def make_optimizer(steps_per_epoch: int, lr: Optional[float] = None, weight_deca
     sched = lr if lr is not None else make_stepwise(
         lambda e: cyclic_lr(e, base_lr, max_lr), steps_per_epoch)
     return AdamW(sched, weight_decay=weight_decay, clip_norm=clip_norm)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train run carries from step to step: the model (its f32
+    master parameters and BN statistics, updated in place), the optimizer
+    (moments and count; ``step`` is its count), the generator of the
+    augmentation, DropPath and boundary noise, and the epoch."""
+
+    model: nn.Module
+    optimizer: AdamW
+    generator: torch.Generator
+    epoch: int = 0
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"step": self.step, "epoch": self.epoch,
+                "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a checkpoint's tensors into this state's (on their devices)."""
+        device = next(self.model.parameters()).device
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"], device)
+        self.generator.set_state(state["generator"])
+        self.epoch = int(state["epoch"])
+        if self.step != int(state["step"]):
+            raise ValueError(f"checkpoint step {state['step']} != its optimizer count {self.step}")
+
+
+CHECKPOINT_FILE = "state.pt"
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last") -> str:
+    """Write ``state`` to ``<ckpt_dir>/<name>/state.pt``: into a temporary
+    directory first, then renamed over the old one.  Returns the path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, name))
+    tmp = f"{path}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(state.state_dict(), os.path.join(tmp, CHECKPOINT_FILE))
+    old = None
+    if os.path.exists(path):
+        old = f"{path}.old-{os.getpid()}"
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if old is not None:
+        shutil.rmtree(old)
+    return path
+
+
+def restore_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last"
+                       ) -> Optional[TrainState]:
+    """Load ``<ckpt_dir>/<name>`` into ``state`` and return it, or None
+    when that checkpoint does not exist."""
+    path = os.path.join(os.path.abspath(os.path.join(ckpt_dir, name)), CHECKPOINT_FILE)
+    if not os.path.isfile(path):
+        return None
+    state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    return state

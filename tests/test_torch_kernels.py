@@ -801,3 +801,53 @@ def test_build_all(cuda):
     build.build_all()
     for name in build.sources():
         assert build.load(name) is not None
+
+
+def _layered(n, hw, n_class=5, seed=0):
+    """uint8 scans and labels, one horizontal band per class."""
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.randint(0, 256, (n, *hw, 3), generator=g, dtype=torch.uint8)
+    rows = torch.arange(hw[0])[:, None].expand(*hw)
+    labs = (rows * n_class // hw[0]).to(torch.uint8).expand(n, *hw).contiguous()
+    return imgs, labs
+
+
+def test_augmentation_makes_no_host_sync(cuda):
+    """The train chain's draws and application never wait for the card:
+    ``set_sync_debug_mode('error')`` turns any synchronisation into an error."""
+    from tcct_tpu_torch.data.augment import apply_train, draw_train
+
+    imgs, labs = (t.to(cuda) for t in _layered(4, (96, 128)))
+    labs[2] = 0  # an empty mask takes the fallback window
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    apply_train(imgs, labs, draw_train(labs, gen, (64, 64)), (64, 64))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, lab = apply_train(imgs, labs, draw_train(labs, gen, (64, 64)), (64, 64))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert img.shape == (4, 64, 64, 3) and lab.shape == (4, 64, 64)
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+
+def test_augmented_bf16_step_repeats_bitwise(cuda):
+    """One augmented bf16 train step of full-width stc_tt (batch 2, 96x128
+    scans cropped to 64x64) twice from one state and one generator: every
+    state tensor and the generator's state equal bit for bit."""
+    from tcct_tpu_torch.models import RegNet, get_model
+    from tcct_tpu_torch.models.layers import init_weights
+    from tcct_tpu_torch.train import TrainConfig, build_train_step, make_optimizer
+
+    imgs, labs = _layered(2, (96, 128))
+    cfg = TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, udh=True, reg=True, augment=True,
+                      dtype=torch.bfloat16)
+    ends = []
+    for _ in range(2):
+        m = RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=0.1), out_channels=5)
+        init_weights(m, torch.Generator().manual_seed(0))
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        build_train_step(m, make_optimizer(1, lr=1e-4), cfg, cuda, gen)(imgs, labs)
+        ends.append({**m.state_dict(), "generator": gen.get_state()})
+    off = [k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k])]
+    assert not off, off[:8]

@@ -269,7 +269,7 @@ def test_cast_floating_and_trainable_set():
     names = set(trainable_parameters(m))
     assert "tau" in names and "lap_epl.0.weight" in names and "base.t321.weight" in names
     assert not any(("crpe" in k or "cls_head" in k or ".fuse." in k) for k in names)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):  # augmentation draws from one
         build_train_step(m, make_optimizer(1), TrainConfig(augment=True), "cpu")
 
 
