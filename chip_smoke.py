@@ -72,7 +72,21 @@ toolkit (``nvcc``):
    subprocess; the times (ms/step with and without augmentation in turns,
    the augmentation's launches and device ms, val ms a scan, an epoch's
    wall time);
-9. prints one JSON line of the kernels, then, as its last line,
+9. trains the rest of the zoo: ``gtc_tt`` (gated fusion, whose random
+   alpha maps make everything after the fusion f32) at full width, one
+   bf16 step with the launch counts held to the config's table
+   (``train_launches``), its ms/step, busy ms and launches beside
+   ``stc_tt``'s, one augmented step twice from one state, bit for bit, the
+   f32 step against the CPU and the 50-step f32 trajectory on
+   ``train_parity_gtc.npz``, a ``Trainer`` fit with val and a bitwise
+   resume (``drive_gtc_train``); one bf16 step of every other model and
+   mixer (``gtc_tb``, ``stc_tb``, ``stc_st``, ``stc_sb``, ``cnnu``,
+   ``pnnu``, ``vitu``, ``msca``, ``tcct32``, ``relay``, ``stc_tt`` with
+   ``factor``, ``hydra`` and ``metapool2d``), finite and counted
+   (``drive_zoo_steps``); one duke serving batch of each model and mixer
+   the slice adds, counted, the f32 model against the CPU, ms
+   (``drive_zoo_serving``);
+10. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -186,7 +200,10 @@ def n_copies(nbytes: int) -> int:
 def path_shapes(cfg, batch: int, hw):
     """Launch counts per serving batch, by input shape, of each kernel on
     the MPViT branch: (metapool [B,N,C], dwconv stride 1 [B,H,W,C],
-    dwconv stride 2 [B,H,W,C])."""
+    dwconv stride 2 [B,H,W,C]).  The MetaPool mixers run one MetaPool site a
+    block; factor and hydra one K2 a block in the CRPE (window 3)."""
+    from tcct_tpu_torch.models.mpvit import CRPE_MIXERS, _fit_crpe_window
+
     mp, s1, s2 = Counter(), Counter(), Counter()
     h, w = (hw[0] - 1) // 2 + 1, (hw[1] - 1) // 2 + 1  # after the stride-2 stem
     for i, C in enumerate(cfg.embed_dims):
@@ -196,9 +213,25 @@ def path_shapes(cfg, batch: int, hw):
                 h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
             else:
                 s1[(batch, h, w, C)] += 1
-        s1[(batch, h, w, C)] += cfg.num_path[i] * cfg.num_layers[i] + 1  # cpe per block, InvRes
-        mp[(batch, h * w, C)] += cfg.num_path[i] * cfg.num_layers[i]
+        blocks = cfg.num_path[i] * cfg.num_layers[i]
+        s1[(batch, h, w, C)] += blocks + 1  # cpe per block, InvRes
+        if cfg.mixer in ("metapool", "metapool_pallas"):
+            mp[(batch, h * w, C)] += blocks
+        elif cfg.mixer in CRPE_MIXERS:  # the CRPE's window-3 heads, the split refit
+            heads3 = dict(_fit_crpe_window(cfg.crpe_window, cfg.num_heads[i])).get(3, 0)
+            s1[(batch, h, w, heads3 * (C // cfg.num_heads[i]))] += blocks
     return mp, s1, s2
+
+
+def train_launches(model):
+    """Launches of each kernel in one train step of ``model`` (a RegNet of
+    the zoo: any name, flags, variant and mixer): the per-kernel sums of
+    :func:`train_shapes`."""
+    n = {k: sum(c.values()) for k, c in train_shapes(model, 1, (64, 64)).items()}
+    return {"metapool_tokens": n["mp"], "metapool_tokens_backward": n["mp"],
+            "dwconv3x3_s1": n["s1"], "dwconv3x3_backward_s1": n["s1"],
+            "dwconv3x3_s2": n["s2"], "dwconv3x3_backward_s2": n["s2"],
+            "bn_act_train": n["bn"], "bn_act_train_backward": n["bnb"]}
 
 
 def cpe_shapes(cfg, batch: int, hw):
@@ -216,7 +249,7 @@ def cpe_shapes(cfg, batch: int, hw):
 def check_close(name, got, want, dtype_name):
     import torch
 
-    atol, rtol = TOL[dtype_name]
+    atol, rtol = TOL[dtype_name.split("/")[0]]  # the input's type
     g, w = got.float(), want.float()
     err = (g - w).abs()
     if not bool(torch.isfinite(g).all()):
@@ -257,45 +290,72 @@ def check_bn_backward(name, x, w, mean, var, gy, leaky, got):
     return errs[0]
 
 
-def train_shapes(cfg, batch: int, hw, n_class: int):
-    """Launch counts per train step, by (input shape, dtype), of every kernel
-    of the stc_tt train step with the MetaPool mixer, bf16 compute, loss
-    heads on (udh, reg).  Forward and backward counts are equal: every
-    launch of the forward is on the gradient's path.  Returns a dict of
-    Counters: metapool [B,N,C], dwconv s1 / s2 [B,H,W,C] (NHWC inputs), and
-    bn [B,C,H,W] with a leaky flag."""
-    bf, f32 = "bfloat16", "float32"
-    mp, s1, s2 = (Counter({(k, bf): n for k, n in c.items()}) for c in path_shapes(cfg, batch, hw))
+def train_shapes(model, batch: int, hw):
+    """Launch counts per bf16 train step of ``model`` (a RegNet of the zoo:
+    any name, flags, variant and mixer; the loss heads on, udh and reg), by
+    input shape and types, of every kernel.  Returns a dict of Counters:
+    "mp" [B,N,C] and "s1" / "s2" [B,H,W,C] (NHWC inputs) keyed (shape,
+    types); "bn" (forward) and "bnb" (backward) [B,C,H,W] keyed (shape,
+    leaky, types).  ``types`` is the input's dtype, then the weights' after a
+    slash where they differ: "float32/bfloat16" is an f32 map (after a
+    trained gate, in ReLayNet's decoder, the lap_map head) before bf16
+    compute weights.  The MetaPool and depthwise backwards equal their
+    forwards (every launch is on the gradient's path); every BN's too except
+    in ``vitu``, which runs the CNN branch's levels 1-4 and reads only level
+    0: their 12 BatchNorms have no backward."""
+    bf, f32, wide = "bfloat16", "float32", "float32/bfloat16"
+    mp, s1, s2, bn, unread = Counter(), Counter(), Counter(), Counter(), Counter()
     H, W = hw
+    base = model.base
+    cfg = getattr(base, "vit_cfg", None)
+    if cfg is None:  # ReLayNet: its decoder runs f32 after the f32 unpooling masks
+        f = base.encode1.batchnorm.num_features
+        for i in range(4):  # encode1-3, bottleneck
+            bn[((batch, f, H >> i, W >> i), False, bf)] += 1
+        for i in range(3):  # decode3-1
+            bn[((batch, f, H >> i, W >> i), False, wide)] += 1
+        logits = f32
+    else:
+        dims = base.base_cnn.layer_dims
+        bn[((batch, dims[0], H, W), False, bf)] += 1  # cnn.1
+        for i, d in enumerate(dims):  # LeakyReLU -> BN, fused, 3 a block
+            key = ((batch, d, H >> i, W >> i), True, bf)
+            bn[key] += 3
+            if i and not base.flag_cnn:
+                unread[key] += 3
+        lvl = [(H, W)]  # after each stride-2 conv
+        for _ in range(4):
+            lvl.append(tuple((v - 1) // 2 + 1 for v in lvl[-1]))
+        fused = bf
+        if base.flag_vit:
+            for c, got in zip((mp, s1, s2), path_shapes(cfg, batch, hw)):
+                c.update({(k, bf): n for k, n in got.items()})
+            ed = cfg.embed_dims
+            bn[((batch, ed[0] // 2) + lvl[1], False, bf)] += 1  # stem
+            bn[((batch, ed[0]) + lvl[1], False, bf)] += 1
+            for i in range(cfg.num_stages):
+                res = lvl[i + 1]
+                bn[((batch, ed[i]) + res, False, bf)] += cfg.num_path[i] + 3  # patch embeds, InvRes
+                out = ed[i + 1] if i + 1 < cfg.num_stages else ed[i]
+                bn[((batch, out) + res, False, bf)] += 1  # aggregate
+            for i in range(4):  # tran_vit, tran_cnn projections
+                width = getattr(base, f"tran_vit{i}")[1].num_features
+                bn[((batch, width) + lvl[i + 1], False, bf)] += 2 if base.flag_cnn else 1
+            if base.flag_gate and base.flag_cnn:
+                fused = wide  # the f32 alpha maps widen the fused maps
+        bn[((batch, base.head[1].num_features) + lvl[4], False, fused)] += 1
+        for dec, l in zip((base.dec1, base.dec2, base.dec3, base.dec4), (4, 3, 2, 1)):
+            bn[((batch, dec.prep[1].num_features) + lvl[l], False, fused)] += 1
+        logits = f32 if fused == wide else bf
     # RegNet loss heads at full resolution: lap_reg (C = n_class - 1) on the
-    # bf16 logits and on the f32 one-hot; lap_map's two 1-channel convs on
-    # both f32 column-softmax maps
-    s1[((batch, H, W, n_class - 1), bf)] += 2
-    s1[((batch, H, W, n_class - 1), f32)] += 2
+    # logits and on the f32 one-hot; lap_map's two 1-channel convs on both f32
+    # column-softmax maps, and its eps-1.0 BN on both
+    nc = model.lap_reg[0].in_channels
+    s1[((batch, H, W, nc), logits)] += 2
+    s1[((batch, H, W, nc), f32)] += 2
     s1[((batch, H, W, 1), f32)] += 4
-    bn = Counter()
-    lvl = [(H, W)]  # after each stride-2 conv
-    for _ in range(4):
-        lvl.append(tuple((v - 1) // 2 + 1 for v in lvl[-1]))
-    cnn = 32  # tiny CrossCNN: 32 channels at every level
-    bn[((batch, cnn) + lvl[0], False, bf)] += 1  # cnn.1
-    for i in range(5):
-        bn[((batch, cnn) + (H >> i, W >> i), True, bf)] += 3  # LeakyReLU -> BN, fused
-    ed = cfg.embed_dims
-    bn[((batch, ed[0] // 2) + lvl[1], False, bf)] += 1  # stem
-    bn[((batch, ed[0]) + lvl[1], False, bf)] += 1
-    for i in range(cfg.num_stages):
-        res = lvl[i + 1]
-        bn[((batch, ed[i]) + res, False, bf)] += cfg.num_path[i] + 3  # patch embeds, InvRes
-        out = ed[i + 1] if i + 1 < cfg.num_stages else ed[i]
-        bn[((batch, out) + res, False, bf)] += 1  # aggregate
-    for i in range(4):
-        bn[((batch, cnn) + lvl[i + 1], False, bf)] += 2  # tran_vit / tran_cnn projections
-    bn[((batch, cnn) + lvl[4], False, bf)] += 2  # head, dec1
-    for i in (3, 2, 1):
-        bn[((batch, cnn) + lvl[i], False, bf)] += 1  # dec2 .. dec4
-    bn[((batch, 1, H, W), False, f32)] += 2  # lap_map's eps-1.0 BN, twice
-    return {"mp": mp, "s1": s1, "s2": s2, "bn": bn}
+    bn[((batch, 1, H, W), False, wide)] += 2
+    return {"mp": mp, "s1": s1, "s2": s2, "bn": bn, "bnb": bn - unread}
 
 
 def _table(name, src, replaces, rows, main=None):
@@ -306,11 +366,15 @@ def _table(name, src, replaces, rows, main=None):
             "main": main}
 
 
-def kernel_tables(serve, train, serve_small):
+def kernel_tables(serve, train, serve_small, gtc):
     """The kernels, each with its wrapper, plain version, one-call library
     yardstick, input maker, check, bytes and operations, and the shapes of
-    the serving batch and of the train step; for the depthwise forward also
-    the shapes of an ``stc_st`` (MPViT-small) serving batch."""
+    the serving batch (``serve``, ``path_shapes``), of an ``stc_tt`` train
+    step (``train``) and of a ``gtc_tt`` one (``gtc``, ``train_shapes``);
+    for the depthwise forward also the shapes of an ``stc_st``
+    (MPViT-small) serving batch.  A row's makers take a shape and the types
+    of its table key ("bfloat16", "float32", "float32/bfloat16": x f32,
+    weight and bias bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -339,12 +403,16 @@ def kernel_tables(serve, train, serve_small):
     def randn(shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
 
+    def dtypes(types):  # (input dtype, weight dtype)
+        x, _, w = types.partition("/")
+        return getattr(torch, x), getattr(torch, w or x)
+
     def out_hw(shape, s):
         return (shape[1] - 1) // s + 1, (shape[2] - 1) // s + 1
 
     # --- K1 / K1b ------------------------------------------------------------
-    def mp_args(shape, dtype):
-        return (randn(shape, dtype),)
+    def mp_args(shape, types):
+        return (randn(shape, dtypes(types)[0]),)
 
     def mp_lib(x):
         return F.avg_pool2d(x[:, None], 3, 1, 1, count_include_pad=False)[:, 0] - x
@@ -366,7 +434,8 @@ def kernel_tables(serve, train, serve_small):
 
     # --- K2 / K2b ------------------------------------------------------------
     def dw_args(stride, bwd):
-        def make(shape, dtype):
+        def make(shape, types):
+            dtype = dtypes(types)[0]
             x = randn(shape, dtype)
             w = randn((3, 3, shape[-1]), dtype, 1 / 3)
             if not bwd:
@@ -424,32 +493,36 @@ def kernel_tables(serve, train, serve_small):
         return cost
 
     # --- K3 --------------------------------------------------------------------
+    # args: x, weight, bias; then, for the library call only, weight and bias
+    # in x's type (F.batch_norm takes no narrower weights)
     def bn_args(leaky):
-        def make(shape, dtype):
+        def make(shape, types):
             C = shape[1]
-            x = randn(shape, dtype, 2.0, 0.5).contiguous(memory_format=torch.channels_last)
-            w = (torch.rand(C, generator=gen, device=dev) + 0.5).to(dtype)
-            return (x, w, randn((C,), dtype, 0.1))
+            xd, wd = dtypes(types)
+            x = randn(shape, xd, 2.0, 0.5).contiguous(memory_format=torch.channels_last)
+            w = (torch.rand(C, generator=gen, device=dev) + 0.5).to(wd)
+            b = randn((C,), wd, 0.1)
+            return (x, w, b, w.to(xd), b.to(xd))
         return make
 
     def bn_kern(leaky):
-        return lambda x, w, b: bn_act_train(x, w, b, 1e-5, leaky)
+        return lambda x, w, b, *_: bn_act_train(x, w, b, 1e-5, leaky)
 
     def bn_plain(leaky):
-        def f(x, w, b):
+        def f(x, w, b, *_):
             mean, var = bn_stats_reference(x, leaky)
             return bn_normalize_reference(x, mean, var, w, b, 1e-5, leaky)
         return f
 
     def bn_lib(leaky):
-        def f(x, w, b):
+        def f(x, _w, _b, w, b):
             t = F.leaky_relu(x, 0.01) if leaky else x
             return F.batch_norm(t, None, None, w, b, training=True, momentum=0.1, eps=1e-5)
         return f
 
     def bn_check(leaky):
         def check(name, args, dn):
-            x, w, b = args
+            x, w, b = args[:3]
             y, mean, var = bn_act_train(x, w, b, 1e-5, leaky)
             torch.cuda.synchronize()
             rm, rv = bn_stats_reference(x, leaky)
@@ -467,14 +540,15 @@ def kernel_tables(serve, train, serve_small):
 
     # --- K3b ---------------------------------------------------------------------
     # args: x, weight, the forward's mean and var, gy; then, for the library
-    # call only, t = act(x) and 1/sqrt(var + eps), as autograd saves them
+    # call only, t = act(x) and 1/sqrt(var + eps), as autograd saves them,
+    # and the weight in x's type
     def bnb_args(leaky):
-        def make(shape, dtype):
-            x, w, _ = bn_args(leaky)(shape, dtype)
+        def make(shape, types):
+            x, w, _, w_lib, _ = bn_args(leaky)(shape, types)
             mean, var = bn_stats_reference(x, leaky)
-            gy = randn(shape, dtype).contiguous(memory_format=torch.channels_last)
+            gy = randn(shape, x.dtype).contiguous(memory_format=torch.channels_last)
             t = F.leaky_relu(x, 0.01) if leaky else x
-            return (x, w, mean, var, gy, t, torch.rsqrt(var + 1e-5))
+            return (x, w, mean, var, gy, t, torch.rsqrt(var + 1e-5), w_lib)
         return make
 
     def bnb_kern(leaky):
@@ -485,7 +559,7 @@ def kernel_tables(serve, train, serve_small):
                                                                           leaky)
 
     def bnb_lib(leaky):
-        def f(x, w, m, v, g, t, invstd):  # autograd's backward of leaky_relu + F.batch_norm
+        def f(x, _w, m, v, g, t, invstd, w):  # autograd's backward of leaky_relu + F.batch_norm
             gt, gw, gb = torch.ops.aten.native_batch_norm_backward(
                 g, t, w, None, None, m, invstd, True, 1e-5, [True, True, True])
             if leaky:
@@ -542,25 +616,32 @@ def kernel_tables(serve, train, serve_small):
         return spec(bnb_kern(leaky), bnb_plain(leaky), bnb_lib(leaky), bnb_args(leaky),
                     bnb_check(leaky), bnb_cost, " leaky" if leaky else "")
 
-    bn_rows = [(bn_spec(leaky), Counter(), Counter({(shape, d): n}))
-               for (shape, leaky, d), n in sorted(train["bn"].items())]
-    bnb_rows = [(bnb_spec(leaky), Counter(), Counter({(shape, d): n}))
-                for (shape, leaky, d), n in sorted(train["bn"].items())]
+    def by_leaky(c, leaky):  # a BN Counter's (shape, types) keys with one leaky flag
+        return Counter({(shape, t): n for (shape, lk, t), n in c.items() if lk == leaky})
+
+    # each row: (spec, serving batch, stc_tt step, stc_st serving batch, gtc_tt step)
+    no = Counter()
+    bn_rows = [(bn_spec(lk), no, by_leaky(train["bn"], lk), no, by_leaky(gtc["bn"], lk))
+               for lk in (False, True)]
+    bnb_rows = [(bnb_spec(lk), no, by_leaky(train["bnb"], lk), no, by_leaky(gtc["bnb"], lk))
+                for lk in (False, True)]
     return [
         # the serving path runs K1 inside the site (metapool_block): its
         # launches are the train step's, its serving shapes are timed beside
         _table("metapool_tokens", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
-               [(mp_fwd, serve_rows(serve[0]), train["mp"])], main="train"),
+               [(mp_fwd, serve_rows(serve[0]), train["mp"], no, gtc["mp"])], main="train"),
         _table("dwconv3x3_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:200",
-               [(dw_fwd(1), serve_rows(serve[1]), train["s1"], serve_rows(serve_small[1]))]),
+               [(dw_fwd(1), serve_rows(serve[1]), train["s1"], serve_rows(serve_small[1]),
+                 gtc["s1"])]),
         _table("dwconv3x3_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:380",
-               [(dw_fwd(2), serve_rows(serve[2]), train["s2"], serve_rows(serve_small[2]))]),
+               [(dw_fwd(2), serve_rows(serve[2]), train["s2"], serve_rows(serve_small[2]),
+                 gtc["s2"])]),
         _table("metapool_tokens_backward", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
-               [(mp_bwd, Counter(), train["mp"])]),
+               [(mp_bwd, no, train["mp"], no, gtc["mp"])]),
         _table("dwconv3x3_backward_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:220",
-               [(dw_bwd(1), Counter(), train["s1"])]),
+               [(dw_bwd(1), no, train["s1"], no, gtc["s1"])]),
         _table("dwconv3x3_backward_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:420",
-               [(dw_bwd(2), Counter(), train["s2"])]),
+               [(dw_bwd(2), no, train["s2"], no, gtc["s2"])]),
         _table("bn_act_train", "tcct_tpu_torch/csrc/bnstats.cu",
                "tcct_tpu/ops/pallas/bnstats.py:129", bn_rows),
         _table("bn_act_train_backward", "tcct_tpu_torch/csrc/bnstats.cu",
@@ -568,31 +649,40 @@ def kernel_tables(serve, train, serve_small):
     ]
 
 
-def bench_kernels(report, tables):
-    """Each kernel against its plain version, in bf16 and in f32 (TF32 off),
-    at every shape of the serving batch and of the train step, timed
-    against the plain version and the library yardstick.  The totals of a
-    row weight each shape by its launches on its path, at the path's dtype:
-    ``ms`` etc. over the table's main path (per serving batch or per train
-    step), ``serve_ms`` / ``train_ms`` etc. over the other where the kernel
-    has shapes there, ``small_ms`` the depthwise forward's totals over an
-    ``stc_st`` serving batch."""
-    import torch
+def row_types(shape, counters):
+    """The types to run a row's ``shape`` in: bf16 and f32, then any other
+    its paths call it with ("float32/bfloat16")."""
+    on = {k[1] for c in counters for k in c if k[0] == shape}
+    return ["bfloat16", "float32"] + sorted(on - {"bfloat16", "float32"})
 
+
+# each kernel row's paths: (totals prefix, Counter index in the row, launches label)
+PATHS = (("serve_", 1, "/batch"), ("train_", 2, "/stc_tt step"), ("small_", 3, "/stc_st batch"),
+         ("gtc_", 4, "/gtc_tt step"))
+
+
+def bench_kernels(report, tables):
+    """Each kernel against its plain version, in bf16 and in f32 (TF32 off)
+    and in any mixed types a path calls it with, at every shape of the
+    serving batch and of the stc_tt and gtc_tt train steps, timed against
+    the plain version and the library yardstick.  The totals of a row weight
+    each shape by its launches on its path, at the path's types: ``ms`` etc.
+    over the table's main path (per serving batch or per stc_tt train step),
+    ``serve_ms`` / ``train_ms`` etc. over the other where the kernel has
+    shapes there, ``gtc_ms`` etc. per gtc_tt train step, ``small_ms`` the
+    depthwise forward's totals over an ``stc_st`` serving batch."""
     entries = []
     for t in tables:
         name = t["name"]
         tot = Counter()
         max_err = 0.0
-        for sp, serve, train, *rest in t["rows"]:
-            small = rest[0] if rest else Counter()
-            shapes = sorted({k[0] for c in (serve, train, small) for k in c})
+        for row in t["rows"]:
+            sp = row[0]
+            shapes = sorted({k[0] for c in row[1:] for k in c})
             for shape in shapes:
-                for dtype in (torch.bfloat16, torch.float32):
-                    dn = str(dtype).split(".")[-1]
-                    n_serve, n_train = serve.get((shape, dn), 0), train.get((shape, dn), 0)
-                    n_small = small.get((shape, dn), 0)
-                    args = sp["make"](shape, dtype)
+                for dn in row_types(shape, row[1:]):
+                    n = {p: row[i].get((shape, dn), 0) for p, i, _ in PATHS}
+                    args = sp["make"](shape, dn)
                     label = f"{name}{sp['tag']} {list(shape)} {dn}"
                     err = sp["check"](label, args, dn)
                     max_err = max(max_err, err)
@@ -604,22 +694,19 @@ def bench_kernels(report, tables):
                     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                     b_ops = flops / F32_FLOP_PER_S * 1e3
                     bound = max(b_bytes, b_ops)
-                    per = (f" x{n_serve}/batch" if n_serve else "") + \
-                          (f" x{n_train}/step" if n_train else "") + \
-                          (f" x{n_small}/stc_st batch" if n_small else "")
+                    per = "".join(f" x{n[p]}{what}" for p, _, what in PATHS if n[p])
                     print(f"  {label}{per}: max_abs_err {err:.3e} kernel {t_k * 1e3:.1f} us, "
                           f"plain {t_p * 1e3:.1f} us, library {t_l * 1e3:.1f} us, "
                           f"bound {bound * 1e3:.1f} us "
                           f"({'bytes' if b_bytes >= b_ops else 'operations'}), "
                           f"{b_bytes / t_k * 100:.0f}% of the byte bound", flush=True)
-                    for prefix, n in (("serve_", n_serve), ("train_", n_train),
-                                      ("small_", n_small)):
-                        tot[prefix + "ms"] += n * t_k
-                        tot[prefix + "plain_ms"] += n * t_p
-                        tot[prefix + "library_ms"] += n * t_l
-                        tot[prefix + "bound_ms"] += n * bound
-                        tot[prefix + "bytes_ms"] += n * b_bytes
-                        tot[prefix + "ops_ms"] += n * b_ops
+                    for prefix, _, _ in PATHS:
+                        tot[prefix + "ms"] += n[prefix] * t_k
+                        tot[prefix + "plain_ms"] += n[prefix] * t_p
+                        tot[prefix + "library_ms"] += n[prefix] * t_l
+                        tot[prefix + "bound_ms"] += n[prefix] * bound
+                        tot[prefix + "bytes_ms"] += n[prefix] * b_bytes
+                        tot[prefix + "ops_ms"] += n[prefix] * b_ops
                     del copies, args
         main = (t["main"] or ("serve" if tot["serve_ms"] > 0 else "train")) + "_"
         entry = {
@@ -630,14 +717,10 @@ def bench_kernels(report, tables):
             "bound_by": "bytes" if tot[main + "bytes_ms"] >= tot[main + "ops_ms"] else "operations",
             "library_ms": tot[main + "library_ms"],
         }
-        other = "train_" if main == "serve_" else "serve_"
-        if tot[other + "ms"] > 0:
-            entry.update({other + k: tot[other + k]
-                          for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
-        if tot["small_ms"] > 0:
-            entry.update(small_ms=tot["small_ms"], small_plain_ms=tot["small_plain_ms"],
-                         small_bound_ms=tot["small_bound_ms"],
-                         small_library_ms=tot["small_library_ms"])
+        for prefix, _, _ in PATHS:
+            if prefix != main and tot[prefix + "ms"] > 0:
+                entry.update({prefix + k: tot[prefix + k]
+                              for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
         entries.append(entry)
     report["kernels"] = entries
 
@@ -1383,20 +1466,18 @@ def against_cases(names):
     hw = get_geometry(DB).prep_hw
     serve = path_shapes(MPViTConfig(), BATCH, hw)
     small = path_shapes(mpvit_small_config(), BATCH, hw)
-    train = train_shapes(MPViTConfig(), TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
-    for t in kernel_tables(serve, train, small):
+    train, gtc = step_tables()
+    for t in kernel_tables(serve, train, small, gtc):
         if not keep(t["name"]):
             continue
         src = os.path.splitext(os.path.basename(t["source"]))[0]
-        for sp, on_serve, on_train, *rest in t["rows"]:
-            on_small = rest[0] if rest else Counter()
-            for shape in sorted({k[0] for c in (on_serve, on_train, on_small) for k in c}):
-                for dtype in (torch.bfloat16, torch.float32):
-                    dn = str(dtype).split(".")[-1]
-                    per = {p: c.get((shape, dn), 0) for p, c in
-                           (("batch", on_serve), ("step", on_train), ("stc_st batch", on_small))}
+        for row in t["rows"]:
+            sp = row[0]
+            for shape in sorted({k[0] for c in row[1:] for k in c}):
+                for dn in row_types(shape, row[1:]):
+                    per = {what.lstrip("/"): row[i].get((shape, dn), 0) for _, i, what in PATHS}
                     yield (t["name"], src, f"{t['name']}{sp['tag']} {list(shape)} {dn}",
-                           lambda sp=sp, shape=shape, dtype=dtype: sp["make"](shape, dtype),
+                           lambda sp=sp, shape=shape, dn=dn: sp["make"](shape, dn),
                            sp["kern"], 30, per)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     if keep("metapool_block"):
@@ -1532,9 +1613,11 @@ def serve_diagnostics(card: str) -> None:
 
 def expected_launches(model, batch: int, hw, fused: bool):
     """Launches per serving batch of each kernel, from the model's config:
-    every MetaPool site is one launch of the site kernel, none of bare K1."""
+    every MetaPool site is one launch of the site kernel, none of bare K1
+    (ReLayNet: none at all)."""
     base = model.base
-    mp, s1, s2 = path_shapes(base.vit_cfg, batch, hw) if base.flag_vit else ({}, {}, {})
+    vit = getattr(base, "flag_vit", False)
+    mp, s1, s2 = path_shapes(base.vit_cfg, batch, hw) if vit else ({}, {}, {})
     return {"metapool_block": sum(mp.values()), "dwconv3x3_s1": sum(s1.values()),
             "dwconv3x3_s2": sum(s2.values()), "fused_cross_block": 5 if fused else 0}
 
@@ -1969,7 +2052,7 @@ def drive_train(report, card, train_counts):
           f"step 0 {times[0]:.1f} ms, step 1 {times[1]:.1f} ms), "
           f"{TRAIN_BATCH / steady * 1e3:.1f} B-scans/s; peak device memory {peak:.2f} GiB",
           flush=True)
-    profile_train_step(lambda: step(imgs, labs), steady, card)
+    report["stc_tt_step"] = (steady, profile_train_step(lambda: step(imgs, labs), steady, card))
     off, worst, n = train_repeat(cfg, imgs, labs)
     print(f"train: one step twice from one state and one generator: {n - len(off)} of {n} "
           f"tensors bitwise equal", flush=True)
@@ -2089,10 +2172,12 @@ def profile_train_step(fn, wall_ms: float, card: str):
     return {g: (ms[g], n[g]) for g in ms}
 
 
-def train_repeat(cfg, imgs, labs, deterministic_cudnn: bool = False):
-    """One bf16 step of a fresh seeded model twice, from one state and one
-    generator: (names of the state tensors that differ, max abs
-    difference, tensor count)."""
+def train_repeat(cfg, imgs, labs, deterministic_cudnn: bool = False, name: str = "stc_tt",
+                 allow_tf32=(True, True)):
+    """One bf16 step of a fresh seeded ``name`` model twice, from one state
+    and one generator, the two runs with cuDNN's TF32 as ``allow_tf32``
+    says: (names of the state tensors that differ, max abs difference,
+    tensor count)."""
     import torch
 
     from tcct_tpu_torch.models import RegNet, get_model
@@ -2100,14 +2185,14 @@ def train_repeat(cfg, imgs, labs, deterministic_cudnn: bool = False):
     from tcct_tpu_torch.train import build_train_step, make_optimizer
 
     ends = []
-    for _ in range(2):
-        m = RegNet(get_model("stc_tt", TRAIN_NC, variant="train", drop_path_rate=0.1),
+    for tf32 in allow_tf32:
+        m = RegNet(get_model(name, TRAIN_NC, variant="train", drop_path_rate=0.1),
                    out_channels=TRAIN_NC)
         init_weights(m, torch.Generator().manual_seed(SEED))
         g = torch.Generator(device="cuda").manual_seed(SEED)
         step = build_train_step(m, make_optimizer(1, lr=LR), cfg, device="cuda", generator=g)
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=deterministic_cudnn):
+                                        deterministic=deterministic_cudnn, allow_tf32=tf32):
             step(imgs, labs)
         ends.append({k: v.detach().clone() for k, v in m.state_dict().items()})
     off = [k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k])]
@@ -2184,19 +2269,40 @@ def train_diagnostics(card: str) -> None:
               f"difference {worst:.3e}): {_summary(off) or '-'}", flush=True)
 
 
-def _port_slice(sd0, device):
+GOLDENS = {"train_parity": "stc_tt", "train_parity_gtc": "gtc_tt"}
+
+
+def _golden(fixture: str):
+    """(golden arrays, sd0, model name, TrainConfig) of a train-parity
+    golden: pinned boundary noise; for gtc_tt the pinned alpha maps and the
+    edge-pixel loss, as tests/test_train_parity.py runs it."""
+    import numpy as np
+
+    from tcct_tpu_torch.train import TrainConfig
+
+    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                             fixture + ".npz"))
+    sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
+    gated = fixture.endswith("_gtc")
+    cfg = TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, udh=True, reg=True, epl=gated,
+                      augment=False, pinned_reg_noise=True, pinned_gate_noise=gated)
+    return g, sd0, GOLDENS[fixture], cfg
+
+
+def _port_slice(sd0, device, name="stc_tt"):
     import torch
 
     from tcct_tpu_torch.models import RegNet, get_model
 
-    m = RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=0.0), out_channels=5)
+    m = RegNet(get_model(name, 5, variant="train", drop_path_rate=0.0), out_channels=5)
     m.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in sd0.items()}, strict=True)
     return m.to(device=device, memory_format=torch.channels_last)
 
 
-def check_train_f32_card_vs_cpu() -> None:
+def check_train_f32_card_vs_cpu(fixture: str = "train_parity") -> None:
     """The f32 train step on the card (kernels) against the CPU path (plain
-    versions) on the golden 64x64 parity case: step-0 gradients per tensor
+    versions) on a golden 64x64 parity case (``train_parity``: stc_tt;
+    ``train_parity_gtc``: gtc_tt): step-0 gradients per tensor
     within max(2e-3 |ref|, 2e-4 global norm) over > 280 tensors of the
     CPU's; then one clip + AdamW step: every parameter within 2.1 lr, at
     most 2 % of elements more than 5 % of lr apart, update L2 drift below
@@ -2210,23 +2316,19 @@ def check_train_f32_card_vs_cpu() -> None:
     import torch.nn.functional as F
 
     from tcct_tpu_torch.train import (
-        TrainConfig,
         build_loss_fn,
         build_train_step,
         make_optimizer,
         trainable_parameters,
     )
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                        "train_parity.npz")
-    g = np.load(path)
-    sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
+    g, sd0, name, cfg = _golden(fixture)
     imgs = np.ascontiguousarray(np.moveaxis(g["x_u8"], 1, -1))
     labs = g["labels"]
-    cfg = TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, udh=True, reg=True, augment=False,
-                      pinned_reg_noise=True)
+    tag = f"train f32 64x64 {name}"
+
     def step0(dev):
-        m = _port_slice(sd0, dev).train()
+        m = _port_slice(sd0, dev, name).train()
         params = trainable_parameters(m)
         img = torch.from_numpy(imgs).to(dev).float() / 255.0
         true_oh = F.one_hot(torch.from_numpy(labs).to(dev).long(), 5).float()
@@ -2236,7 +2338,7 @@ def check_train_f32_card_vs_cpu() -> None:
                                       .numpy() for (k, p), x in zip(params.items(), gr)}
 
     (loss_cpu, cpu), (loss_card, card) = step0("cpu"), step0("cuda")
-    print(f"train f32 64x64: loss card {loss_card:.7f} CPU {loss_cpu:.7f}", flush=True)
+    print(f"{tag}: loss card {loss_card:.7f} CPU {loss_cpu:.7f}", flush=True)
     if abs(loss_card - loss_cpu) > 1e-5 * abs(loss_cpu):
         fail(f"f32 train loss card {loss_card} vs CPU {loss_cpu}")
     gnorm = np.sqrt(sum(float((g[k].astype(np.float64) ** 2).sum())
@@ -2256,7 +2358,7 @@ def check_train_f32_card_vs_cpu() -> None:
         return worst, worst_k, n
 
     worst, worst_k, n = worst_ratio(card, cpu.__getitem__)
-    print(f"train f32 64x64: card step-0 gradients vs CPU: {n} tensors, worst {worst:.4f} of the "
+    print(f"{tag}: card step-0 gradients vs CPU: {n} tensors, worst {worst:.4f} of the "
           f"bound ({worst_k})", flush=True)
     if worst > 1.0 or n <= 280:
         fail(f"f32 card gradients vs CPU: worst {worst} of the bound over {n} tensors")
@@ -2268,11 +2370,11 @@ def check_train_f32_card_vs_cpu() -> None:
                                ("card vs card, a second run", again, card.__getitem__),
                                ("card without cuDNN vs CPU", no_cudnn, cpu.__getitem__)):
         worst, worst_k, n = worst_ratio(mine, ref_of)
-        print(f"train f32 64x64: {what}: worst {worst:.4f} of the bound ({worst_k})", flush=True)
+        print(f"{tag}: {what}: worst {worst:.4f} of the bound ({worst_k})", flush=True)
 
     sds = {}
     for dev in ("cpu", "cuda"):
-        m = _port_slice(sd0, dev)
+        m = _port_slice(sd0, dev, name)
         step = build_train_step(m, make_optimizer(1, lr=LR, weight_decay=2e-4), cfg, dev)
         step(imgs, labs)
         sds[dev] = {k: v.cpu().double().numpy() for k, v in m.state_dict().items()}
@@ -2295,30 +2397,27 @@ def check_train_f32_card_vs_cpu() -> None:
         moved2 += float(((ref - sd0[k]) ** 2).sum())
         drift2 += float(((mine - ref) ** 2).sum())
     drift = np.sqrt(drift2 / moved2)
-    print(f"train f32 64x64: one step card vs CPU: {n_off} of {n_el} elements more than "
+    print(f"{tag}: one step card vs CPU: {n_off} of {n_el} elements more than "
           f"5% of lr apart, update L2 drift {drift:.4f}", flush=True)
     if n_off > 0.02 * n_el or drift >= 0.5:
         fail(f"f32 one step card vs CPU: {n_off}/{n_el} off, drift {drift}")
 
 
-def check_train_trajectory() -> None:
-    """The f32 train step on the card for 50 steps on the golden 64x64
+def check_train_trajectory(fixture: str = "train_parity") -> None:
+    """The f32 train step on the card for 50 steps on a golden 64x64
     parity case (the golden ``sd0`` weights and batch, pinned boundary
-    noise, constant lr 1e-4, TF32 off), held at the bounds of
+    noise and, for gtc_tt, alpha maps, constant lr 1e-4, TF32 off), held at
+    the bounds of
     tests/test_train_parity.py: step-0 loss within 5e-4 and every loss
     within 5e-3 of the reference's (relative), the final parameter L2
     within rtol 1e-5 of ``param_l2``, the drift from the reference's final
     weights below 0.5 of the distance they moved."""
     import numpy as np
 
-    from tcct_tpu_torch.train import TrainConfig, build_train_step, make_optimizer
+    from tcct_tpu_torch.train import build_train_step, make_optimizer
 
-    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                             "train_parity.npz"))
-    sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
-    m = _port_slice(sd0, "cuda")
-    cfg = TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, udh=True, reg=True, augment=False,
-                      pinned_reg_noise=True)
+    g, sd0, name, cfg = _golden(fixture)
+    m = _port_slice(sd0, "cuda", name)
     step = build_train_step(m, make_optimizer(1, lr=LR, weight_decay=2e-4), cfg, "cuda")
     imgs = np.ascontiguousarray(np.moveaxis(g["x_u8"], 1, -1))
     t0 = time.perf_counter()
@@ -2338,12 +2437,13 @@ def check_train_trajectory() -> None:
             moved2 += float(((ref_final - sd0[k].astype(np.float64)) ** 2).sum())
             drift2 += float(((final[k] - ref_final) ** 2).sum())
     drift = float(np.sqrt(drift2 / moved2))
-    print(f"train f32 64x64, 50 steps on the card: loss rel. error step 0 {rel[0]:.3e} (bound "
-          f"5e-4), max {rel.max():.3e} at step {int(rel.argmax())} (bound 5e-3); param L2 "
+    print(f"train f32 64x64 {name}, 50 steps on the card: loss rel. error step 0 {rel[0]:.3e} "
+          f"(bound 5e-4), max {rel.max():.3e} at step {int(rel.argmax())} (bound 5e-3); param L2 "
           f"{l2:.6f} vs {float(g['param_l2']):.6f}, rel. {l2_rel:.3e} (bound 1e-5); drift "
           f"{drift:.4f} of the distance moved (bound 0.5); {wall:.2f} s", flush=True)
     if not (rel[0] < 5e-4 and rel.max() < 5e-3 and l2_rel <= 1e-5 and drift < 0.5):
-        fail("the 50-step f32 trajectory on the card misses tests/test_train_parity.py's bounds")
+        fail(f"{name}: the 50-step f32 trajectory on the card misses "
+             "tests/test_train_parity.py's bounds")
 
 
 # --- the training entry point: data, augmentation, engine, checkpoints, CLI ----------
@@ -2633,6 +2733,248 @@ def drive_engine(report, card, per_step, per_val_scan):
     print(f"engine: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- the rest of the zoo: gtc_tt training, one step of every model, serving -----------
+
+ZOO_STEPS = (("gtc_tb", "metapool"), ("stc_tb", "metapool"), ("stc_st", "metapool"),
+             ("stc_sb", "metapool"), ("cnnu", "metapool"), ("pnnu", "metapool"),
+             ("vitu", "metapool"), ("msca", "metapool"), ("tcct32", "metapool"),
+             ("relay", "metapool"), ("stc_tt", "factor"), ("stc_tt", "hydra"),
+             ("stc_tt", "metapool2d"))
+ZOO_SERVE = (("msca", "infer", "metapool"), ("tcct32", "t32", "metapool"),
+             ("relay", "infer", "metapool"), ("stc_tt", "infer", "factor"),
+             ("stc_tt", "infer", "hydra"), ("stc_tt", "infer", "metapool2d"))
+
+
+def _zoo_model(name: str, mixer: str = "metapool"):
+    import torch
+
+    from tcct_tpu_torch.models import RegNet, get_model
+    from tcct_tpu_torch.models.layers import init_weights
+
+    variant = "t32" if name == "tcct32" else "train"
+    m = RegNet(get_model(name, TRAIN_NC, variant=variant, drop_path_rate=0.1, mixer=mixer),
+               out_channels=TRAIN_NC)
+    init_weights(m, torch.Generator().manual_seed(SEED))
+    return m
+
+
+def step_tables():
+    """``train_shapes`` of the bf16 stc_tt and gtc_tt train steps at full
+    width (batch 8 at 256x256)."""
+    return tuple(train_shapes(_zoo_model(name), TRAIN_BATCH, TRAIN_HW)
+                 for name in ("stc_tt", "gtc_tt"))
+
+
+def _counted_step(step, imgs, labs, want, what: str):
+    """One step with the launch counts set to 0 just before and read just
+    after, held to ``want``; finite losses.  Returns (metrics, counts, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    metrics, _ = step(imgs, labs)
+    vals = {k: float(v) for k, v in metrics.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    if not all(math.isfinite(v) for v in vals.values()):
+        fail(f"{what}: non-finite loss {vals}")
+    for k, n in counts.items():
+        if n != want.get(k, 0):
+            fail(f"{what}: kernel {k}: {n} launches in one train step, expected "
+                 f"{want.get(k, 0)}")
+    return vals, counts, ms
+
+
+def drive_gtc_train(report, card):
+    """The slice's main path: gtc_tt training at full width.  One bf16 step
+    (batch 8 at 256x256, drive_train's batch, DropPath 0.1, ds + udh + reg)
+    with the launch counts read around it and held to ``train_launches``;
+    the step's eager ms, device busy ms and launches under the CLI's
+    settings for a bf16 run (PyTorch's defaults: cuDNN may use TF32), beside
+    stc_tt's from ``drive_train`` (the gate and the f32 decoder after it);
+    one augmented step (320x320 scans to 256x256 crops) run twice from one
+    state and one generator, bit for bit; one step with cuDNN's TF32 off
+    (this script's setting) and on, bit for bit (the promoted f32 convs
+    pin their own precision); the f32 step against the CPU and the 50-step f32 trajectory on
+    ``train_parity_gtc.npz``; a ``Trainer`` fit (synthetic goals 608x512,
+    debug, 2 epochs of 3 steps with val) with its launches held to the
+    per-step and per-scan tables, and a resume from the epoch-0 checkpoint
+    bit for bit the unbroken run."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data import EyeSet
+    from tcct_tpu_torch.train import TrainConfig, Trainer, build_train_step, make_optimizer
+
+    t_phase = time.perf_counter()
+    model = _zoo_model("gtc_tt")
+    cfg = TrainConfig(crop_hw=TRAIN_HW, n_class=TRAIN_NC, ds=True, udh=True, reg=True,
+                      augment=False, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = build_train_step(model, make_optimizer(1, lr=LR), cfg, device="cuda", generator=gen)
+    imgs, labs = banded_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_NC, SEED)  # drive_train's batch
+    per_step = train_launches(model)
+    vals, counts, ms0 = _counted_step(step, imgs, labs, per_step, "gtc_tt train")
+    print(f"gtc_tt train: step 0 ({ms0:.1f} ms): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in vals.items()), flush=True)
+    print(f"gtc_tt train: launches in one step {counts} (the per-step table)", flush=True)
+    for k, n in per_step.items():
+        if n == 0:
+            fail(f"gtc_tt train: kernel {k} is not on the path")
+    for e in report["kernels"]:
+        e["gtc_step_launches"] = counts[e["name"]]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=True):  # the CLI's bf16 run: PyTorch's defaults
+        times = [_steps_ms(step, [(imgs, labs)], 1) for _ in range(4)]
+        steady = float(np.mean(times[1:]))
+        groups = profile_train_step(lambda: step(imgs, labs), steady, card)
+    stc_ms, stc_groups = report.get("stc_tt_step", (float("nan"), {}))
+    busy = sum(t for t, _ in groups.values())
+    stc_busy = sum(t for t, _ in stc_groups.values())
+    print(f"gtc_tt train [{card}]: bf16 batch {TRAIN_BATCH} at 256x256, the CLI's settings: "
+          f"{steady:.2f} ms/step "
+          f"eager (steps 1-3: {', '.join(f'{t:.2f}' for t in times[1:])}); device busy "
+          f"{busy:.3f} ms in {sum(n for _, n in groups.values())} launches; stc_tt on the same "
+          f"batch in this run: {stc_ms:.2f} ms/step, busy {stc_busy:.3f} ms in "
+          f"{sum(n for _, n in stc_groups.values())} launches", flush=True)
+    for g in sorted(set(groups) | set(stc_groups)):
+        a, b = groups.get(g, (0.0, 0)), stc_groups.get(g, (0.0, 0))
+        print(f"  {a[0] - b[0]:+8.3f} ms {a[1] - b[1]:+6d} launches  gtc_tt - stc_tt: {g}",
+              flush=True)
+    # augmented (320x320 scans to 256x256 crops): the generator draws the crop, the gate, the
+    # DropPath masks and the boundary noise
+    big = banded_batch(TRAIN_BATCH, (320, 320), TRAIN_NC, SEED)
+    off, worst, n = train_repeat(dataclasses.replace(cfg, augment=True), *big, name="gtc_tt")
+    print(f"gtc_tt train: one augmented bf16 step twice from one state and one generator: "
+          f"{n - len(off)} of {n} tensors bitwise equal", flush=True)
+    if off:
+        fail(f"gtc_tt step does not repeat: {len(off)} of {n} tensors differ, by up to "
+             f"{worst:.3e} ({', '.join(off[:8])} ...)")
+    off, worst, n = train_repeat(cfg, imgs, labs, name="gtc_tt", allow_tf32=(False, True))
+    print(f"gtc_tt train: one bf16 step with cuDNN's TF32 off and on: {n - len(off)} of {n} "
+          f"tensors bitwise equal", flush=True)
+    if off:
+        fail(f"gtc_tt step depends on cuDNN's TF32 setting: {len(off)} of {n} tensors differ, "
+             f"by up to {worst:.3e} ({', '.join(off[:8])} ...)")
+    check_train_f32_card_vs_cpu("train_parity_gtc")
+    check_train_trajectory("train_parity_gtc")
+
+    # a Trainer fit of gtc_tt with val, and a bitwise resume
+    root = os.path.join(ENGINE_DIR, "gtc")
+    shutil.rmtree(root, ignore_errors=True)
+    os.environ.pop("TCCT_DATA_ROOT", None)
+    ds = EyeSet.load(ENGINE_DB)
+    ecfg = _engine_cfg()
+
+    def trainer(sub):
+        tr = Trainer(_zoo_model("gtc_tt"), ds, ecfg, root=os.path.join(root, sub),
+                     bs=ENGINE_BATCH, device="cuda", debug=True)
+        tr.steps_per_epoch = 3
+        return tr
+
+    a = trainer("a")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    a.fit(epochs=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counters()
+    scans = 2 * min(ds.splits["val"][0].shape[0], 9)
+    per_scan = expected_launches(a.model, 1, ds.splits["val"][0].shape[1:3], False)
+    want = {k: 6 * per_step.get(k, 0) + scans * per_scan.get(k, 0) for k in counts}
+    lines = [json.loads(x) for x in open(os.path.join(a.root, "metrics.jsonl"))]
+    print(f"gtc_tt engine: fit 2 epochs x 3 steps + val ({fit_s:.2f} s): "
+          + "; ".join(f"epoch {x['epoch']}: total {x['total']:.5f}, val_f1s {x['val_f1s']:.5f}"
+                      for x in lines) + f"; launches {counts}", flush=True)
+    if counts != want:
+        fail(f"gtc_tt engine: launches {counts}, expected {want}")
+    if [x["epoch"] for x in lines] != [0, 1] or not all(
+            math.isfinite(x[k]) for x in lines for k in ("total", "los", "udh", "reg", "val_f1s")):
+        fail(f"gtc_tt engine: the fit logged {lines}")
+    b = trainer("b")
+    b.fit(epochs=1)
+    b = trainer("b")
+    if not b.resume("last") or b.state.epoch != 1:
+        fail("gtc_tt engine: resume from the epoch-0 checkpoint failed")
+    b.fit(epochs=2)
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    off = [k for k in ta if k not in tb or not torch.equal(ta[k], tb[k])]
+    print(f"gtc_tt engine: resume: {len(ta) - len(off)} of {len(ta)} state tensors bitwise equal "
+          f"to the unbroken run", flush=True)
+    if off or ta.keys() != tb.keys():
+        fail(f"gtc_tt engine: resume is not bitwise: {len(off)} tensors differ "
+             f"({', '.join(off[:8])})")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"gtc_tt train: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def drive_zoo_steps(card):
+    """One bf16 train step of every other model and mixer at full width
+    (batch 8 at 256x256, DropPath 0.1, ds + udh + reg): finite losses and
+    the launch counts of ``train_launches``; the step's ms."""
+    import torch
+
+    from tcct_tpu_torch.train import TrainConfig, build_train_step, make_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(crop_hw=TRAIN_HW, n_class=TRAIN_NC, ds=True, udh=True, reg=True,
+                      augment=False, dtype=torch.bfloat16)
+    imgs, labs = banded_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_NC, SEED)
+    for name, mixer in ZOO_STEPS:
+        model = _zoo_model(name, mixer)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        step = build_train_step(model, make_optimizer(1, lr=LR), cfg, device="cuda",
+                                generator=gen)
+        what = f"{name} ({mixer})" if name != "relay" else name
+        vals, counts, ms0 = _counted_step(step, imgs, labs, train_launches(model), what)
+        ms1 = _steps_ms(step, [(imgs, labs)], 1)
+        n_par = sum(p.numel() for p in model.parameters()) / 1e6
+        print(f"zoo train [{card}]: {what}, {n_par:.2f} M parameters, bf16 batch {TRAIN_BATCH} "
+              f"at 256x256: total {vals['total']:.5f}, launches "
+              f"{ {k: n for k, n in counts.items() if n} }, {ms0:.1f} ms first step, "
+              f"{ms1:.2f} ms second", flush=True)
+        del model, step
+    print(f"zoo train: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def drive_zoo_serving(card):
+    """One duke serving batch (bf16, batch 8) of each model and mixer this
+    slice adds, through ``load_predictor``, the launch counts held to
+    ``expected_launches``; the f32 model on the card against the CPU path
+    (``check_card_vs_cpu``); eager and replayed ms."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    t_phase = time.perf_counter()
+    H, W = get_geometry(DB).prep_hw
+    vol = np.random.default_rng(SEED).integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    xb = torch.from_numpy(vol).cuda()
+    for name, variant, mixer in ZOO_SERVE:
+        what = f"{name} {variant} ({mixer})" if name != "relay" else name
+        kw = dict(net=name, variant=variant, mixer=mixer, batch_size=BATCH, device="cuda",
+                  seed=SEED)
+        pred = load_predictor(DB, dtype=torch.bfloat16, **kw)
+        seg, counts = serve_checked(pred, vol, what)
+        eager, graph, peak = batch_times(pred, xb, 5)
+        print(f"zoo serving [{card}]: {what} duke bf16 batch {BATCH}: classes "
+              f"{np.unique(seg).tolist()}, launches { {k: n for k, n in counts.items() if n} }, "
+              f"{eager:.3f} ms eager, {graph:.3f} ms replayed "
+              f"({BATCH / graph * 1e3:.1f} B-scans/s), peak {peak:.2f} GiB", flush=True)
+        del pred
+        pred32 = load_predictor(DB, dtype=torch.float32, **kw)
+        check_card_vs_cpu(pred32, what)
+        del pred32
+    print(f"zoo serving: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2677,20 +3019,15 @@ def main() -> int:
     vit = MPViTConfig()
     serve = path_shapes(vit, BATCH, get_geometry(DB).prep_hw)
     serve_small = path_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw)
-    train = train_shapes(vit, TRAIN_BATCH, TRAIN_HW, TRAIN_NC)
+    train, gtc = step_tables()
     report = {"per_batch_launches": {"metapool_block": sum(serve[0].values()),
                                      "dwconv3x3_s1": sum(serve[1].values()),
                                      "dwconv3x3_s2": sum(serve[2].values())}}
-    per_step = {"mp": sum(train["mp"].values()), "s1": sum(train["s1"].values()),
-                "s2": sum(train["s2"].values()), "bn": sum(train["bn"].values())}
-    train_counts = {"metapool_tokens": per_step["mp"], "metapool_tokens_backward": per_step["mp"],
-                    "dwconv3x3_s1": per_step["s1"], "dwconv3x3_backward_s1": per_step["s1"],
-                    "dwconv3x3_s2": per_step["s2"], "dwconv3x3_backward_s2": per_step["s2"],
-                    "bn_act_train": per_step["bn"], "bn_act_train_backward": per_step["bn"]}
+    train_counts = train_launches(_zoo_model("stc_tt"))
     print(f"kernels vs plain versions at the {DB} serving shapes (batch {BATCH}) and the "
-          f"train-step shapes (batch {TRAIN_BATCH}, {TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:",
-          flush=True)
-    bench_kernels(report, kernel_tables(serve, train, serve_small))
+          f"stc_tt and gtc_tt train-step shapes (batch {TRAIN_BATCH}, "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:", flush=True)
+    bench_kernels(report, kernel_tables(serve, train, serve_small, gtc))
     check_bn_capture()
     bench_convposenc_backward(report, card, cpe_shapes(vit, TRAIN_BATCH, TRAIN_HW))
     bench_dwconv_variants(card)
@@ -2708,6 +3045,9 @@ def main() -> int:
     drive_train(report, card, train_counts)
     check_train_trajectory()
     drive_engine(report, card, train_counts, report["per_batch_launches"])
+    drive_gtc_train(report, card)
+    drive_zoo_steps(card)
+    drive_zoo_serving(card)
 
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

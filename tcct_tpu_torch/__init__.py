@@ -1,13 +1,15 @@
 """tcct_tpu_torch — the PyTorch/CUDA port of the OCT retinal-layer
 segmentation framework, for one NVIDIA H100 (Hopper, sm_90a).
 
-It serves the FTC model family (``stc_*``, ``gtc_*``, ``cnnu``, ``pnnu``,
-``vitu``; MetaPool mixer) wrapped in ``RegNet``, and trains ``stc_tt`` from
-the JAX package's CLI surface:
+It serves and trains the JAX package's model zoo (the FTC family ``stc_*``,
+``gtc_*``, ``cnnu``, ``pnnu``, ``vitu``, ``msca``, ``tcct32`` with every token
+mixer, and the ReLayNet baseline ``relay``) wrapped in ``RegNet``, from the
+JAX package's CLI surface:
 
-- ``models`` — MPViT + CrossCNN dual-branch FTC, ``RegNet`` wrapper,
-  registry; module and parameter names follow the reference torch
-  state-dict names, so the shipped ``.pt`` checkpoints load directly.
+- ``models`` — MPViT + CrossCNN dual-branch FTC, ReLayNet, MSCA, the
+  ``RegNet`` wrapper, the registry; module and parameter names follow the
+  reference torch state-dict names, so the shipped ``.pt`` checkpoints load
+  directly.
 - ``ops``    — plain PyTorch ops (pooling, resize) and the hand-written
   CUDA kernels (``ops/kernels``: MetaPool token mixer, depthwise 3x3,
   train-mode BatchNorm, fused CrossCNN block).

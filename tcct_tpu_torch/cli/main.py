@@ -5,13 +5,13 @@ reference's surface (task1/kite/main.py:18-49):
 
 It takes every flag of the JAX CLI with the same defaults, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels).  Differences from the JAX CLI:
+kernels), and trains every name of the registry (``--net``) with every
+mixer (``--mixer``).  Differences from the JAX CLI:
 
 - ``--packed_cnn=true`` raises: the space-to-depth lowering is the TPU's
   lane layout (the default, auto, is off here);
-- the ``factor``, ``hydra`` and ``metapool2d`` mixers and gated fusion
-  (``gtc_*``) in training raise (ROADMAP A.6); ``metapool_pallas`` names
-  the MetaPool mixer, whose kernel runs on the card either way;
+- ``metapool_pallas`` names the MetaPool mixer, whose kernel runs on the
+  card either way;
 - ``--pl`` is accepted and one device is used (data parallelism is ROADMAP
   A.7); ``--gpu`` is ignored, as in the JAX CLI.
 """
@@ -97,9 +97,6 @@ def main(argv=None):
     print("OUT-CHANNELS:", nc, "| synthetic:", dataset.synthetic, flush=True)
 
     base = get_model(args.net, nc, variant=args.variant, mixer=args.mixer)
-    if getattr(base, "flag_gate", False):
-        raise NotImplementedError(f"--net {args.net}: gated fusion in training (the random alpha "
-                                  "map) is not ported yet: ROADMAP A.6")
     net = RegNet(base=base, out_channels=nc, con=args.type_udh)
     cfg = TrainConfig(
         loss="di" if args.los in ("di", "dice") else "mse",

@@ -27,17 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
-
-
-def _nearest_idx(in_size: int, out_size: int) -> np.ndarray:
-    # nearest: src = floor(i * in / out)
-    i = np.arange(out_size, dtype=np.float64)
-    return np.minimum((i * in_size / out_size).astype(np.int64), in_size - 1)
-
-
-def resize_nearest(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """Nearest-neighbour resize of an [H, W, ...] array to ``hw``."""
-    return img[_nearest_idx(img.shape[0], hw[0])][:, _nearest_idx(img.shape[1], hw[1])]
+from tcct_tpu_torch.ops.resize import resize_nearest
 
 
 def prep(geo: DatasetGeometry, img: np.ndarray,

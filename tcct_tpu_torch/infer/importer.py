@@ -23,13 +23,14 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from tcct_tpu_torch.models.ftc import unused_prefixes
+from tcct_tpu_torch.models.ftc import never_run, unused_prefixes
 
 _LEAVES = {
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("params", "prelu"): "prelu.weight",  # ReLayNet's bare PReLU slope, an nn.PReLU here
 }
 # flax names that are not "<name>_<index>" merges
 _SPECIAL = {"cls_head_cls": "cls_head.cls", "fcp_buf_grad": "fcp.buf_grad"}
@@ -39,9 +40,12 @@ _SKIP_PATTERNS = ("aug.", "fcp.ies", "fcp.jes")
 
 def _unmerge(name: str) -> str:
     """flax module name -> torch path: ``patch_embeds_0_patch_conv`` ->
-    ``patch_embeds.0.patch_conv``, ``tran_vit0_1`` -> ``tran_vit0.1``."""
+    ``patch_embeds.0.patch_conv``, ``tran_vit0_1`` -> ``tran_vit0.1``;
+    MSCA's ``conv0_1`` ... are torch attribute names and stay."""
     if name in _SPECIAL:
         return _SPECIAL[name]
+    if re.fullmatch(r"conv\d_\d", name):
+        return name
     return re.sub(r"_(\d+)(_|$)", lambda m: "." + m.group(1) + ("." if m.group(2) else ""), name)
 
 
@@ -75,10 +79,11 @@ def from_jax_variables(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     a ``ShiftConv3x3`` kernel ``(3,3,1,C)`` becomes ``[C,1,3,3]`` like any
     conv), ``tau``, the BN statistics and ``prototypes/fcp_buf_grad`` as
     ``fcp.buf_grad``.  Only what the JAX variables hold is returned:
-    parameters the JAX model never created (the CRPE convs and ``cls_head``
-    it never runs, ``fuse``; the loss heads of a serving model) and
+    parameters the JAX model never created (``cls_head`` and, with the
+    MetaPool mixers, the CRPE convs it never runs, ``fuse``; the loss heads
+    and ReLayNet's feats heads of a serving model) and
     ``num_batches_tracked`` are absent, so load the result with
-    ``load_state_dict(..., strict=False)``."""
+    ``load_state_dict(..., strict=False)`` or :func:`load_into`."""
     out: Dict[str, torch.Tensor] = {}
     layers: Dict[str, set] = {}
     for k in flat:
@@ -123,9 +128,6 @@ def load_reference_pt(path: str) -> Dict[str, torch.Tensor]:
             if not any(p in k for p in _SKIP_PATTERNS)}
 
 
-# never read by any forward: the CRPE convs and the classifier of the MetaPool
-# MPViT, BatchNorm's step counter
-_NEVER_RUN = ("crpe.", "cls_head.", "num_batches_tracked")
 # the RegNet wrapper's loss heads: the serving forward does not read them
 _LOSS_HEADS = ("lap_", "fcp.", "tau")
 
@@ -137,13 +139,18 @@ def load_into(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> Tuple[l
     What the forward reads follows the model's flags
     (``FTC.unused_prefixes``): a ``cnnu`` may come without its ViT branch
     and a ``vitu`` without its CNN projections, as the JAX package's
-    variables do, while a model that runs both branches may not."""
+    variables do, while a model that runs both branches may not.  Never
+    needed: BatchNorm's step counter, what no forward runs (``never_run``:
+    the CRPE convs unless the mixer runs them, the classifier), the heads
+    that only form the polarization feats (ReLayNet's) and the RegNet
+    wrapper's loss heads."""
     res = model.load_state_dict(state, strict=False)
-    unused = unused_prefixes(model)
+    unused = unused_prefixes(model, serving=True)
     if getattr(model, "base", model) is not model:
         unused += _LOSS_HEADS
+    dead = never_run(model) + ("num_batches_tracked",)
     needed = [k for k in res.missing_keys
-              if not k.startswith(unused) and not any(u in k for u in _NEVER_RUN)]
+              if not k.startswith(unused) and not any(p in dead for p in k.split("."))]
     if needed:
         raise KeyError(f"weights missing for the forward pass: {needed[:8]}")
     return res.missing_keys, res.unexpected_keys

@@ -99,8 +99,10 @@ def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",
                    seed: int = 0) -> VolumePredictor:
     """Predictor for dataset ``db`` running ``RegNet(net, variant)``:
     weights from a reference ``.pt`` file, or seeded random-init weights
-    when ``pt_path`` is None.  ``net`` is a registry name
-    (``models/registry.py``); ``cnn_impl`` is ``'plain'`` or ``'fused'``."""
+    when ``pt_path`` is None.  ``net`` is any registry name
+    (``models/registry.py``; ``relay`` ignores ``variant`` and ``mixer``,
+    ``tcct32`` serves its own architecture with ``variant='t32'``);
+    ``cnn_impl`` is ``'plain'`` or ``'fused'`` (an FTC model without MSCA)."""
     from tcct_tpu_torch.infer.importer import load_into, load_reference_pt
     from tcct_tpu_torch.models import RegNet, get_model
     from tcct_tpu_torch.models.layers import init_weights

@@ -25,6 +25,15 @@ def _uniform_like(generator: Optional[torch.Generator], shape, device) -> torch.
     return torch.rand(shape, generator=generator, device=device)
 
 
+def soft_argmax(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
+    """Differentiable argmax over the class (last) axis (reference
+    nets/reg.py:27-35): the expected class index under ``softmax(x *
+    beta)``, [B, H, W, 1]."""
+    soft = torch.clamp(torch.softmax(x * beta, dim=-1), 0.0, 1.0)
+    idx = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device)
+    return torch.sum(soft * idx, dim=-1, keepdim=True)
+
+
 def sampling_softmax(x: torch.Tensor, generator: Optional[torch.Generator] = None,
                      eps_floor: float = 1e-20) -> torch.Tensor:
     """Gumbel-perturbed softmax over height, renormalised (reference
@@ -33,6 +42,14 @@ def sampling_softmax(x: torch.Tensor, generator: Optional[torch.Generator] = Non
     g = x - torch.log(-torch.log(torch.clamp(u, min=eps_floor))) / 2.0
     g = torch.softmax(g, dim=1)
     return g / (1e-6 + torch.sum(g, dim=1, keepdim=True))
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with the JAX package's derivative at 0, 1 (``jnp.abs``), where
+    ``torch.abs`` has 0.  The Laplacian of a one-hot map is exactly 0 wherever
+    a class is absent from the window while its biases are 0, as they are at
+    init, so the two differ there."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _mse(a, b):
@@ -53,8 +70,8 @@ def boundary_regression_loss(pred: torch.Tensor, true: torch.Tensor, lap_reg: Ca
     d = torch.cat([torch.zeros_like(d[:, :1]), d], dim=1)
     prob_true = torch.clamp(torch.sum(d, dim=-1, keepdim=True), max=1.0)
 
-    pseu_pred = torch.abs(lap_reg(pred))
-    pseu_true = torch.abs(lap_reg(true))
+    pseu_pred = _abs(lap_reg(pred))
+    pseu_true = _abs(lap_reg(true))
     pseu_pred = lap_map(torch.sum(sampling_softmax(pseu_pred, generator), dim=-1, keepdim=True))
     pseu_true = lap_map(torch.sum(sampling_softmax(pseu_true, generator), dim=-1, keepdim=True))
 

@@ -9,13 +9,14 @@ an inverse-permutation rank and a segment sum, here in a fixed order
 without float atomics, so that a train step repeats bit for bit on the
 card.  The sort must be stable: ``jnp.argsort`` is, and bf16
 probabilities tie often.  The prototypes are the model's frozen
-``fcp.buf_grad`` buffer.
+``fcp.buf_grad`` buffer, drawn by :func:`polar_prototypes` or
+self-optimized by :func:`optimize_prototypes`.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -82,6 +83,61 @@ def polar_prototypes(num_cls: int, num_emb: int, generator: torch.Generator) -> 
     ``generator`` (the JAX package draws them with ``jax.random``)."""
     vec = torch.rand((num_cls, num_emb), generator=generator)
     return vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+
+
+def _uniformity_loss(vec: torch.Tensor) -> torch.Tensor:
+    v = vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+    return torch.mean(torch.log(torch.mean(torch.exp(v @ v.T), dim=-1)))
+
+
+def refine_prototypes(vec0: torch.Tensor, steps: int = 333, lr: float = 1e-2,
+                      weight_decay: float = 2e-4) -> torch.Tensor:
+    """The reference's ``init=True`` self-optimization (fcp.py:36-57) from
+    the rows ``vec0``: Adam on the log-mean-exp uniformity loss with decay
+    ``weight_decay * vec`` added to the gradient and a reduce-on-plateau
+    learning rate (factor 0.7, patience 2, cooldown 2, relative threshold
+    1e-4, floor 1e-5), for a fixed number of steps, then the rows
+    L2-normalised (JAX ``tcct_tpu/losses/polar.py::optimize_prototypes``).
+    The plateau state stays in 0-d tensors, so no step reads the device."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    vec = vec0.float().clone()
+    m, v = torch.zeros_like(vec), torch.zeros_like(vec)
+    dev = vec.device
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+    best = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    cool = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(steps):
+        with torch.enable_grad():
+            x = vec.detach().requires_grad_(True)
+            loss = _uniformity_loss(x)
+            (g,) = torch.autograd.grad(loss, x)
+        loss = loss.detach()
+        g = g + weight_decay * vec
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        t = i + 1
+        vec = vec - lr_t * (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps)
+        improved = loss < best * (1 - 1e-4)
+        best = torch.where(improved, loss, best)
+        bad = torch.where(improved | (cool > 0), 0, bad + 1)
+        cool = torch.clamp(cool - 1, min=0)
+        reduce = (bad > 2) & (cool == 0)
+        lr_t = torch.where(reduce, torch.clamp(lr_t * 0.7, min=1e-5), lr_t)
+        bad = torch.where(reduce, 0, bad)
+        cool = torch.where(reduce, 2, cool)
+    return vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+
+
+def optimize_prototypes(num_cls: int, num_emb: int = 32,
+                        generator: Optional[torch.Generator] = None, steps: int = 333,
+                        lr: float = 1e-2, weight_decay: float = 2e-4) -> torch.Tensor:
+    """Self-optimized prototypes: U[0, 1) rows drawn from ``generator`` (on
+    the device the result lives on), refined by :func:`refine_prototypes`
+    (the JAX package draws the rows with ``jax.random``)."""
+    device = generator.device if generator is not None else None
+    vec0 = torch.rand((num_cls, num_emb), generator=generator, device=device)
+    return refine_prototypes(vec0, steps, lr, weight_decay)
 
 
 def cosinesim_loss(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from tcct_tpu_torch.models.layers import BatchNorm2d, conv2d, gelu, init_weights
+from tcct_tpu_torch.models.msca import MSCA
 from tcct_tpu_torch.ops.kernels.crosscnn_fused import fold_bn, fused_cross_block
 from tcct_tpu_torch.ops.pool import max_pool_2d
 
@@ -74,11 +75,15 @@ class CrossCNNBlock(nn.Module):
 class CrossResNet(nn.Module):
     """5-level cross-conv pyramid (reference tcct.py:857-885).  ``tiny``
     gives channels (32,)*5, else (32, 64, 96, 128, 256); ``plain`` gives
-    every block k = 3.  Returns the 5 pre-pool feature maps (NCHW)."""
+    every block k = 3; ``msca`` adds an MSCA attention ``att.i`` after
+    block i (the ``msca`` model).  Returns the 5 pre-pool feature maps
+    (NCHW)."""
 
-    def __init__(self, tiny: bool = True, in_ch: int = 3, plain: bool = False):
+    def __init__(self, tiny: bool = True, in_ch: int = 3, plain: bool = False,
+                 msca: bool = False):
         super().__init__()
         self.layer_dims = (32, 32, 32, 32, 32) if tiny else (32, 64, 96, 128, 256)
+        self.msca = msca
         dims = self.layer_dims
         self.cnn = nn.Sequential(conv2d(in_ch, dims[0], 3, 1, 1), BatchNorm2d(dims[0]))
         cins = (dims[0],) + dims[:-1]
@@ -86,12 +91,16 @@ class CrossResNet(nn.Module):
             CrossCNNBlock(cins[i], dims[i], k, plain=plain)
             for i, k in enumerate((13, 11, 9, 7, 5))
         )
+        if msca:  # the MSCA attention after every block
+            self.att = nn.ModuleList(MSCA(d) for d in dims)
 
     def forward(self, x):
         x = self.cnn(x)
         xs = []
         for i, block in enumerate(self.path_estan):
             x = block(x)
+            if self.msca:
+                x = self.att[i](x)
             xs.append(x)
             if i < len(self.path_estan) - 1:
                 x = max_pool_2d(x, 2)

@@ -13,7 +13,11 @@ Numerics follow the JAX package (``tcct_tpu/models/layers.py``):
   and the running statistics follow flax's EMA (momentum 0.9, biased
   variance);
 - GELU is the exact erf form in f32 and the tanh form in bf16;
-- Hardswish, LeakyReLU(0.01), LayerNorm eps 1e-6.
+- Hardswish, LeakyReLU(0.01), LayerNorm eps 1e-6;
+- a conv whose input is wider than its compute weights (f32 maps after a
+  trained gate, bf16 weights) promotes the weights to the input's dtype,
+  as flax does (:func:`promoted`), and runs in full f32 (no TF32);
+  BatchNorm runs in the input's dtype whatever its weights' type.
 
 Train mode is ``module.train()``.  A train step runs its forward inside
 :func:`train_pass`, which hands the model's DropPaths their generator and
@@ -29,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
 from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3
@@ -44,6 +49,62 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=1e-6)
+
+
+def promoted(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t`` cast to x's dtype where x's is the wider (a bf16 weight before
+    an f32 input), else ``t``: flax's ``promote_dtype``, which the JAX
+    package's convs apply to their bf16 compute weights after the gated
+    fusion has widened the maps to f32 (``models/ftc.py::gate_fusion``)."""
+    if t is None or t.dtype == x.dtype or torch.promote_types(t.dtype, x.dtype) != x.dtype:
+        return t
+    return t.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _full_f32_cudnn(deterministic: bool = False):
+    """cuDNN's convs in full f32 (TF32 off), and deterministic if asked,
+    whatever the caller has set; the caller's settings come back after."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = prev[1] or deterministic
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = prev
+
+
+class _PromotedConv(torch.autograd.Function):
+    """``F.conv2d`` of an input wider than the layer's compute weights (the
+    weights already promoted).  Forward and backward run in full f32, TF32
+    off whatever the caller set (PyTorch lets cuDNN use TF32 by default):
+    the maps a trained gate widens are f32 in the JAX package, and the port
+    holds them to its f32 results.  The backward runs cuDNN's deterministic
+    algorithms: its default f32 weight-gradient algorithm adds with float
+    atomics, so a gated step would not repeat, or resume, bit for bit.  The
+    bf16 convs keep cuDNN's default choice, which repeats."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+        ctx.bias = b is not None
+        with _full_f32_cudnn():
+            return F.conv2d(x, w, b, stride, padding, dilation, groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        wants = ctx.needs_input_grad
+        mask = (wants[0], wants[1], ctx.bias and wants[2])
+        with _full_f32_cudnn(deterministic=True):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, w, [w.shape[0]] if ctx.bias else None, stride, padding, dilation, False,
+                [0, 0], groups, mask)
+        return gx, gw, gb, None, None, None, None
 
 
 class Conv2d(nn.Conv2d):
@@ -72,7 +133,12 @@ class Conv2d(nn.Conv2d):
 
     def _conv(self, x: torch.Tensor, residual: bool) -> torch.Tensor:
         if not self._depthwise3x3(x):
-            y = super().forward(x)
+            w = promoted(self.weight, x)
+            if w is self.weight:
+                y = self._conv_forward(x, w, self.bias)
+            else:
+                y = _PromotedConv.apply(x, w, promoted(self.bias, x), self.stride, self.padding,
+                                        self.dilation, self.groups)
             return y + x if residual else y
         taps = self.weight[:, 0].permute(1, 2, 0).to(x.dtype)  # [C,1,3,3] -> [3,3,C]
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -90,13 +156,15 @@ class _TrainPass:
 
 @contextlib.contextmanager
 def train_pass(model: nn.Module, generator: Optional[torch.Generator] = None):
-    """One train-mode forward of ``model``: its DropPaths draw their masks
-    from ``generator``, and each of its train-mode BatchNorms puts its new
-    running statistics (f32 ``(mean, var)``) into the yielded dict, keyed by
-    module, instead of updating its buffers.  A BN run twice in the pass
-    updates from its first result, as flax's mutable ``batch_stats`` does."""
+    """One train-mode forward of ``model``: its DropPaths (and a gated FTC's
+    fusion, ``models/ftc.py``) draw from ``generator``, and each of its
+    train-mode BatchNorms puts its new running statistics (f32 ``(mean,
+    var)``) into the yielded dict, keyed by module, instead of updating its
+    buffers.  A BN run twice in the pass updates from its first result, as
+    flax's mutable ``batch_stats`` does.  The modules that take part are
+    those whose class declares a ``train_pass`` attribute."""
     ctx = _TrainPass(generator)
-    mods = [m for m in model.modules() if isinstance(m, (BatchNorm2d, DropPath))]
+    mods = [m for m in model.modules() if hasattr(type(m), "train_pass")]
     for m in mods:
         m.train_pass = ctx
     try:

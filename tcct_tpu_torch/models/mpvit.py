@@ -1,17 +1,30 @@
-"""MPViT multi-path transformer branch with the MetaPool token mixer
-(reference task1/nets/tcct.py:29-800; JAX counterpart
-``tcct_tpu/models/mpvit.py``).
+"""MPViT multi-path transformer branch (reference task1/nets/tcct.py:29-800;
+JAX counterpart ``tcct_tpu/models/mpvit.py``).
 
-Only the ``metapool`` mixer is ported: the 3x3 average pool over the
-*(token, channel)* axes of the [B, N, C] tokens minus identity, which is
-what the shipped checkpoints were trained with.  It runs the MetaPool
-kernel (``ops/kernels/metapool.py``); an eval block with no gradient wanted
-runs its whole token pass around the mixer (``norm1``, the mixer, the
-residual add, ``norm2``) as one launch of it (``metapool_block``).  Every
+The token mixer is ``MPViTConfig.mixer``, as in the JAX package:
+
+- ``metapool`` (alias ``metapool_pallas``) — the 3x3 average pool over the
+  *(token, channel)* axes of the [B, N, C] tokens minus identity, which is
+  what the shipped checkpoints were trained with.  It runs the MetaPool
+  kernel (``ops/kernels/metapool.py``); an eval block with no gradient
+  wanted runs its whole token pass around the mixer (``norm1``, the mixer,
+  the residual add, ``norm2``) as one launch of it (``metapool_block``).
+- ``metapool2d`` — the PoolFormer spatial pool the reference meant
+  (``ops/pool.py::metapool_spatial``); not checkpoint compatible.
+- ``factor`` — factorized attention, softmax(K)^T V then Q (K^T V), plus
+  the convolutional relative position encoding (CRPE).
+- ``hydra`` — hydra attention on cosine-normalised Q and K, plus the CRPE.
+
+With ``factor`` and ``hydra`` the CRPE's head split (the reference's
+{3: 2, 5: 3, 7: 3} for 8 heads) is refit to the stage's head count
+(:func:`_fit_crpe_window`), as the JAX package does; its window-3 convs are
+depthwise 3x3 and run the depthwise kernel, its 5x5 and 7x7 convs cuDNN.
+The einsums and softmaxes run in the compute dtype, as JAX's do.  Every
 depthwise 3x3 of the branch runs the depthwise kernel through
 ``layers.Conv2d``.
 
-The CRPE convs and the classification head exist for state-dict
+With the MetaPool mixers the CRPE convs (at the reference's split) and
+with every mixer the classification head exist for state-dict
 compatibility with the reference and are never run.  In train mode the
 blocks' DropPath rates rise linearly from 0 to ``drop_path_rate``
 (:func:`dpr_schedule`).
@@ -36,6 +49,11 @@ from tcct_tpu_torch.models.layers import (
     layer_norm,
 )
 from tcct_tpu_torch.ops.kernels.metapool import metapool_block, metapool_tokens
+from tcct_tpu_torch.ops.pool import metapool_spatial
+
+MIXERS = ("metapool", "metapool_pallas", "metapool2d", "factor", "hydra")
+CRPE_MIXERS = ("factor", "hydra")  # the mixers that run the CRPE
+_METAPOOL = ("metapool", "metapool_pallas")  # the MetaPool kernel's mixer, by both names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +68,13 @@ class MPViTConfig:
     mlp_ratios: Tuple[int, ...] = (1, 1, 1, 1)
     num_heads: Tuple[int, ...] = (4, 4, 4, 4)
     drop_path_rate: float = 0.1
+    mixer: str = "metapool"  # one of MIXERS
     # reference crpe head-split table (tcct.py:482-486): {window: heads}
     crpe_window: Tuple[Tuple[int, int], ...] = ((3, 2), (5, 3), (7, 3))
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {self.mixer!r}; have {MIXERS}")
 
 
 def mpvit_tiny_config(**kw) -> MPViTConfig:
@@ -107,10 +130,27 @@ class ConvPosEnc(nn.Module):
         return image_to_tokens(self.proj.plus_input(feat))
 
 
+def _fit_crpe_window(window, num_heads: int):
+    """Rescale a ((window, heads), ...) split so the heads sum to
+    ``num_heads``: proportionally, floored, the remainder to the largest
+    fractional parts (JAX ``tcct_tpu/models/mpvit.py::_fit_crpe_window``)."""
+    total = sum(hs for _, hs in window)
+    if total == num_heads:
+        return window
+    raw = [(w, hs * num_heads / total) for w, hs in window]
+    out = [[w, max(int(f), 0)] for w, f in raw]
+    rem = num_heads - sum(hs for _, hs in out)
+    order = sorted(range(len(raw)), key=lambda i: raw[i][1] - int(raw[i][1]), reverse=True)
+    for i in range(rem):
+        out[order[i % len(out)]][1] += 1
+    return tuple((w, hs) for w, hs in out if hs > 0)
+
+
 class ConvRelPosEnc(nn.Module):
-    """CRPE parameters (reference tcct.py:219-287).  The MetaPool mixer
-    never applies them; they exist so the state dict matches the
-    reference's."""
+    """Convolutional relative position encoding (reference tcct.py:219-287):
+    per head group a depthwise conv of V (window 3, 5 or 7), gating Q.  The
+    MetaPool mixers never apply it; it then exists so the state dict
+    matches the reference's."""
 
     def __init__(self, ch_per_head: int, window):
         super().__init__()
@@ -119,27 +159,100 @@ class ConvRelPosEnc(nn.Module):
             for win, hs in window
         )
 
+    def forward(self, q, v, size):
+        """q, v: [B, heads, N, Ch] -> ``q * conv(v)``, the same shape."""
+        B, h, N, Ch = q.shape
+        v_img = tokens_to_image(v.transpose(1, 2).reshape(B, N, h * Ch), size)
+        outs, off = [], 0
+        for conv in self.conv_list:
+            outs.append(conv(v_img[:, off:off + conv.in_channels]))
+            off += conv.in_channels
+        conv_v = image_to_tokens(torch.cat(outs, dim=1)).reshape(B, N, h, Ch).transpose(1, 2)
+        return q * conv_v
+
+
+def _heads(qkv: torch.Tensor, num_heads: int):
+    """[B, N, 3C] -> q, k, v, each [B, heads, N, C // heads]."""
+    B, N, C3 = qkv.shape
+    return qkv.reshape(B, N, 3, num_heads, C3 // (3 * num_heads)).permute(2, 0, 3, 1, 4)
+
+
+def _merge_heads(att: torch.Tensor) -> torch.Tensor:
+    B, h, N, ch = att.shape
+    return att.transpose(1, 2).reshape(B, N, h * ch)
+
+
+class FactorAttention(nn.Module):
+    """Factorized attention: softmax over tokens of K, ``kv = K^T V``,
+    ``Q kv`` scaled, plus the CRPE (reference tcct.py:289-341)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, size, crpe: ConvRelPosEnc):
+        q, k, v = _heads(self.qkv(x), self.num_heads)
+        kv = torch.einsum("bhnk,bhnv->bhkv", torch.softmax(k, dim=2), v)
+        att = torch.einsum("bhnk,bhkv->bhnv", q, kv)
+        att = q.shape[-1] ** -0.5 * att + crpe(q, v, size)
+        return self.proj(_merge_heads(att))
+
+
+class HydraAttention(nn.Module):
+    """Hydra attention: Q and K normalised to unit rows, ``kv = sum_n k *
+    v``, ``q * kv`` scaled, plus the CRPE on the normalised Q (reference
+    tcct.py:343-403)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, size, crpe: ConvRelPosEnc):
+        q, k, v = _heads(self.qkv(x), self.num_heads)
+        q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
+        k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
+        att = q * torch.sum(k * v, dim=-2, keepdim=True)
+        att = q.shape[-1] ** -0.5 * att + crpe(q, v, size)
+        return self.proj(_merge_heads(att))
+
 
 class MHCABlock(nn.Module):
-    """Pre-norm MetaPool mixer + MLP block with the encoder's shared
-    CPE/CRPE (reference tcct.py:417-469)."""
+    """Pre-norm mixer + MLP block with the encoder's shared CPE/CRPE
+    (reference tcct.py:417-469).  ``att`` exists for the attention mixers
+    only."""
 
-    def __init__(self, dim, mlp_ratio, cpe, crpe, drop_path: float = 0.0):
+    def __init__(self, dim, mlp_ratio, cpe, crpe, drop_path: float = 0.0,
+                 mixer: str = "metapool", num_heads: int = 4):
         super().__init__()
+        self.mixer = mixer
         self.cpe = cpe
         self.crpe = crpe
+        if mixer in CRPE_MIXERS:
+            self.att = (FactorAttention if mixer == "factor" else HydraAttention)(dim, num_heads)
         self.norm1 = layer_norm(dim)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
         self.drop_path = DropPath(drop_path)
 
+    def _mix(self, x, size):
+        if self.mixer in _METAPOOL:
+            return metapool_tokens(x)
+        if self.mixer == "metapool2d":
+            return metapool_spatial(x, size)
+        return self.att(x, size, self.crpe)
+
     def forward(self, x, size):
         x = self.cpe(x, size)
-        if not self.training and not torch.is_grad_enabled():  # serving: one launch
+        if self.mixer in _METAPOOL and not self.training and not torch.is_grad_enabled():
+            # serving: one launch
             x, n2 = metapool_block(x, self.norm1.weight, self.norm1.bias, self.norm2.weight,
                                    self.norm2.bias, self.norm1.eps)
             return x + self.drop_path(self.mlp(n2))
-        x = x + self.drop_path(metapool_tokens(self.norm1(x)))
+        x = x + self.drop_path(self._mix(self.norm1(x), size))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
@@ -148,12 +261,16 @@ class MHCAEncoder(nn.Module):
     (reference tcct.py:471-516).  A shared module appears in the state dict
     under both the encoder and every block, as in the reference."""
 
-    def __init__(self, dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths):
+    def __init__(self, dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths,
+                 mixer: str = "metapool"):
         super().__init__()
         self.cpe = ConvPosEnc(dim, k=3)
+        if mixer in CRPE_MIXERS:
+            crpe_window = _fit_crpe_window(crpe_window, num_heads)
         self.crpe = ConvRelPosEnc(dim // num_heads, crpe_window)
         self.MHCA_layers = nn.ModuleList(
-            MHCABlock(dim, mlp_ratio, self.cpe, self.crpe, drop_paths[i]) for i in range(num_layers)
+            MHCABlock(dim, mlp_ratio, self.cpe, self.crpe, drop_paths[i], mixer, num_heads)
+            for i in range(num_layers)
         )
 
     def forward(self, x, size):
@@ -195,10 +312,11 @@ class MHCAStage(nn.Module):
     (reference tcct.py:574-616)."""
 
     def __init__(self, embed_dim, out_embed_dim, num_layers, num_heads, mlp_ratio, num_path,
-                 crpe_window, drop_paths):
+                 crpe_window, drop_paths, mixer: str = "metapool"):
         super().__init__()
         self.mhca_blks = nn.ModuleList(
-            MHCAEncoder(embed_dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths)
+            MHCAEncoder(embed_dim, num_layers, num_heads, mlp_ratio, crpe_window, drop_paths,
+                        mixer)
             for _ in range(num_path)
         )
         self.InvRes = ResBlock(embed_dim)
@@ -245,6 +363,7 @@ class MPViT(nn.Module):
                 c.num_path[i],
                 c.crpe_window,
                 dpr[i],
+                c.mixer,
             )
             for i in range(c.num_stages)
         )

@@ -2,14 +2,19 @@
 
 Factory names mirror the reference (task1/nets/tcct.py:1050-1137): ``stc_*``
 simple fusion, ``gtc_*`` gated fusion, ``cnnu``/``pnnu``/``vitu`` branch
-ablations, ``tcct`` = ``stc_tt``.  The two letters name the MPViT size
+ablations, ``tcct`` = ``stc_tt``; the two letters name the MPViT size
 (tiny, small) and the CNN branch (tiny: 32 channels at every level; base:
-32/64/96/128/256).  Every factory takes ``n_class`` and ``variant``
-(``'infer'``, the architecture of the shipped checkpoints and this
-package's default, or ``'train'``, the training goldens'), ``drop_path_rate``
-and ``mixer``.  Only the MetaPool mixer is ported: ``'metapool'`` and
-``'metapool_pallas'`` both name it (one kernel route here), the others
-raise.  ``msca``, ``tcct32`` and ``relay`` are not ported yet (ROADMAP A.6).
+32/64/96/128/256).  Then ``msca`` (``stc_tt`` with MSCA attention after
+every CrossCNN block), ``tcct32`` (the ``t32`` variant, its default) and
+``relay`` (the ReLayNet baseline, onnx/tcct_heg.py:29-151).
+
+Every factory takes ``n_class`` and ``variant`` (``'infer'``, the
+architecture of the shipped checkpoints and this package's default except
+for ``tcct32``, ``'train'``, the training goldens', or ``'t32'``),
+``drop_path_rate`` and ``mixer`` (``models/mpvit.py::MIXERS``;
+``'metapool'`` and ``'metapool_pallas'`` name the one MetaPool kernel
+route).  ``relay`` discards those three, as the JAX package's does, and
+takes ``filters``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from tcct_tpu_torch.models.mpvit import (
     mpvit_small_config,
     mpvit_tiny_config,
 )
+from tcct_tpu_torch.models.relaynet import ReLayNet
 
 _REGISTRY: Dict[str, Callable] = {}
 _VIT = {"tiny": mpvit_tiny_config, "small": mpvit_small_config, "base": mpvit_base_config}
@@ -35,15 +41,11 @@ def register(name: str):
     return deco
 
 
-def _ftc(name: str, vit: str, cnn_tiny: bool, gate: bool = False, **flags):
-    def factory(n_class: int = 8, variant: str = "infer", drop_path_rate: float = 0.1,
+def _ftc(name: str, vit: str, cnn_tiny: bool, gate: bool = False, default_variant="infer",
+         **flags):
+    def factory(n_class: int = 8, variant: str = default_variant, drop_path_rate: float = 0.1,
                 mixer: str = "metapool"):
-        if variant not in ("infer", "train"):
-            raise ValueError(f"{name}: variant must be 'infer' or 'train', got {variant!r}")
-        if mixer not in ("metapool", "metapool_pallas"):
-            raise ValueError(f"{name}: mixer {mixer!r} is not ported (ROADMAP A.6); "
-                             "have 'metapool' (alias 'metapool_pallas')")
-        return FTC(_VIT[vit](drop_path_rate=drop_path_rate), cnn_tiny=cnn_tiny,
+        return FTC(_VIT[vit](drop_path_rate=drop_path_rate, mixer=mixer), cnn_tiny=cnn_tiny,
                    out_channels=n_class, variant=variant, flag_gate=gate, **flags)
 
     factory.__name__ = name
@@ -60,6 +62,15 @@ gtc_tb = _ftc("gtc_tb", "tiny", False, gate=True)
 cnnu = _ftc("cnnu", "tiny", True, flag_vit=False)
 pnnu = _ftc("pnnu", "tiny", True, cnn_plain=True, flag_vit=False)
 vitu = _ftc("vitu", "tiny", True, flag_cnn=False)
+msca = _ftc("msca", "tiny", True, cnn_msca=True)
+tcct32 = _ftc("tcct32", "tiny", True, default_variant="t32")
+
+
+@register("relay")
+def relay(n_class: int = 8, variant=None, drop_path_rate=None, mixer=None, filters: int = 64):
+    """ReLayNet; ``variant``, ``drop_path_rate`` and ``mixer`` are the FTC
+    knobs every caller passes, discarded."""
+    return ReLayNet(out_channels=n_class, filters=filters)
 
 
 def get_model(name: str, n_class: int, **kw):

@@ -151,9 +151,13 @@ def _check(x, what, **params):
     return M, C
 
 
-def _param(t: torch.Tensor) -> torch.Tensor:
-    """A per-channel parameter as the kernel reads it: f32 or bf16, contiguous."""
-    return (t if t.dtype in _DTYPES else t.float()).contiguous()
+def _param(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A per-channel parameter as the kernel reads it: f32 or bf16 whatever
+    x's type (every combination launches: bf16 weights before f32 maps come
+    after a trained gate), contiguous; any other type raises."""
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{what}: want a float32/bfloat16 weight and bias, got {t.dtype}")
+    return t.contiguous()
 
 
 def _workspace(x, M, C, backward: bool) -> torch.Tensor:
@@ -170,7 +174,7 @@ def _kernel(x, weight, bias, eps, leaky):
     y = torch.empty_like(xc, memory_format=torch.channels_last)
     stats = torch.empty((3, C), dtype=torch.float32, device=x.device)  # mean, var, inv
     part = _workspace(x, M, C, False)
-    w, b = _param(weight), _param(bias)
+    w, b = _param(weight, "bn_act_train"), _param(bias, "bn_act_train")
     err = _fn("tcct_bn_act_train")(
         xc.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), stats.data_ptr(),
         part.data_ptr(), M, C, float(eps), int(leaky), _DTYPES[x.dtype], _DTYPES[w.dtype],
@@ -188,7 +192,7 @@ def _kernel_backward(x, weight, mean, var, gy, eps, leaky):
     xc = x.contiguous(memory_format=torch.channels_last)
     gc = gy.contiguous(memory_format=torch.channels_last)
     dx = torch.empty_like(xc, memory_format=torch.channels_last)
-    w = _param(weight)
+    w = _param(weight, "bn_act_train_backward")
     dwb = torch.empty((2, C), dtype=w.dtype, device=x.device)  # dweight, dbias
     coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
     part = _workspace(x, M, C, True)

@@ -5,7 +5,10 @@ tensor** to ``nn.AvgPool2d(3, stride=1, padding=1,
 count_include_pad=False)``.  Torch reads a 3-D input as (C, H, W), so the
 3x3 window slides over the *(token, channel)* axes, not over 2-D space.
 The shipped checkpoints were trained with exactly this op, and
-:func:`metapool_tokens_reference` keeps it.
+:func:`metapool_tokens_reference` keeps it.  :func:`metapool_spatial` is
+the PoolFormer mixer the reference meant (the ``metapool2d`` mixer): a 3x3
+average over the tokens' (H, W) grid, per channel; not checkpoint
+compatible.
 """
 
 from __future__ import annotations
@@ -68,3 +71,18 @@ def metapool_tokens_backward_reference(g: torch.Tensor) -> torch.Tensor:
     _, N, C = g.shape
     gf = g.float()
     return (_window_sum3x3(gf / _token_counts(N, C, g.device)) - gf).to(g.dtype)
+
+
+def metapool_spatial(x: torch.Tensor, size) -> torch.Tensor:
+    """PoolFormer MetaPool on [B, N, C] tokens of an (H, W) grid (JAX
+    ``tcct_tpu/ops/pool.py::metapool_spatial``): a 3x3 average over H and W
+    per channel with ``count_include_pad=False``, minus ``x``.  The window
+    sum is f32 and is multiplied by the reciprocal of the valid count, then
+    rounded to x's dtype once before the subtraction, as the JAX package's
+    ``avg_pool_2d`` does."""
+    B, N, C = x.shape
+    H, W = size
+    img = x.reshape(B, H, W, C).permute(0, 3, 1, 2).reshape(B * C, H, W).float()
+    inv = 1.0 / (_axis_counts(H, x.device)[:, None] * _axis_counts(W, x.device)[None, :])
+    pooled = (_window_sum3x3(img) * inv).to(x.dtype)
+    return pooled.reshape(B, C, N).transpose(1, 2) - x

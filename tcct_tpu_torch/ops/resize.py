@@ -1,15 +1,25 @@
-"""Bilinear resizing on NCHW tensors (torch ``interpolate`` semantics).
+"""Resizing on NCHW tensors (torch ``interpolate`` semantics; JAX
+counterpart ``tcct_tpu/ops/resize.py``).
 
-The serving path uses two flavours (reference task1/nets/tcct.py:890, 941):
+The models use three flavours (reference task1/nets/tcct.py:890, 941, 926):
 
-- ``align_corners=True``  — decoder 2x upsampling (``MPUpBlock``);
-- ``align_corners=False`` — aux-head upsampling to the input size.
+- bilinear ``align_corners=True``  — decoder 2x upsampling (``MPUpBlock``);
+- bilinear ``align_corners=False`` — aux-head upsampling to the input size;
+- bicubic ``align_corners=False`` — the gated fusion's random alpha map
+  (:func:`resize_bicubic`, forward only: the map carries no gradient).
+
+:func:`resize_nearest` is the nearest-neighbour sampling of the datasets'
+geometry prep (``data/eyeset.py``).
 
 The forward is ``F.interpolate``.  The backward is the adjoint of the
 separable interpolation, ``dX = A_h^T · dY · A_w`` with the per-axis
 interpolation matrices ``A_h [Ho, Hi]`` and ``A_w [Wo, Wi]``: two matrix
 products in f32, in a fixed order, where ``F.interpolate``'s CUDA backward
 adds with float atomics and does not repeat bit for bit.
+
+The bicubic resize is the same separable form in the forward,
+``A_h · x · A_w^T`` with the cubic-convolution matrices (Keys, a = -0.75,
+taps clamped to the edge), in f32.
 """
 
 from __future__ import annotations
@@ -103,3 +113,73 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``size=(H, W)``."""
     return _ResizeBilinear.apply(x, tuple(int(s) for s in size), bool(align_corners))
+
+
+def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys' cubic convolution kernel, torch's a = -0.75."""
+    t = np.abs(t)
+    return np.where(t <= 1, (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+                    np.where(t < 2, a * t ** 3 - 5 * a * t ** 2 + 8 * a * t - 4 * a, 0.0))
+
+
+def _cubic_coeffs(in_size: int, out_size: int, align_corners: bool):
+    """The four source indices (clamped to the edge) and weights of each
+    output of 1-D cubic interpolation (the JAX package's
+    ``tcct_tpu/ops/resize.py::_cubic_coeffs``)."""
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        src = i * (in_size - 1) / max(out_size - 1, 1)
+    else:
+        src = (i + 0.5) * in_size / out_size - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    t = src - i0
+    idxs = [np.clip(i0 + k, 0, in_size - 1) for k in range(-1, 3)]
+    ws = [_cubic_kernel(t - k).astype(np.float32) for k in range(-1, 3)]
+    return idxs, ws
+
+
+@functools.lru_cache(maxsize=None)
+def _cubic_matrix_np(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    m = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    for idx, w in zip(*_cubic_coeffs(in_size, out_size, align_corners)):
+        np.add.at(m, (rows, idx), w)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def cubic_matrix(in_size: int, out_size: int, align_corners: bool,
+                 device: torch.device) -> torch.Tensor:
+    """The f32 ``[out, in]`` matrix of 1-D cubic interpolation, cached per
+    size, ``align_corners`` and device."""
+    return torch.from_numpy(_cubic_matrix_np(in_size, out_size, align_corners)).to(device)
+
+
+def resize_bicubic(x: torch.Tensor, size: Tuple[int, int],
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize of an NCHW tensor to ``size=(H, W)``: the height axis,
+    then the width axis, each an f32 product with :func:`cubic_matrix`,
+    rounded once to x's dtype.  Forward only (no gradient reaches x)."""
+    (Hi, Wi), (Ho, Wo) = x.shape[2:], (int(size[0]), int(size[1]))
+    y = x.detach().float()
+    if Ho != Hi:  # [Ho, Hi] @ [B, C, Hi, Wi]
+        y = torch.matmul(cubic_matrix(Hi, Ho, align_corners, y.device), y)
+    if Wo != Wi:  # [B, C, Ho, Wi] @ [Wi, Wo]
+        y = torch.matmul(y, cubic_matrix(Wi, Wo, align_corners, y.device).T)
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_idx(in_size: int, out_size: int) -> np.ndarray:
+    """torch's 'nearest' source index: ``floor(i * in / out)``."""
+    i = np.arange(out_size, dtype=np.float64)
+    return np.minimum((i * in_size / out_size).astype(np.int64), in_size - 1)
+
+
+def resize_nearest(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbour resize (torch ``'nearest'``, cv2 ``INTER_NEAREST``;
+    reference task1/data/octnpy.py:72) of an [H, W, ...] numpy array."""
+    for axis, n in enumerate(size):
+        if x.shape[axis] != n:
+            x = np.take(x, _nearest_idx(x.shape[axis], int(n)), axis=axis)
+    return x

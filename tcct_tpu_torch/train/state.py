@@ -37,13 +37,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from tcct_tpu_torch.models.ftc import unused_prefixes
+from tcct_tpu_torch.models.ftc import never_run, unused_prefixes
 from tcct_tpu_torch.train.schedule import cyclic_lr, make_stepwise
 
-# modules no forward runs, so the JAX model never creates them: they have
-# no gradient and no optimizer state (the CRPE convs and the classification
-# head of the MetaPool MPViT)
-_NEVER_RUN = ("crpe", "cls_head")
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
 
@@ -51,10 +47,13 @@ def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
     """The parameters the train step updates, by state-dict name: every
     parameter of the JAX model's tree (shared ones once).  That is all but
     the modules the model's flags switch off (:func:`unused_prefixes`,
-    ``fuse`` among them) and those no forward runs."""
-    unused = unused_prefixes(model)
+    ``fuse`` among them) and those no forward runs (:func:`never_run`: the
+    classifier, and the CRPE convs unless the mixer runs them), which the
+    JAX model never creates and so has no gradient or optimizer state
+    for."""
+    unused, dead = unused_prefixes(model), never_run(model)
     return {k: p for k, p in model.named_parameters()
-            if not k.startswith(unused) and not any(part in _NEVER_RUN for part in k.split("."))}
+            if not k.startswith(unused) and not any(part in dead for part in k.split("."))}
 
 
 class AdamW:

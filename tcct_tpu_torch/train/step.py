@@ -6,8 +6,10 @@ of the base model with the auxiliary losses (compute copies of the weights
 in ``cfg.dtype``) -> deep-supervision Dice + the enabled auxiliary losses
 -> gradients into the f32 masters -> clip 12 + AdamW -> the new BN running
 statistics, f32, updated from the compute-dtype forward.  The step's
-generator draws, in this order, the augmentation, the DropPath masks and
-the boundary loss's noise.  PyTorch runs it eagerly; on the card every
+generator draws, in this order (the JAX step's key order), the
+augmentation, a gated model's alpha maps, the DropPath masks and the
+boundary loss's noise; each draw has a fixed shape, so a step repeats, and
+resumes, bit for bit.  PyTorch runs it eagerly; on the card every
 MetaPool mixer, depthwise 3x3 and train BatchNorm, forward and backward,
 goes through the port's hand-written kernels.
 
@@ -35,6 +37,7 @@ from tcct_tpu_torch.losses.seg import (
     mdice_scores,
     miou_scorem,
 )
+from tcct_tpu_torch.models.ftc import pinned_gate
 from tcct_tpu_torch.models.layers import BatchNorm2d, train_pass
 from tcct_tpu_torch.train.precision import cast_floating
 from tcct_tpu_torch.train.state import AdamW, trainable_parameters
@@ -44,7 +47,9 @@ from tcct_tpu_torch.train.state import AdamW, trainable_parameters
 class TrainConfig:
     """Loss and step knobs (the JAX package's ``TrainConfig``, reference
     task1/kite/main.py:18-49).  ``pinned_reg_noise`` pins the boundary
-    loss's noise (uniforms 0.5) for cross-framework parity."""
+    loss's noise (uniforms 0.5) and ``pinned_gate_noise`` a gated model's
+    alpha maps (``models/ftc.py::pinned_alpha_nchw``) for cross-framework
+    parity."""
 
     loss: str = "di"
     ds: bool = True
@@ -60,6 +65,7 @@ class TrainConfig:
     augment: bool = True
     dtype: torch.dtype = torch.float32
     pinned_reg_noise: bool = False
+    pinned_gate_noise: bool = False
 
 
 def _call(model: torch.nn.Module, variables: Dict[str, torch.Tensor], args, kwargs=None):
@@ -79,8 +85,8 @@ def build_loss_fn(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
     (new BN statistics, metrics))``.  ``params`` and ``buffers`` map
     state-dict names to tensors; compute copies in ``cfg.dtype`` go into
     ``model`` (a ``RegNet``, in train mode) through ``functional_call``.
-    ``generator`` draws the DropPath masks and, unless pinned, the boundary
-    loss's noise."""
+    ``generator`` draws, unless pinned, a gated model's alpha maps, then the
+    DropPath masks and, unless pinned, the boundary loss's noise."""
     criterion = get_loss(cfg.loss)
     bn_names = {m: name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
 
@@ -90,7 +96,7 @@ def build_loss_fn(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
         variables = cast_floating({**params, **buffers}, cfg.dtype)
         kw = dict(generator=None if cfg.pinned_reg_noise else generator,
                   use_udh=cfg.udh, use_reg=cfg.reg, use_epl=cfg.epl)
-        with train_pass(model, generator) as new_stats:
+        with train_pass(model, generator) as new_stats, pinned_gate(cfg.pinned_gate_noise):
             pyr, _, aux = _call(model, variables, (img, true_oh), kw)
         pyr = [p.float() for p in pyr]
         los = deep_supervision_loss(pyr, true_oh, criterion, ds=cfg.ds, coff_ds=cfg.coff_ds)
@@ -115,9 +121,9 @@ def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
     statistics)``: one train step of ``model`` (a ``RegNet``, moved to
     ``device`` in channels_last), updating its parameters and BN running
     statistics in place.  The inputs are uint8 numpy arrays or tensors.
-    ``generator`` (on ``device``) draws the augmentation, the DropPath masks
-    and the boundary loss's noise; it may be None only when none of them
-    needs one.  The metrics are 0-d f32 tensors on ``device`` (no host
+    ``generator`` (on ``device``) draws the augmentation, a gated model's
+    alpha maps, the DropPath masks and the boundary loss's noise; it may be
+    None only when none of them needs one.  The metrics are 0-d f32 tensors on ``device`` (no host
     sync)."""
     if cfg.augment and generator is None:
         raise ValueError("augment=True draws from the step's generator; none was given")

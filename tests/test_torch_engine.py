@@ -79,9 +79,9 @@ def _cfg(**kw):
     return TrainConfig(**base)
 
 
-def _trainer(ds, root, **kw):
+def _trainer(ds, root, net="stc_tt", **kw):
     torch.manual_seed(0)
-    m = RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=0.1), out_channels=5)
+    m = RegNet(get_model(net, 5, variant="train", drop_path_rate=0.1), out_channels=5)
     steps = kw.pop("steps", 2)
     tr = Trainer(m, ds, kw.pop("cfg", _cfg()), root=str(root), bs=2, device="cpu", debug=True,
                  **kw)
@@ -256,6 +256,25 @@ def test_bitwise_resume(small_set, tmp_path):
     assert not off, off[:8]
 
 
+def test_bitwise_resume_gated(small_set, tmp_path):
+    """test_bitwise_resume for gtc_tt: the gate's alpha maps draw from the
+    step's generator between the augmentation and DropPath, at fixed
+    shapes, so the resumed run equals the unbroken one bit for bit."""
+    ours, _ = small_set
+    cfg = _cfg(dtype=torch.bfloat16)
+    a = _trainer(ours, tmp_path / "a", net="gtc_tt", cfg=cfg, steps=1)
+    a.fit(epochs=2)
+    b = _trainer(ours, tmp_path / "b", net="gtc_tt", cfg=cfg, steps=1)
+    b.fit(epochs=1)
+    b = _trainer(ours, tmp_path / "b", net="gtc_tt", cfg=cfg, steps=1)
+    assert b.resume("last") and b.state.epoch == 1
+    b.fit(epochs=2)
+    ea, eb = _everything(a), _everything(b)
+    assert ea.keys() == eb.keys()
+    off = [k for k in ea if not torch.equal(ea[k], eb[k])]
+    assert not off, off[:8]
+
+
 def test_bf16_step_leaves_the_f32_masters_in_the_model():
     """After a bf16 train step every parameter of the model is the f32
     master object it was, the shared ConvPosEnc modules' too, so
@@ -357,6 +376,22 @@ def test_cli_runs_a_debug_epoch_on_the_cpu(small_set, tmp_path, monkeypatch):
     assert os.path.isdir(tmp_path / "last")
 
 
+@pytest.mark.parametrize("argv", [["--net", "gtc_tt"], ["--net", "relay"],
+                                  ["--mixer", "hydra"]])
+def test_cli_trains_the_zoo(small_set, tmp_path, monkeypatch, argv):
+    """One debug epoch (2 steps, bf16, augmentation, every auxiliary loss)
+    of gated fusion, ReLayNet and a CRPE mixer from the CLI on the CPU."""
+    for k, v in SYNTH.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(Trainer, "__init__", _short_epochs(Trainer.__init__))
+    main(["--db", "goals", "--bug", "true", "--bs", "2", "--ds", "true", "--udh", "true",
+          "--reg", "true", "--epl", "true", "--crop", "64", "--device", "cpu",
+          "--root", str(tmp_path)] + argv)
+    lines = [json.loads(x) for x in open(tmp_path / "metrics.jsonl")]
+    assert len(lines) == 1 and all(np.isfinite(lines[0][k]) for k in
+                                   ("total", "los", "udh", "reg", "epl", "val_f1s"))
+
+
 def _short_epochs(init):
     def wrapped(self, *a, **k):
         init(self, *a, **k)
@@ -366,8 +401,6 @@ def _short_epochs(init):
 
 @pytest.mark.parametrize("argv,err,match", [
     (["--packed_cnn", "true"], ValueError, "lane width"),
-    (["--mixer", "hydra"], ValueError, "A\\.6"),
-    (["--net", "gtc_tt"], NotImplementedError, "A\\.6"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, err, match, monkeypatch):
     for k, v in SYNTH.items():
@@ -379,15 +412,19 @@ def test_cli_refuses_what_is_not_ported(argv, err, match, monkeypatch):
 # --- the 50-step trajectory (slow tier) --------------------------------------------------
 
 @pytest.mark.slow
-def test_training_parity_50_steps(golden):
+@pytest.mark.parametrize("fixture", ["train_parity", "train_parity_gtc"])
+def test_training_parity_50_steps(golden, fixture):
     """The f32 step from the golden sd0 weights, 50 steps on the golden
-    batch (pinned noise): the losses and the final parameter L2 at the
-    bounds of tests/test_train_parity.py."""
-    g = golden("train_parity")
+    batch (pinned noise; for gtc_tt the pinned alpha maps and the
+    edge-pixel loss): the losses and the final parameter L2 at the bounds of
+    tests/test_train_parity.py."""
+    g = golden(fixture)
+    gated = fixture.endswith("_gtc")
     sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
-    m = RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=0.0), out_channels=5)
+    m = RegNet(get_model("gtc_tt" if gated else "stc_tt", 5, variant="train",
+                         drop_path_rate=0.0), out_channels=5)
     m.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd0.items()}, strict=True)
-    cfg = _cfg(augment=False, pinned_reg_noise=True)
+    cfg = _cfg(augment=False, pinned_reg_noise=True, epl=gated, pinned_gate_noise=gated)
     step = build_train_step(m, make_optimizer(1, lr=1e-4, weight_decay=2e-4), cfg, "cpu")
     imgs, labs = np.ascontiguousarray(np.moveaxis(g["x_u8"], 1, -1)), g["labels"]
     losses = np.array([float(step(imgs, labs)[0]["total"]) for _ in range(50)])

@@ -851,3 +851,33 @@ def test_augmented_bf16_step_repeats_bitwise(cuda):
         ends.append({**m.state_dict(), "generator": gen.get_state()})
     off = [k for k in ends[0] if not torch.equal(ends[0][k], ends[1][k])]
     assert not off, off[:8]
+
+
+# The gated fusion's f32 maps reach the head and decoder BatchNorms with the
+# step's bf16 weights (gtc_tt, batch 8 at 256x256: the head at 16x16, the
+# decoder's four levels, lap_map's one channel).
+BN_GATED_SHAPES = [(8, 32, 16, 16), (8, 32, 32, 32), (8, 32, 64, 64), (8, 32, 128, 128),
+                   (8, 1, 256, 256), (2, 300, 5, 6)]
+
+
+@pytest.mark.parametrize("shape", BN_GATED_SHAPES)
+def test_bn_train_kernels_f32_input_bf16_params(cuda, shape):
+    """K3 and K3b on an f32 input with bf16 weight and bias: y in f32, the
+    statistics, and (dx, dweight, dbias) against the plain versions at the
+    bounds of the same-type tests; dweight and dbias come back in bf16.  A
+    weight of a type the kernel does not read (fp16) raises."""
+    x, w, b = _bn_inputs(cuda, shape, torch.float32, 11)
+    w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    n = bn_act_train.launches
+    y, mean, var = bn_act_train(x, w, b, 1e-5, False)
+    torch.cuda.synchronize()
+    assert bn_act_train.launches == n + 1 and y.dtype == torch.float32
+    rm, rv = bn_stats_reference(x, False)
+    assert bool(((mean - rm).abs() <= 1e-5 * x.abs().mean((0, 2, 3)) + 1e-7).all())
+    assert bool(((var - rv).abs() <= 1e-5 * (x * x).mean((0, 2, 3)) + 1e-7).all())
+    _close(y, bn_normalize_reference(x, mean, var, w, b, 1e-5, False), torch.float32)
+    gy = torch.randn(x.shape, device=cuda).contiguous(memory_format=torch.channels_last)
+    got = bn_act_train_backward(x, w, mean, var, gy, 1e-5, False)
+    _bn_bwd_close(x, w, mean, var, gy, False, got)
+    with pytest.raises(ValueError, match="float32/bfloat16 weight"):
+        bn_act_train(x, w.half(), b, 1e-5, False)

@@ -211,3 +211,113 @@ def test_edge_pixel_loss_matches_jax(heads):
     got = float(port.regular_epl(torch.from_numpy(pred), torch.from_numpy(true)))
     want = float(jnet.apply(v, jnp.asarray(pred), jnp.asarray(true), method=JaxRegNet.regular_epl))
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# --- the losses off the train step's path (get_mloss, the per-class bases) -----------
+
+@pytest.mark.parametrize("name,key", [("di", "mdice"), ("d2", "mdice2"), ("ce", "ce")])
+def test_get_mloss_matches_golden_and_jax(golden, name, key):
+    """MDice, bi-MDice and cross-entropy on the golden logits and integer
+    labels (``lossm.npz``, tests/test_losses.py's rtol 1e-5), on one-hot
+    labels too, and JAX's value (rtol 1e-6)."""
+    from tcct_tpu.losses.seg import get_mloss as jax_get_mloss
+    from tcct_tpu_torch.losses import get_mloss
+
+    g = golden("lossm")
+    x, lab = np.moveaxis(g["x"], 1, -1), g["lab"]
+    got = float(get_mloss(name)(torch.from_numpy(x), torch.from_numpy(lab)))
+    np.testing.assert_allclose(got, g[key], rtol=1e-5)
+    np.testing.assert_allclose(got, float(jax_get_mloss(name)(jnp.asarray(x), jnp.asarray(lab))),
+                               rtol=1e-6)
+    oh = torch.nn.functional.one_hot(torch.from_numpy(lab).long(), x.shape[-1]).float()
+    np.testing.assert_allclose(float(get_mloss(name)(torch.from_numpy(x), oh)), got, rtol=1e-6)
+
+
+def test_weighted_cross_entropy_matches_jax():
+    from tcct_tpu.losses.seg import CrossEntropyLoss as JaxCE
+    from tcct_tpu_torch.losses import CrossEntropyLoss
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 6, 7, 4)).astype(np.float32)
+    lab = rng.integers(0, 4, (2, 6, 7))
+    w = (0.5, 1.0, 2.0, 3.0)
+    got = float(CrossEntropyLoss(w)(torch.from_numpy(x), torch.from_numpy(lab)))
+    np.testing.assert_allclose(got, float(JaxCE(w)(jnp.asarray(x), jnp.asarray(lab))), rtol=1e-6)
+
+
+def test_soft_argmax_matches_golden(golden):
+    from tcct_tpu_torch.losses import soft_argmax
+
+    g = golden("lossm")
+    got = soft_argmax(torch.from_numpy(np.moveaxis(g["x"], 1, -1))).numpy()
+    np.testing.assert_allclose(got, np.moveaxis(g["soft_argmax"], 1, -1), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("base", ["dice_bi", "iou", "dice", "dice_per_class"])
+def test_multiloss_bases_match_jax(base):
+    """MultiLoss with the per-class DiceLoss(bi=True), IouLoss and DiceLoss
+    bases and the one-pass Dice, against JAX's (rtol 1e-6), with their
+    gradients (rtol 1e-5)."""
+    from tcct_tpu.losses import seg as jseg
+    from tcct_tpu_torch.losses import DiceLoss, IouLoss, MultiLoss
+
+    ours, theirs = {
+        "dice_bi": (MultiLoss(DiceLoss(bi=True)), jseg.MultiLoss(jseg.DiceLoss(bi=True))),
+        "iou": (MultiLoss(IouLoss()), jseg.MultiLoss(jseg.IouLoss())),
+        "dice": (MultiLoss("dice"), jseg.MultiLoss(jseg.DiceLoss())),
+        "dice_per_class": (MultiLoss(DiceLoss()), jseg.MultiLoss(jseg.DiceLoss())),
+    }[base]
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 8, 9, 5)).astype(np.float32)
+    lab = rng.integers(0, 5, (2, 8, 9))
+    jl, jg = jax.value_and_grad(lambda v: theirs(v, jnp.asarray(lab)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    loss = ours(xt, torch.from_numpy(lab))
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("nc", [5, 9])
+def test_optimize_prototypes_matches_jax(nc):
+    """The self-optimized prototypes (333 Adam steps with the plateau
+    schedule) from JAX's own U[0, 1) rows: within 1e-3 of JAX's (1.1e-4
+    measured: f32 reassociation through 333 steps); unit rows; the
+    generator's draw has the same shape and gives unit rows too."""
+    from tcct_tpu.losses.polar import optimize_prototypes as jax_optimize
+    from tcct_tpu_torch.losses import optimize_prototypes, refine_prototypes
+
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jax_optimize(key, nc, 32))
+    vec0 = np.array(jax.random.uniform(key, (nc, 32), jnp.float32))
+    got = refine_prototypes(torch.from_numpy(vec0)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-6)
+    drawn = optimize_prototypes(nc, 32, torch.Generator().manual_seed(0), steps=20)
+    assert drawn.shape == (nc, 32)
+    np.testing.assert_allclose(drawn.norm(dim=-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_boundary_loss_abs_has_the_jax_derivative_at_zero():
+    """The Laplacian of the one-hot target is exactly 0 wherever a class is
+    absent, at init (zero biases): there ``|x|`` must have JAX's derivative,
+    1, not torch's 0.  A Laplacian ``s * x + b`` with ``b = 0`` makes that
+    the gradient of ``b``; held against jax.grad (rtol 1e-5)."""
+    from tcct_tpu.losses.boundary import boundary_regression_loss as jax_boundary
+    from tcct_tpu_torch.losses import boundary_regression_loss
+
+    rng = np.random.default_rng(7)
+    pred = rng.standard_normal((2, 16, 12, 5)).astype(np.float32)
+    true = np.eye(5, dtype=np.float32)[np.sort(rng.integers(0, 5, (2, 16, 12)), axis=1)]
+
+    def jloss(b):
+        return jax_boundary(jnp.asarray(pred), jnp.asarray(true), lambda x: 0.7 * x + b,
+                            jax.nn.sigmoid, None)
+
+    want = float(jax.grad(jloss)(jnp.float32(0.0)))
+    b = torch.tensor(0.0, requires_grad=True)
+    loss = boundary_regression_loss(torch.from_numpy(pred), torch.from_numpy(true),
+                                    lambda x: 0.7 * x + b, torch.sigmoid, None)
+    (got,) = torch.autograd.grad(loss, b)
+    assert abs(want) > 1e-4
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)

@@ -113,11 +113,12 @@ def test_regnet_logits_match_jax(jax_net):
 
 
 def test_registry():
-    assert {"stc_tt", "tcct"} <= set(list_models())
+    assert {"stc_tt", "tcct", "relay"} <= set(list_models())
     with pytest.raises(KeyError, match="stc_tt"):
-        get_model("relay", 5)
+        get_model("nope", 5)
     with pytest.raises(ValueError):
-        get_model("stc_tt", 5, variant="t32")
+        get_model("stc_tt", 5, variant="t64")
+    assert get_model("stc_tt", 5, variant="t32").variant == "t32"
     train = get_model("stc_tt", 5, variant="train", drop_path_rate=0.2)
     assert train.variant == "train" and hasattr(train, "t321")
     dp = train.base_vit.mhca_stages[3].mhca_blks[0].MHCA_layers[0].drop_path

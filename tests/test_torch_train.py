@@ -1,7 +1,9 @@
 """The port's train step vs the JAX package's (CPU, f32, 64x64).
 
-Both start from the golden ``train_parity.npz`` ``sd0`` weights of
-``RegNet(stc_tt, variant='train', drop_path_rate=0)`` and its fixed batch:
+Both start from the golden ``sd0`` weights of ``RegNet(stc_tt,
+variant='train', drop_path_rate=0)`` (``train_parity.npz``) or of
+``gtc_tt`` (``train_parity_gtc.npz``: the pinned alpha maps, and the
+edge-pixel loss on) and the golden's fixed batch:
 the port loads ``sd0`` by name, JAX through ``import_torch_state``,
 exactly as ``tests/test_train_parity.py`` builds its side (so the JAX
 compile is the one that test makes).  The loss is the paper's: deep-
@@ -43,31 +45,35 @@ from tcct_tpu_torch.train.precision import cast_floating
 LR = 1e-4
 
 
-def _port_model(sd0, drop_path_rate=0.0):
-    m = RegNet(get_model("stc_tt", 5, variant="train", drop_path_rate=drop_path_rate),
+def _port_model(sd0, drop_path_rate=0.0, name="stc_tt"):
+    m = RegNet(get_model(name, 5, variant="train", drop_path_rate=drop_path_rate),
                out_channels=5)
     m.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd0.items()}, strict=True)
     return m.to(memory_format=torch.channels_last)
 
 
-def _port_cfg(dtype=torch.float32, pinned=True):
+def _port_cfg(dtype=torch.float32, pinned=True, gated=False):
     return TrainConfig(n_class=5, crop_hw=(64, 64), ds=True, coff_ds=0.5, udh=True,
-                       coff_udh=1.0, reg=True, coff_reg=0.1, augment=False, dtype=dtype,
-                       pinned_reg_noise=pinned)
+                       coff_udh=1.0, reg=True, coff_reg=0.1, epl=gated, coff_epl=0.1,
+                       augment=False, dtype=dtype, pinned_reg_noise=pinned,
+                       pinned_gate_noise=gated)
 
 
-@pytest.fixture(scope="module")
-def slice_ref(golden):
-    """The JAX side, as tests/test_train_parity.py builds it: step-0
-    gradients and metrics of build_loss_fn, and the state after one
-    build_train_step step."""
-    g = golden("train_parity")
+@pytest.fixture(scope="module", params=["train_parity", "train_parity_gtc"])
+def slice_ref(request, golden):
+    """The JAX side, as tests/test_train_parity.py builds it, for both
+    goldens (stc_tt; gtc_tt with the pinned alpha maps and the edge-pixel
+    loss): step-0 gradients and metrics of build_loss_fn, and the state
+    after one build_train_step step."""
+    gated = request.param.endswith("_gtc")
+    name = "gtc_tt" if gated else "stc_tt"
+    g = golden(request.param)
     sd0 = {k[len("sd0::"):]: g[k] for k in g.files if k.startswith("sd0::")}
-    net = JaxRegNet(base=jax_get_model("stc_tt", 5, variant="train", drop_path_rate=0.0),
+    net = JaxRegNet(base=jax_get_model(name, 5, variant="train", drop_path_rate=0.0),
                     out_channels=5)
     cfg = JaxTrainConfig(n_class=5, crop_hw=(64, 64), ds=True, coff_ds=0.5, udh=True,
-                         coff_udh=1.0, reg=True, coff_reg=0.1, epl=False, coff_epl=0.1,
-                         augment=False, pinned_reg_noise=True, pinned_gate_noise=False)
+                         coff_udh=1.0, reg=True, coff_reg=0.1, epl=gated, coff_epl=0.1,
+                         augment=False, pinned_reg_noise=True, pinned_gate_noise=gated)
     opt = jax_make_optimizer(steps_per_epoch=1, lr=LR, weight_decay=2e-4)
     state = create_train_state(net, opt, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
                                jnp.zeros((1, 64, 64, 5)))
@@ -88,6 +94,7 @@ def slice_ref(golden):
     sd1_optax = export_torch_state({"params": optax.apply_updates(state.params, updates)}, sd0)[0]
     grads, report = export_torch_state({"params": grads}, sd0)
     return {
+        "name": name, "gated": gated,
         "g": g, "sd0": sd0, "grads": grads, "filled": set(report.filled),
         "bs0": export_torch_state({"batch_stats": new_bs}, sd0)[0],
         "metrics": {k: float(v) for k, v in metrics.items()},
@@ -99,11 +106,12 @@ def slice_ref(golden):
 @pytest.fixture(scope="module")
 def port_step0(slice_ref):
     """The port's step-0 loss, gradients and BN statistics (f32, CPU)."""
-    m = _port_model(slice_ref["sd0"]).train()
+    m = _port_model(slice_ref["sd0"], name=slice_ref["name"]).train()
     params = trainable_parameters(m)
     img = torch.tensor(slice_ref["imgs"]).float() / 255.0
     true_oh = torch.nn.functional.one_hot(torch.from_numpy(slice_ref["labs"]).long(), 5).float()
-    loss, (bs, metrics) = build_loss_fn(m, _port_cfg())(params, dict(m.named_buffers()), img, true_oh)
+    cfg = _port_cfg(gated=slice_ref["gated"])
+    loss, (bs, metrics) = build_loss_fn(m, cfg)(params, dict(m.named_buffers()), img, true_oh)
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     grads = {k: (np.zeros(p.shape, np.float32) if gr is None else gr.numpy())
              for (k, p), gr in zip(params.items(), grads)}
@@ -145,7 +153,7 @@ def test_step0_losses_and_bn_stats_match_jax(slice_ref, port_step0):
     all 52 BN modules (the EMA of the batch statistics; atol 1e-5 + rtol
     1e-4: batch statistics of f32 activations through 40 layers)."""
     _, bs, metrics = port_step0
-    for k in ("los", "udh", "reg", "total"):
+    for k in ("los", "udh", "reg", "total") + (("epl",) if slice_ref["gated"] else ()):
         np.testing.assert_allclose(metrics[k], slice_ref["metrics"][k], rtol=1e-5, err_msg=k)
     assert len(bs) == 2 * 52
     for k, v in bs.items():
@@ -162,8 +170,9 @@ def test_one_step_matches_jax_train_step(slice_ref):
     parameter within 2.1 lr of JAX's; at most 2 % of the elements more than
     5 % of lr away (1.1 % measured); the update's L2 drift below
     tests/test_train_parity.py's bound, 0.5 (0.20 measured)."""
-    m = _port_model(slice_ref["sd0"])
-    step = build_train_step(m, make_optimizer(1, lr=LR, weight_decay=2e-4), _port_cfg(), "cpu")
+    m = _port_model(slice_ref["sd0"], name=slice_ref["name"])
+    step = build_train_step(m, make_optimizer(1, lr=LR, weight_decay=2e-4),
+                            _port_cfg(gated=slice_ref["gated"]), "cpu")
     metrics, _ = step(slice_ref["imgs"], slice_ref["labs"])
     np.testing.assert_allclose(float(metrics["total"]), slice_ref["metrics"]["total"], rtol=1e-5)
     sd1, sd0, ref = m.state_dict(), slice_ref["sd0"], slice_ref["sd1"]
@@ -189,7 +198,7 @@ def test_optimizer_on_jax_gradients_matches_optax(slice_ref):
     gradients, gives what JAX's optimizer gives on the same gradients
     (within 1e-3 of lr, every element): the same parameter set is clipped,
     decayed and stepped, zero-gradient ones (tau) by the decay alone."""
-    m = _port_model(slice_ref["sd0"])
+    m = _port_model(slice_ref["sd0"], name=slice_ref["name"])
     params = trainable_parameters(m)
     grads = slice_ref["grads"]
     # JAX's parameter tree, less the per-block names of the shared CPE

@@ -38,16 +38,29 @@ NEVER_RUN = ("crpe.", "cls_head.", "lap_", "fcp.", "tau", "num_batches_tracked",
 _PAIRS = {}
 
 
-def pair(name, variant):
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for this module's CPU forwards: the suite runs
+    several workers at once, and torch's default of one thread a core each
+    makes them wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def pair(name, variant, mixer="metapool"):
     """(calibrated port model, JAX net, JAX variables with the port's
-    weights, input), built once per (name, variant)."""
-    key = (name, variant)
+    weights, input), built once per (name, variant, mixer).  The JAX side
+    runs the MetaPool mixer through its Pallas kernel (interpret mode)."""
+    key = (name, variant, mixer)
     if key not in _PAIRS:
         x = np.random.default_rng(0).random((2,) + HW + (3,)).astype(np.float32)
-        m = RegNet(get_model(name, NC, variant=variant), out_channels=NC)
+        m = RegNet(get_model(name, NC, variant=variant, mixer=mixer), out_channels=NC)
         init_weights(m, torch.Generator().manual_seed(0))
         calibrate_bn(m, torch.from_numpy(x))
-        net = JaxRegNet(base=jax_get_model(name, NC, variant=variant, mixer="metapool_pallas"),
+        jmixer = "metapool_pallas" if mixer == "metapool" else mixer
+        net = JaxRegNet(base=jax_get_model(name, NC, variant=variant, mixer=jmixer),
                         out_channels=NC)
         # feats_gate(False), as the JAX predictor sets it: the infer variant's
         # polarization feats average maps of unequal widths under the base CNN
@@ -59,6 +72,11 @@ def pair(name, variant):
         sd = {k: t.numpy() for k, t in m.state_dict().items()}
         jv, report = import_torch_state(sd, zeros)
         assert [k for k in report.untouched_target if "kernel" in k or "bn" in k] == []
+        for path in report.untouched_target:  # ReLayNet's bare PReLU slopes
+            node, (*heads, leaf) = jv, path.split("/")
+            for h in heads:
+                node = node[h]
+            node[leaf] = sd[".".join(heads[1:]) + ".prelu.weight"].copy()
         _PAIRS[key] = (m, net, jv, x)
     return _PAIRS[key]
 
@@ -126,7 +144,7 @@ def test_jax_infer_feats_need_the_gate():
 
 
 def test_registry_zoo():
-    assert list_models() == sorted(NEW + ["stc_tt", "tcct"])
+    assert list_models() == sorted(NEW + ["stc_tt", "tcct", "msca", "tcct32", "relay"])
     tb = get_model("gtc_tb", 5)
     assert tb.flag_gate and tb.base_cnn.layer_dims == (32, 64, 96, 128, 256)
     assert tb.base_cnn.path_estan[1].block12[0].weight.shape == (64, 32, 3, 3)
@@ -230,19 +248,23 @@ def test_zoo_raises():
         load_predictor("duke", cnn_impl="winograd", device="cpu")
     with pytest.raises(ValueError, match="no CrossCNN blocks"):
         VolumePredictor(torch.nn.Conv2d(3, 3, 1), GEO, device="cpu", cnn_impl="fused")
-    for mixer in ("factor", "hydra", "metapool2d", "nope"):
-        with pytest.raises(ValueError, match="A\.6"):
-            get_model("stc_tt", 5, mixer=mixer)
-    for name in ("msca", "tcct32", "relay"):
-        with pytest.raises(KeyError, match="stc_tt"):
-            get_model(name, 5)
+    with pytest.raises(ValueError, match="unknown mixer"):
+        get_model("stc_tt", 5, mixer="nope")
+    with pytest.raises(KeyError, match="stc_tt"):
+        get_model("nope", 5)
     with pytest.raises(ValueError, match="variant"):
-        get_model("gtc_tb", 5, variant="t32")
-    # gated fusion in train mode needs the random alpha map: not ported
+        get_model("gtc_tb", 5, variant="t64")
+    # the fused CNN branch has no MSCA
+    from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
+
+    msca = get_model("msca", 5).eval()
+    with pytest.raises(ValueError, match="MSCA"):
+        cross_resnet_fused(torch.rand(1, 32, 32, 3), msca.base_cnn)
+    # gated fusion in train mode needs a generator (or pinned alphas) ...
     gtc = get_model("gtc_tt", 5, variant="train", drop_path_rate=0.0).train()
-    with pytest.raises(NotImplementedError, match="A\.6"):
+    with pytest.raises(ValueError, match="generator"):
         gtc(torch.rand(2, 32, 32, 3))
-    # ... while simple fusion trains, and gated fusion serves
+    # ... and serves with alpha 0.5
     with torch.no_grad():
         assert gtc.eval()(torch.rand(1, 32, 32, 3))[0].shape == (1, 32, 32, 5)
 
