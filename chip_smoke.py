@@ -86,7 +86,15 @@ toolkit (``nvcc``):
    (``drive_zoo_steps``); one duke serving batch of each model and mixer
    the slice adds, counted, the f32 model against the CPU, ms
    (``drive_zoo_serving``);
-10. prints one JSON line of the kernels, then, as its last line,
+10. runs task 2, the ResNet glaucoma classifier, in f32 (``drive_task2``):
+   a counted res18 step (batch 8 at 224x224, augmented: K3 and K3b 20
+   each, every call held against its plain version), the step on the card
+   against the CPU, one step twice bit for bit, its profile, eager ms/step
+   with and without deterministic convs and peak memory, counted res34 and
+   res50 steps, a ``ClsTrainer`` debug fit and reload, eval images/s, the
+   TTA, the ensemble CLI, and a PNG folder with xlsx labels; the K3/K3b rows
+   of step 2 also run every f32 shape of the res18 and res50 steps;
+11. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -366,13 +374,15 @@ def _table(name, src, replaces, rows, main=None):
             "main": main}
 
 
-def kernel_tables(serve, train, serve_small, gtc):
+def kernel_tables(serve, train, serve_small, gtc, task2):
     """The kernels, each with its wrapper, plain version, one-call library
     yardstick, input maker, check, bytes and operations, and the shapes of
     the serving batch (``serve``, ``path_shapes``), of an ``stc_tt`` train
     step (``train``) and of a ``gtc_tt`` one (``gtc``, ``train_shapes``);
     for the depthwise forward also the shapes of an ``stc_st``
-    (MPViT-small) serving batch.  A row's makers take a shape and the types
+    (MPViT-small) serving batch; for the train BatchNorm also those of the
+    f32 task-2 res18 and res50 steps (``task2``: two Counters of
+    ``task2_bn_shapes``).  A row's makers take a shape and the types
     of its table key ("bfloat16", "float32", "float32/bfloat16": x f32,
     weight and bias bf16)."""
     import torch
@@ -619,29 +629,31 @@ def kernel_tables(serve, train, serve_small, gtc):
     def by_leaky(c, leaky):  # a BN Counter's (shape, types) keys with one leaky flag
         return Counter({(shape, t): n for (shape, lk, t), n in c.items() if lk == leaky})
 
-    # each row: (spec, serving batch, stc_tt step, stc_st serving batch, gtc_tt step)
+    # each row: (spec, serving batch, stc_tt step, stc_st serving batch, gtc_tt step,
+    # task-2 res18 step, task-2 res50 step); task 2 runs its BatchNorms in f32, leaky off
     no = Counter()
-    bn_rows = [(bn_spec(lk), no, by_leaky(train["bn"], lk), no, by_leaky(gtc["bn"], lk))
-               for lk in (False, True)]
-    bnb_rows = [(bnb_spec(lk), no, by_leaky(train["bnb"], lk), no, by_leaky(gtc["bnb"], lk))
-                for lk in (False, True)]
+    t2 = [Counter({(shape, "float32"): n for shape, n in c.items()}) for c in task2]
+    bn_rows = [(bn_spec(lk), no, by_leaky(train["bn"], lk), no, by_leaky(gtc["bn"], lk),
+                *(t2 if not lk else (no, no))) for lk in (False, True)]
+    bnb_rows = [(bnb_spec(lk), no, by_leaky(train["bnb"], lk), no, by_leaky(gtc["bnb"], lk),
+                 *(t2 if not lk else (no, no))) for lk in (False, True)]
     return [
         # the serving path runs K1 inside the site (metapool_block): its
         # launches are the train step's, its serving shapes are timed beside
         _table("metapool_tokens", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
-               [(mp_fwd, serve_rows(serve[0]), train["mp"], no, gtc["mp"])], main="train"),
+               [(mp_fwd, serve_rows(serve[0]), train["mp"], no, gtc["mp"], no, no)], main="train"),
         _table("dwconv3x3_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:200",
                [(dw_fwd(1), serve_rows(serve[1]), train["s1"], serve_rows(serve_small[1]),
-                 gtc["s1"])]),
+                 gtc["s1"], no, no)]),
         _table("dwconv3x3_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:380",
                [(dw_fwd(2), serve_rows(serve[2]), train["s2"], serve_rows(serve_small[2]),
-                 gtc["s2"])]),
+                 gtc["s2"], no, no)]),
         _table("metapool_tokens_backward", mp_src, "tcct_tpu/ops/pallas/metapool.py:64",
-               [(mp_bwd, no, train["mp"], no, gtc["mp"])]),
+               [(mp_bwd, no, train["mp"], no, gtc["mp"], no, no)]),
         _table("dwconv3x3_backward_s1", dw_src, "tcct_tpu/ops/pallas/dwconv.py:220",
-               [(dw_bwd(1), no, train["s1"], no, gtc["s1"])]),
+               [(dw_bwd(1), no, train["s1"], no, gtc["s1"], no, no)]),
         _table("dwconv3x3_backward_s2", dw_src, "tcct_tpu/ops/pallas/dwconv.py:420",
-               [(dw_bwd(2), no, train["s2"], no, gtc["s2"])]),
+               [(dw_bwd(2), no, train["s2"], no, gtc["s2"], no, no)]),
         _table("bn_act_train", "tcct_tpu_torch/csrc/bnstats.cu",
                "tcct_tpu/ops/pallas/bnstats.py:129", bn_rows),
         _table("bn_act_train_backward", "tcct_tpu_torch/csrc/bnstats.cu",
@@ -651,14 +663,18 @@ def kernel_tables(serve, train, serve_small, gtc):
 
 def row_types(shape, counters):
     """The types to run a row's ``shape`` in: bf16 and f32, then any other
-    its paths call it with ("float32/bfloat16")."""
+    its paths call it with ("float32/bfloat16"); a shape only the f32 task-2
+    steps call (the last two Counters), in the types they call it with."""
     on = {k[1] for c in counters for k in c if k[0] == shape}
+    if not any(k[0] == shape for c in counters[:-2] for k in c):
+        return sorted(on)
     return ["bfloat16", "float32"] + sorted(on - {"bfloat16", "float32"})
 
 
 # each kernel row's paths: (totals prefix, Counter index in the row, launches label)
 PATHS = (("serve_", 1, "/batch"), ("train_", 2, "/stc_tt step"), ("small_", 3, "/stc_st batch"),
-         ("gtc_", 4, "/gtc_tt step"))
+         ("gtc_", 4, "/gtc_tt step"), ("task2_", 5, "/task-2 res18 step"),
+         ("task2_res50_", 6, "/task-2 res50 step"))
 
 
 def bench_kernels(report, tables):
@@ -1466,8 +1482,8 @@ def against_cases(names):
     hw = get_geometry(DB).prep_hw
     serve = path_shapes(MPViTConfig(), BATCH, hw)
     small = path_shapes(mpvit_small_config(), BATCH, hw)
-    train, gtc = step_tables()
-    for t in kernel_tables(serve, train, small, gtc):
+    train, gtc, task2 = step_tables()
+    for t in kernel_tables(serve, train, small, gtc, task2):
         if not keep(t["name"]):
             continue
         src = os.path.splitext(os.path.basename(t["source"]))[0]
@@ -1541,7 +1557,7 @@ def compare_against(other_root: str, card: str, names=(), timed: bool = True):
         _use_libraries(other)
         try:
             got = kern(*args)
-        except AttributeError:
+        except (AttributeError, ValueError):  # DIR lacks the entry, or refuses the shape
             skipped[name] += 1
             continue
         finally:
@@ -1569,10 +1585,12 @@ def compare_against(other_root: str, card: str, names=(), timed: bool = True):
         print(line, flush=True)
         del args, got, want
     for name, n in sorted(skipped.items()):
-        print(f"  {name}: {n} calls not compared (DIR lacks an entry this tree declares)")
+        print(f"  {name}: {n} calls not compared (DIR lacks an entry this tree declares, or "
+              f"its kernel refuses the shape)")
     for name in dict.fromkeys(k[0] for k in tot):
         cells = [f"per {path} {tot[(name, path, 'other')]:.4f} / {tot[(name, path, 'this')]:.4f}"
-                 for path in ("batch", "stc_st batch", "step") if tot[(name, path, "this")]]
+                 for path in dict.fromkeys(k[1] for k in tot if k[0] == name)
+                 if tot[(name, path, "this")]]
         if cells:
             print(f"  {name} ms, other / this: " + "; ".join(cells), flush=True)
     if differ:
@@ -2760,9 +2778,13 @@ def _zoo_model(name: str, mixer: str = "metapool"):
 
 def step_tables():
     """``train_shapes`` of the bf16 stc_tt and gtc_tt train steps at full
-    width (batch 8 at 256x256)."""
-    return tuple(train_shapes(_zoo_model(name), TRAIN_BATCH, TRAIN_HW)
-                 for name in ("stc_tt", "gtc_tt"))
+    width (batch 8 at 256x256), and ``task2_bn_shapes`` of the f32 task-2
+    res18 and res50 steps (batch 8 at 224x224)."""
+    from tcct_tpu_torch.task2.model import ClsModel
+
+    return (*(train_shapes(_zoo_model(name), TRAIN_BATCH, TRAIN_HW)
+              for name in ("stc_tt", "gtc_tt")),
+            tuple(task2_bn_shapes(ClsModel(net), T2_BATCH, T2_HW) for net in ("res18", "res50")))
 
 
 def _counted_step(step, imgs, labs, want, what: str):
@@ -2974,6 +2996,446 @@ def drive_zoo_serving(card):
         del pred32
     print(f"zoo serving: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+T2_BATCH, T2_HW = 8, 224  # task 2: ResNet glaucoma classifier, f32, batch 8 at 224x224
+T2_BNS = {"res18": 20, "res34": 36, "res50": 53}  # BatchNorms: K3 and K3b launches a step
+T2_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_task2")
+
+
+def task2_bn_shapes(model, batch: int, hw: int):
+    """The train BatchNorm calls of one task-2 step of ``model`` (a
+    ``ClsModel``) on [batch, 3, hw, hw] images, by NCHW input shape, read off
+    its modules: one K3 and one K3b launch each."""
+    def out(conv, h):
+        return (h + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
+
+    c = Counter()
+    h = out(model.conv1, hw)
+    c[(batch, model.bn1.num_features, h, h)] += 1
+    h = (h - 1) // 2 + 1  # the stem's 3x3/2 max-pool, pad 1
+    for li in range(1, 5):
+        for blk in getattr(model, f"layer{li}"):
+            h_in = h
+            for i in (1, 2, 3):
+                conv = getattr(blk, f"conv{i}", None)
+                if conv is not None:
+                    h = out(conv, h)
+                    c[(batch, getattr(blk, f"bn{i}").num_features, h, h)] += 1
+            if blk.downsample is not None:
+                hd = out(blk.downsample[0], h_in)
+                c[(batch, blk.downsample[1].num_features, hd, hd)] += 1
+    return c
+
+
+def _task2_model(net: str):
+    import torch
+
+    from tcct_tpu_torch.task2.model import ClsModel, init_cls_weights
+
+    return init_cls_weights(ClsModel(net), torch.Generator().manual_seed(SEED))
+
+
+def _record_bn_calls(fn):
+    """Run ``fn()`` with every K3 and K3b launch's inputs and outputs kept
+    (copies): returns (fn's result, forward calls, backward calls)."""
+    import tcct_tpu_torch.ops.kernels.bnstats as bs
+
+    fwd, bwd = [], []
+    raw_f, raw_b = bs._kernel, bs._kernel_backward
+
+    def kern(x, w, b, eps, leaky):
+        y, mean, var = raw_f(x, w, b, eps, leaky)
+        fwd.append(([t.detach().clone() for t in (x, w, b, y, mean, var)], eps, leaky))
+        return y, mean, var
+
+    def kern_backward(x, w, mean, var, gy, eps, leaky):
+        got = raw_b(x, w, mean, var, gy, eps, leaky)
+        bwd.append(([t.detach().clone() for t in (x, w, mean, var, gy)],
+                    [t.clone() for t in got], eps, leaky))
+        return got
+
+    bs._kernel, bs._kernel_backward = kern, kern_backward
+    try:
+        out = fn()
+    finally:
+        bs._kernel, bs._kernel_backward = raw_f, raw_b
+    return out, fwd, bwd
+
+
+def check_bn_calls(fwd, bwd, what: str):
+    """Each recorded K3 call against the plain statistics and normalize,
+    each K3b call against the plain adjoint (``check_bn_backward``), at the
+    bounds of ``kernel_tables``.  Returns the max abs errors of y and dx."""
+    from tcct_tpu_torch.ops.kernels.bnstats import bn_normalize_reference, bn_stats_reference
+
+    err_y = err_dx = 0.0
+    for (x, w, b, y, mean, var), eps, leaky in fwd:
+        name = f"{what} K3 {list(x.shape)}"
+        rm, rv = bn_stats_reference(x, leaky)
+        tf = x.float()
+        check_within(name + " mean", mean, rm, 1e-5 * tf.abs().mean((0, 2, 3)) + 1e-7)
+        check_within(name + " var", var, rv, 1e-5 * (tf * tf).mean((0, 2, 3)) + 1e-7)
+        err_y = max(err_y, check_close(
+            name, y, bn_normalize_reference(x, mean, var, w, b, eps, leaky), "float32"))
+    for (x, w, mean, var, gy), got, eps, leaky in bwd:
+        err_dx = max(err_dx, check_bn_backward(f"{what} K3b {list(x.shape)}", x, w, mean, var,
+                                               gy, leaky, got))
+    return err_y, err_dx
+
+
+def _bn_autograd(x, weight, bias, eps, leaky):
+    """Train BatchNorm by autograd in x's dtype (the f64 reference of
+    ``task2_card_vs_cpu``): ``(x - mean) * inv + bias``, the batch mean and
+    biased var."""
+    import torch
+
+    dims = (0, 2, 3)
+    mean = x.mean(dims)
+    var = (x * x).mean(dims) - mean * mean
+    inv = torch.rsqrt(var + eps) * weight
+    return ((x - mean[:, None, None]) * inv[:, None, None] + bias[:, None, None],
+            mean.detach(), var.detach())
+
+
+def task2_forward_backward(model, img, labels, masks, device, f64: bool = False):
+    """One train-mode forward and backward of ``model`` on ``device`` at the
+    NHWC images ``img``, with the dropout masks of ``masks`` (keyed by rate,
+    drawn on the CPU where absent): (logits, loss, grads by name, new BN
+    statistics by module name).  ``f64``: the model, the images and the
+    BatchNorms (by autograd, :func:`_bn_autograd`) in f64, the reference."""
+    import torch
+
+    from tcct_tpu_torch.models import layers
+    from tcct_tpu_torch.task2 import train as t2
+    from tcct_tpu_torch.task2.model import Dropout
+
+    cpu = torch.Generator().manual_seed(SEED + 40)
+    raw, raw_bn = Dropout.draw, layers.bn_act_train
+    Dropout.draw = lambda self, x, keep: masks.setdefault(
+        self.rate, torch.rand(x.shape, generator=cpu) < keep).to(x.device)
+    if f64:
+        model, img = model.double(), img.double()
+        layers.bn_act_train = _bn_autograd
+    try:
+        model.to(device=device, memory_format=torch.channels_last).train()
+        params = dict(model.named_parameters())
+        names = {m: n for n, m in model.named_modules()}
+        with layers.full_f32_cudnn(deterministic=True):
+            with layers.train_pass(model, None) as new_stats:
+                logits = model(img.to(device).permute(0, 3, 1, 2))
+            loss = t2.bce_on_softmax(logits, t2.one_hot(labels.to(device)).to(logits.dtype))
+            grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        Dropout.draw, layers.bn_act_train = raw, raw_bn
+    return (logits.detach().cpu(), loss.item(), {k: g.cpu() for k, g in zip(params, grads)},
+            {names[m]: (a.cpu(), b.cpu()) for m, (a, b) in new_stats.items()})
+
+
+def _grad_shares(got, ref):
+    """Each gradient's distance from ``ref``'s over the CPU tests' bound,
+    ``max(2e-3 |ref|, 2e-4 global norm)``: (worst name, its share)."""
+    import torch
+
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in ref.values())))
+    shares = {k: float((got[k].double() - g.double()).norm())
+              / max(2e-3 * float(g.double().norm()), 2e-4 * gnorm) for k, g in ref.items()}
+    worst = max(shares, key=shares.get)
+    return worst, shares[worst]
+
+
+def task2_card_vs_cpu(start, batch: int, hw: int, card: str, truth: bool):
+    """The res18 step's forward and backward on the card against the CPU
+    from the state ``start``, one augmented batch (synthetic images, the
+    draws made on the CPU) and one set of dropout masks: the augmentation
+    within 1e-5, logits within 1e-4 + 1e-5 |ref|, BN statistics within 1e-5.
+    Returns the worst gradients' shares of the bound: card vs CPU, and with
+    ``truth`` card and CPU each against the step in f64."""
+    import torch
+
+    from tcct_tpu_torch.task2.data import (
+        ClsDraws,
+        apply_cls_train,
+        draw_cls_train,
+        synthesize_cls,
+    )
+
+    imgs_np, labels_np = synthesize_cls(batch, hw, SEED)
+    draws = draw_cls_train(batch, torch.Generator().manual_seed(SEED + 41), "cpu")
+    img_cpu = apply_cls_train(torch.from_numpy(imgs_np), draws, hw)
+    img_gpu = apply_cls_train(torch.from_numpy(imgs_np).cuda(), ClsDraws(
+        *(getattr(draws, f).cuda() for f in draws.__dataclass_fields__)), hw)
+    aug_err = float((img_gpu.cpu() - img_cpu).abs().max())
+    if not aug_err <= 1e-5:
+        fail(f"task-2 augmentation at {hw}: card vs CPU max abs err {aug_err:.3e} > 1e-5")
+    masks, runs = {}, {}
+    labels = torch.from_numpy(labels_np)
+    for name, device, f64 in (("cpu", "cpu", False), ("card", "cuda", False),
+                              ("f64", "cpu", True))[:3 if truth else 2]:
+        m = _task2_model("res18")
+        m.load_state_dict(start)
+        runs[name] = task2_forward_backward(m, img_cpu, labels, masks, device, f64)
+    (lc, loss_c, gc, sc), (lg, loss_g, gg, sg) = runs["cpu"], runs["card"]
+    what = f"task-2 step, batch {batch} at {hw}x{hw}"
+    if not bool(((lg - lc).abs() <= 1e-4 + 1e-5 * lc.abs()).all()):
+        fail(f"{what}: logits card vs CPU {float((lg - lc).abs().max()):.3e}")
+    stat_err = max(float((a - b).abs().max()) for k in sc for a, b in zip(sg[k], sc[k]))
+    if not stat_err <= 1e-5:
+        fail(f"{what}: BN statistics card vs CPU {stat_err:.3e} > 1e-5")
+    out = {"card_cpu": _grad_shares(gg, gc)}
+    if truth:
+        out["card_f64"] = _grad_shares(gg, runs["f64"][2])
+        out["cpu_f64"] = _grad_shares(gc, runs["f64"][2])
+    print(f"task2 [{card}]: {what}, card vs CPU from one state and draws: augmentation "
+          f"{aug_err:.3e}, logits {float((lg - lc).abs().max()):.3e}, loss {loss_g:.7f} / "
+          f"{loss_c:.7f}, BN statistics {stat_err:.3e}; worst gradient (share of the bound "
+          f"max(2e-3 |ref|, 2e-4 global norm)): "
+          + ", ".join(f"{k} {n} {v:.4f}" for k, (n, v) in out.items()), flush=True)
+    return out
+
+
+def task2_repeat(start, imgs, labels):
+    """One f32 res18 step from ``start`` twice (one generator seed):
+    (state tensors that differ: parameters, BN statistics, Adam moments;
+    their count)."""
+    import torch
+
+    from tcct_tpu_torch.task2 import train as t2
+    from tcct_tpu_torch.task2.model import ClsModel
+    from tcct_tpu_torch.train.state import Adam
+
+    ends = []
+    for _ in range(2):
+        m = ClsModel("res18")
+        m.load_state_dict(start)
+        opt = Adam()
+        step = t2.build_cls_train_step(m, opt, device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+        step(imgs, labels)
+        ends.append([*m.state_dict().values(), *opt.mu, *opt.nu])
+    return sum(not torch.equal(a, b) for a, b in zip(*ends)), len(ends[0])
+
+
+def write_cls_pngs(folder: str, shapes, colour=(200, 60, 10)) -> None:
+    """One PNG a shape (``NNNN.png`` from 0001), each a solid RGB
+    ``colour`` with seeded noise in its top-left corner."""
+    import numpy as np
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(SEED + 50)
+    for i, hw in enumerate(shapes):
+        img = np.empty(hw + (3,), np.uint8)
+        img[:] = colour
+        img[:64, :64] = rng.integers(0, 256, (64, 64, 3))
+        with open(os.path.join(folder, f"{i + 1:04d}.png"), "wb") as f:
+            f.write(_png_bytes(img))
+
+
+def drive_task2(report, card):
+    """Task 2, the ResNet glaucoma classifier, f32 (TF32 off), batch 8 at
+    224x224 (synthetic fundus images from the seed):
+
+    - a res18 step with augmentation, the launch counts set to 0 just before
+      and read just after (K3 and K3b 20 each, nothing else), every K3 and
+      K3b call of it held against its plain version;
+    - the step's forward and backward on the card against the CPU from one
+      state, one augmented batch and one set of dropout masks (the
+      augmentation within 1e-5, logits within 1e-4 + 1e-5 |ref|, BN
+      statistics within 1e-5, each gradient within the CPU tests' bound);
+    - one step run twice from one state and one generator, bitwise over
+      every state tensor (parameters, BN statistics, Adam moments); and the
+      same with cuDNN free to pick non-deterministic algorithms, reported;
+    - a profile (busy ms by group, launches), eager ms/step in turns with and
+      without deterministic convs, peak memory;
+    - one counted step of res34 (36/36) and res50 (53/53);
+    - a ``ClsTrainer`` debug fit on 40 synthetic images (4 steps, val), its
+      launches counted, and a ``load`` of its ``best_model``;
+    - eval images/s at batch 8 and the TTA on the 40 images;
+    - the ensemble CLI (``main(argv)``) over two saved checkpoints;
+    - ``GoalClsSet.load`` of 8 colour PNGs (one smaller than 1120x1120, one
+      larger) with an xlsx of labels, both written here."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.models import layers
+    from tcct_tpu_torch.task2 import ensemble
+    from tcct_tpu_torch.task2 import train as t2
+    from tcct_tpu_torch.task2.data import GoalClsSet, synthesize_cls, write_labels_xlsx
+    from tcct_tpu_torch.train.state import Adam
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(T2_DIR, ignore_errors=True)
+    imgs_np, labels_np = synthesize_cls(T2_BATCH, T2_HW, SEED)
+    imgs, labels = torch.from_numpy(imgs_np).cuda(), torch.from_numpy(labels_np).cuda()
+    model = _task2_model("res18")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = Adam()
+    step = t2.build_cls_train_step(model, opt, device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    want = {"bn_act_train": T2_BNS["res18"], "bn_act_train_backward": T2_BNS["res18"]}
+
+    def counted(fn, want, what):
+        torch.cuda.synchronize()
+        reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counters()
+        for k, n in counts.items():
+            if n != want.get(k, 0):
+                fail(f"{what}: kernel {k}: {n} launches, expected {want.get(k, 0)}")
+        return out, counts
+
+    (m, fwd, bwd), counts = counted(lambda: _record_bn_calls(lambda: step(imgs, labels)), want,
+                                    "task-2 res18 step")
+    loss = float(m["loss"])
+    if not math.isfinite(loss):
+        fail(f"task-2 res18 step: loss {loss}")
+    err_y, err_dx = check_bn_calls(fwd, bwd, "task-2 res18 step")
+    for e in report["kernels"]:
+        e["task2_step_launches"] = counts[e["name"]]
+    print(f"task2 [{card}]: res18 f32 step, batch {T2_BATCH} at {T2_HW}x{T2_HW}: loss "
+          f"{loss:.6f}, launches { {k: n for k, n in counts.items() if n} }; its {len(fwd)} K3 "
+          f"and {len(bwd)} K3b calls against their plain versions: y max abs err "
+          f"{err_y:.3e}, dx {err_dx:.3e}", flush=True)
+    del fwd, bwd
+
+    # the card against the CPU: at the CPU tests' size (64x64, batch 4) to their
+    # bound; at full size each against the f64 step: the f32 step at a random
+    # init is about two bounds from it on the CPU there, so the card is held to
+    # be as close to it as the CPU is, within a factor 1.5
+    small = task2_card_vs_cpu(start, 4, 64, card, truth=False)
+    if small["card_cpu"][1] > 1.0:
+        fail(f"task-2 step at 64x64: gradient {small['card_cpu'][0]} card vs CPU "
+             f"{small['card_cpu'][1]:.3f} of its bound")
+    full = task2_card_vs_cpu(start, T2_BATCH, T2_HW, card, truth=True)
+    if full["card_f64"][1] > max(1.0, 1.5 * full["cpu_f64"][1]):
+        fail(f"task-2 step at {T2_HW}x{T2_HW}: gradient {full['card_f64'][0]} card vs f64 "
+             f"{full['card_f64'][1]:.3f} of its bound, the CPU's {full['cpu_f64'][1]:.3f}")
+    report["task2_card_vs_cpu"] = {"64": small, str(T2_HW): full}
+
+    # one step twice; then cuDNN free to choose (what the deterministic convs cost)
+    off, n_state = task2_repeat(start, imgs, labels)
+    if off:
+        fail(f"task-2 step: {off} of {n_state} state tensors differ between two runs")
+    free = lambda deterministic=False: layers.full_f32_cudnn(False)  # noqa: E731
+    t2.full_f32_cudnn = free
+    try:
+        off_free, _ = task2_repeat(start, imgs, labels)
+    finally:
+        t2.full_f32_cudnn = layers.full_f32_cudnn
+    print(f"task2 [{card}]: one step twice: {n_state - off} of {n_state} state tensors "
+          f"bitwise equal; with cuDNN's default (non-deterministic) algorithms {off_free} "
+          f"differ", flush=True)
+
+    # time and profile: deterministic convs (the step) and cuDNN's default, in turns
+    ms = {"deterministic": [], "default": []}
+    for kind in ("deterministic", "default", "default", "deterministic"):
+        t2.full_f32_cudnn = layers.full_f32_cudnn if kind == "deterministic" else free
+        try:
+            step(imgs, labels)
+            ms[kind].append(_steps_ms(step, [(imgs, labels)], 5))
+        finally:
+            t2.full_f32_cudnn = layers.full_f32_cudnn
+    busy = {}
+    for kind in ("deterministic", "default"):
+        t2.full_f32_cudnn = layers.full_f32_cudnn if kind == "deterministic" else free
+        try:
+            launches = Counter()
+            groups = profile_device(lambda: step(imgs, labels), min(ms[kind]),
+                                    f"task-2 res18 f32 step, {kind} convs [{card}]", launches)
+            busy[kind] = (sum(groups.values()), sum(launches.values()))
+        finally:
+            t2.full_f32_cudnn = layers.full_f32_cudnn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(imgs, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"task2 [{card}]: res18 f32 step eager ms/step (5 steps, in turns): deterministic "
+          f"{ms['deterministic']}, default {ms['default']}; device busy ms and launches "
+          f"{busy}; peak memory {peak:.3f} GiB", flush=True)
+    report["task2"] = {"eager_ms": ms, "busy_ms_launches": busy, "peak_gib": peak,
+                       "repeat_off": off, "repeat_off_default_convs": off_free}
+    del model, step, opt
+
+    for net in ("res34", "res50"):
+        m = _task2_model(net)
+        s = t2.build_cls_train_step(m, Adam(), device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+        n = T2_BNS[net]
+        out, c = counted(lambda: s(imgs, labels), {"bn_act_train": n,
+                                                     "bn_act_train_backward": n},
+                         f"task-2 {net} step")
+        ms_net = _steps_ms(s, [(imgs, labels)], 2)
+        print(f"task2 [{card}]: {net} f32 step: loss {float(out['loss']):.6f}, launches "
+              f"{ {k: v for k, v in c.items() if v} }, {ms_net:.2f} ms/step", flush=True)
+        del m, s
+
+    # the trainer, eval, TTA, the ensemble CLI
+    ds = GoalClsSet.load(img_size=T2_HW)
+    tr, _ = counted(lambda: t2.ClsTrainer(net="res18", bs=T2_BATCH,
+                                          root=os.path.join(T2_DIR, "fit"), dataset=ds,
+                                          debug=True, device="cuda"), {}, "task-2 trainer init")
+    t0 = time.perf_counter()
+    scores, _ = counted(lambda: tr.fit(), {"bn_act_train": 4 * T2_BNS["res18"],
+                                           "bn_act_train_backward": 4 * T2_BNS["res18"]},
+                        "task-2 debug fit")
+    fit_s = time.perf_counter() - t0
+    best = os.path.join(T2_DIR, "fit", "best_model")
+    other = t2.ClsTrainer(net="res18", bs=T2_BATCH, root=os.path.join(T2_DIR, "fit"),
+                          dataset=ds, seed=1, device="cuda")
+    other.load(best)
+    if set(scores) != {"auc", "f1s", "acc"} or not np.array_equal(other.predict(),
+                                                                   tr.predict()):
+        fail(f"task-2 trainer: scores {scores} or the loaded best_model's predictions differ")
+    xb = tr.imgs_dev[:T2_BATCH]
+    tr.predict_fn(xb)
+    eval_ms = _steps_ms(tr.predict_fn, [(xb,)], 20)
+    tta = ensemble.build_tta_predict(tr.model, device="cuda")
+    tta(xb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = torch.cat([tta(tr.imgs_dev[j:j + T2_BATCH]) for j in range(0, len(ds.imgs),
+                                                                       T2_BATCH)])
+    torch.cuda.synchronize()
+    tta_ms = (time.perf_counter() - t0) * 1e3
+    if means.shape != (len(ds.imgs),) or not bool(torch.isin(
+            means, torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0], device="cuda")).all()):
+        fail(f"task-2 TTA: means {means.tolist()}")
+    weights = os.path.join(T2_DIR, "weights")
+    tr.save(os.path.join(weights, "res18_a"))
+    t2.ClsTrainer(net="res34", root=os.path.join(T2_DIR, "fit"), dataset=ds,
+                  device="cuda").save(os.path.join(weights, "res34_b"))
+    t0 = time.perf_counter()
+    final = ensemble.main(["--weights", weights, "--out", os.path.join(T2_DIR, "pred")])
+    ens_s = time.perf_counter() - t0
+    if set(final) != set(ds.names) or not set(final.values()) <= {0, 1}:
+        fail(f"task-2 ensemble CLI: {final}")
+    print(f"task2 [{card}]: debug fit of 4 steps with val {fit_s:.2f} s, scores {scores}; "
+          f"eval {eval_ms:.3f} ms a batch of {T2_BATCH} ({T2_BATCH / eval_ms * 1e3:.1f} "
+          f"images/s); TTA of {len(ds.imgs)} images {tta_ms:.2f} ms; the ensemble CLI over "
+          f"two checkpoints {ens_s:.2f} s", flush=True)
+    del tr, other
+
+    # a PNG folder with labels
+    folder = os.path.join(T2_DIR, "goals", "Train", "Image")
+    write_cls_pngs(folder, [(800, 1100), (1300, 1200)] + [(1120, 1120)] * 6)
+    xlsx = os.path.join(T2_DIR, "goals", "Train", "Train_GC_GT.xlsx")
+    write_labels_xlsx(xlsx, [(1, 0), (2, 1), (3, 1), (4, 0), (6, 1), (8, 0)])
+    t0 = time.perf_counter()
+    png = GoalClsSet.load(folder, xlsx, img_size=T2_HW)
+    load_s = time.perf_counter() - t0
+    centre = png.imgs[:, T2_HW // 2, T2_HW // 2].tolist()
+    if (png.imgs.shape != (8, T2_HW, T2_HW, 3) or png.synthetic
+            or png.labels.tolist() != [0, 1, 1, 0, 9, 1, 9, 0]
+            or centre != [[10, 60, 200]] * 8):
+        fail(f"task-2 PNG folder: {png.imgs.shape}, labels {png.labels.tolist()}, "
+             f"centre pixels (BGR) {centre}")
+    print(f"task2: GoalClsSet.load of 8 colour PNGs (800x1100, 1300x1200, 6 of 1120x1120) "
+          f"with xlsx labels {png.labels.tolist()}: {load_s:.2f} s", flush=True)
+    shutil.rmtree(T2_DIR, ignore_errors=True)
+    print(f"task2: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
 
 def main() -> int:
     import torch
@@ -3019,7 +3481,7 @@ def main() -> int:
     vit = MPViTConfig()
     serve = path_shapes(vit, BATCH, get_geometry(DB).prep_hw)
     serve_small = path_shapes(mpvit_small_config(), BATCH, get_geometry(DB).prep_hw)
-    train, gtc = step_tables()
+    train, gtc, task2 = step_tables()
     report = {"per_batch_launches": {"metapool_block": sum(serve[0].values()),
                                      "dwconv3x3_s1": sum(serve[1].values()),
                                      "dwconv3x3_s2": sum(serve[2].values())}}
@@ -3027,7 +3489,7 @@ def main() -> int:
     print(f"kernels vs plain versions at the {DB} serving shapes (batch {BATCH}) and the "
           f"stc_tt and gtc_tt train-step shapes (batch {TRAIN_BATCH}, "
           f"{TRAIN_HW[0]}x{TRAIN_HW[1]}) [{card}]:", flush=True)
-    bench_kernels(report, kernel_tables(serve, train, serve_small, gtc))
+    bench_kernels(report, kernel_tables(serve, train, serve_small, gtc, task2))
     check_bn_capture()
     bench_convposenc_backward(report, card, cpe_shapes(vit, TRAIN_BATCH, TRAIN_HW))
     bench_dwconv_variants(card)
@@ -3048,6 +3510,7 @@ def main() -> int:
     drive_gtc_train(report, card)
     drive_zoo_steps(card)
     drive_zoo_serving(card)
+    drive_task2(report, card)
 
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

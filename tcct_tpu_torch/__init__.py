@@ -19,6 +19,11 @@ JAX package's CLI surface:
 - ``data``   — per-dataset geometry, prep/postprocess, ``EyeSet``, the
   augmentation on the device, the native PNG loader and the prefetcher.
 - ``cli``    — ``python -m tcct_tpu_torch.cli.main``, the training CLI.
+- ``task2``  — task 2, the GOALS glaucoma classifier: a ResNet-18/34/50 with
+  per-stage dropout, its data (PNG prep and xlsx labels without cv2 or
+  pandas) and augmentation on the device, ``ClsTrainer``, the TTA ensemble,
+  the metrics, and the CLIs ``python -m tcct_tpu_torch.task2.train`` and
+  ``python -m tcct_tpu_torch.task2.ensemble``.
 
 Public functions take NHWC tensors; modules run NCHW tensors in the
 ``channels_last`` memory format, so the two views share storage.  Every

@@ -170,11 +170,14 @@ struct Params {
 };
 
 // Shared memory: the reduction scratch, [3C] per-channel values, [2*WARPS]
-// finished sums; then the kept words.
+// finished sums; then the kept words.  The scratch is what block_partials
+// uses for this C: where W = C / vec divides 32, one sum per warp of each
+// channel, both sums; else one per row lane, then J runs of them.  (The
+// warp path's 2 * WARPS * C floats would be 256 KiB at 2048 f32 channels,
+// more than a block has, and that C takes the lane path.)
 __host__ __device__ constexpr size_t red_floats(int C, int vec) {
-  const size_t a = (size_t)THREADS * vec + (C > THREADS ? C : THREADS);  // lanes, runs
-  const size_t b = 2 * (size_t)WARPS * C;                                 // warps, both sums
-  return a > b ? a : b;
+  if (32 % (C / vec) == 0) return 2 * (size_t)WARPS * C;           // warps, both sums
+  return (size_t)THREADS * vec + (C > THREADS ? C : THREADS);        // lanes, runs
 }
 __host__ __device__ constexpr size_t fixed_floats(int C, int vec) {
   return (red_floats(C, vec) + 3 * (size_t)C + 2 * WARPS + 3) / 4 * 4;

@@ -80,15 +80,20 @@ def draw_train(labs: torch.Tensor, generator: Optional[torch.Generator],
                crop_hw: Tuple[int, int]) -> TrainDraws:
     """Every draw of the train chain for the batch, in a fixed order (crop,
     flips, RGB, HSV, contrast, brightness), on ``labs``' device."""
-    B, dev = labs.shape[0], labs.device
     y0, x0 = crop_origin(labs, generator, crop_hw)
+    return TrainDraws(y0, x0, *draw_flips_colour(labs.shape[0], generator, labs.device))
+
+
+def draw_flips_colour(B: int, generator: Optional[torch.Generator], dev):
+    """The draws after the crop, shared with Task 2's chain: ``(flip_h,
+    flip_v, rgb, hsv, contrast, brightness)`` for B samples, in that order."""
     flips = torch.rand((B, 2), generator=generator, device=dev) < 0.5
     rgb = _uniform((B, 3), -RGB_LIMIT, RGB_LIMIT, generator, dev)
     u = torch.rand((B, 3), generator=generator, device=dev) * 2 - 1
     hsv = torch.stack([u[:, 0] * HUE_LIMIT, u[:, 1] * SAT_LIMIT, u[:, 2] * VAL_LIMIT], dim=1)
     contrast = 1.0 + _uniform((B,), -CONTRAST_LIMIT, CONTRAST_LIMIT, generator, dev)
     brightness = 1.0 + _uniform((B,), -BRIGHTNESS_LIMIT, BRIGHTNESS_LIMIT, generator, dev)
-    return TrainDraws(y0, x0, flips[:, 0], flips[:, 1], rgb, hsv, contrast, brightness)
+    return flips[:, 0], flips[:, 1], rgb, hsv, contrast, brightness
 
 
 # ---------------------------------------------------------------------------
@@ -162,12 +167,19 @@ def apply_train(imgs_u8: torch.Tensor, labs_u8: torch.Tensor, params: TrainDraws
     rows, cols = rows[:, :, None], cols[:, None, :]
     img = imgs_u8[bi, rows, cols].float() / 255.0
     lab = labs_u8[bi, rows, cols].long()
+    return colour_chain(img, params), lab
+
+
+def colour_chain(img: torch.Tensor, params) -> torch.Tensor:
+    """The RGB shift, HSV shift, contrast and brightness of [B, H, W, 3] f32
+    images at ``params``' draws (``rgb``, ``hsv``, ``contrast``,
+    ``brightness``), then the clip to [0, 1]; shared with Task 2's chain."""
     img = img + params.rgb[:, None, None, :]
     img = hue_saturation_value(img, params.hsv)
     mean = torch.mean(img, dim=(1, 2, 3), keepdim=True)
     img = (img - mean) * params.contrast[:, None, None, None] + mean
     img = img * params.brightness[:, None, None, None]
-    return torch.clamp(img, 0.0, 1.0), lab
+    return torch.clamp(img, 0.0, 1.0)
 
 
 def val_generator(epoch: int) -> torch.Generator:

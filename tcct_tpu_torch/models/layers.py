@@ -62,7 +62,7 @@ def promoted(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tenso
 
 
 @contextlib.contextmanager
-def _full_f32_cudnn(deterministic: bool = False):
+def full_f32_cudnn(deterministic: bool = False):
     """cuDNN's convs in full f32 (TF32 off), and deterministic if asked,
     whatever the caller has set; the caller's settings come back after."""
     cudnn = torch.backends.cudnn
@@ -90,7 +90,7 @@ class _PromotedConv(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, dilation, groups)
         ctx.bias = b is not None
-        with _full_f32_cudnn():
+        with full_f32_cudnn():
             return F.conv2d(x, w, b, stride, padding, dilation, groups)
 
     @staticmethod
@@ -100,7 +100,7 @@ class _PromotedConv(torch.autograd.Function):
         stride, padding, dilation, groups = ctx.conf
         wants = ctx.needs_input_grad
         mask = (wants[0], wants[1], ctx.bias and wants[2])
-        with _full_f32_cudnn(deterministic=True):
+        with full_f32_cudnn(deterministic=True):
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 gy, x, w, [w.shape[0]] if ctx.bias else None, stride, padding, dilation, False,
                 [0, 0], groups, mask)
@@ -306,7 +306,7 @@ class ResBlock(nn.Module):
         return x + self.conv2(y)
 
 
-def _trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
+def trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], by redrawing what falls outside."""
     z = torch.randn(shape, generator=generator)
     while True:
@@ -332,7 +332,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
-            m.weight.copy_(_trunc_normal(m.weight.shape, generator) * 0.02)
+            m.weight.copy_(trunc_normal(m.weight.shape, generator) * 0.02)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):

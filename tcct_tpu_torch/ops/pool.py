@@ -13,6 +13,8 @@ compatible.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -32,10 +34,14 @@ def avg_pool_2d(x: torch.Tensor, window: int = 3, stride: int = 1, padding: int 
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=False)
 
 
-def max_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """MaxPool with torch's default floor-mode VALID semantics (the
-    reference's ``nn.MaxPool2d(kernel_size=2)``), NCHW."""
-    return F.max_pool2d(x, window)
+def max_pool_2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
+                padding: int = 0) -> torch.Tensor:
+    """MaxPool of an NCHW tensor with torch's floor-mode semantics: the
+    reference's ``nn.MaxPool2d(kernel_size=2)`` by default; ``stride``
+    (default ``window``) and ``padding`` (``-inf`` on each side: the task-2
+    ResNet stem's 3x3/2 pad 1, JAX's ``max_pool_2d`` of an ``-inf``-padded
+    input)."""
+    return F.max_pool2d(x, window, stride or window, padding)
 
 
 def _window_sum3x3(v: torch.Tensor) -> torch.Tensor:

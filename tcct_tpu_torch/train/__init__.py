@@ -1,10 +1,12 @@
 """Training (JAX counterpart ``tcct_tpu/train``): mixed precision,
-learning-rate schedules, the AdamW + clip optimizer, the train and eval
-steps, the train state and its checkpoints, and the engine."""
+learning-rate schedules, the AdamW + clip optimizer (and Task 2's Adam
+with coupled L2), the train and eval steps, the train state and its
+checkpoints, and the engine."""
 
 from tcct_tpu_torch.train.engine import Trainer
 from tcct_tpu_torch.train.schedule import cyclic_lr, make_stepwise
 from tcct_tpu_torch.train.state import (
+    Adam,
     AdamW,
     TrainState,
     make_optimizer,

@@ -56,16 +56,12 @@ def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
             if not k.startswith(unused) and not any(part in dead for part in k.split("."))}
 
 
-class AdamW:
-    """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr,
-    weight_decay=weight_decay))``, stepping a list of f32 parameters in
-    place."""
+class _Adam:
+    """Adam's moments, count and learning rate, with optax's arithmetic."""
 
-    def __init__(self, lr: Union[float, Callable[[int], float]], weight_decay: float = 2e-4,
-                 clip_norm: float = 12.0):
+    def __init__(self, lr: Union[float, Callable[[int], float]], weight_decay: float):
         self.lr = lr
         self.weight_decay = weight_decay
-        self.clip_norm = clip_norm
         self.count = 0
         self.mu: Optional[List[torch.Tensor]] = None
         self.nu: Optional[List[torch.Tensor]] = None
@@ -82,21 +78,12 @@ class AdamW:
     def _lr(self) -> float:
         return self.lr(self.count) if callable(self.lr) else self.lr
 
-    @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> torch.Tensor:
-        """One step: clip ``grads`` by their global norm, then the AdamW
-        update of ``params`` in place.  Returns the global norm (before
-        clipping) as a 0-d tensor, without a host sync."""
+    def _direction(self, params: List[torch.Tensor], grads: List[torch.Tensor]):
+        """Advance the count and the moments by ``grads``; return the
+        bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)`` of each tensor."""
         if self.mu is None:
             self.mu = [torch.zeros_like(p) for p in params]
             self.nu = [torch.zeros_like(p) for p in params]
-        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
-        # optax: select(norm < clip_norm, g, g / norm * clip_norm)
-        clipped = torch._foreach_mul(torch._foreach_div(grads, norm), self.clip_norm)
-        keep = norm < self.clip_norm
-        grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
-
-        lr = self._lr()
         self.count += 1
         # bias corrections in f32, as optax forms them from its int32 count
         bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(self.count))
@@ -107,10 +94,52 @@ class AdamW:
                                      torch._foreach_mul(self.nu, B2))
         mu_hat = torch._foreach_div(self.mu, bc1)
         nu_hat = torch._foreach_div(self.nu, bc2)
-        u = torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS))
+        return torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS))
+
+
+class AdamW(_Adam):
+    """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr,
+    weight_decay=weight_decay))``, stepping a list of f32 parameters in
+    place."""
+
+    def __init__(self, lr: Union[float, Callable[[int], float]], weight_decay: float = 2e-4,
+                 clip_norm: float = 12.0):
+        super().__init__(lr, weight_decay)
+        self.clip_norm = clip_norm
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> torch.Tensor:
+        """One step: clip ``grads`` by their global norm, then the AdamW
+        update of ``params`` in place.  Returns the global norm (before
+        clipping) as a 0-d tensor, without a host sync."""
+        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        # optax: select(norm < clip_norm, g, g / norm * clip_norm)
+        clipped = torch._foreach_mul(torch._foreach_div(grads, norm), self.clip_norm)
+        keep = norm < self.clip_norm
+        grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+        lr = self._lr()
+        u = self._direction(params, grads)
         u = torch._foreach_add(u, torch._foreach_mul(params, self.weight_decay))
         torch._foreach_add_(params, torch._foreach_mul(u, -lr))
         return norm
+
+
+class Adam(_Adam):
+    """``optax.chain(add_decayed_weights(weight_decay), adam(lr))``: Adam with
+    *coupled* L2 (``g + wd * p`` enters the moments; paddle's
+    ``Adam(weight_decay=...)`` of the Task-2 reference, t2_train.py:172),
+    not AdamW, and no clipping; steps a list of f32 parameters in place."""
+
+    def __init__(self, lr: Union[float, Callable[[int], float]] = 1e-5,
+                 weight_decay: float = 5e-4):
+        super().__init__(lr, weight_decay)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
+        """One step of ``params`` in place, without a host sync."""
+        lr = self._lr()
+        grads = torch._foreach_add(grads, torch._foreach_mul(params, self.weight_decay))
+        torch._foreach_add_(params, torch._foreach_mul(self._direction(params, grads), -lr))
 
 
 def make_optimizer(steps_per_epoch: int, lr: Optional[float] = None, weight_decay: float = 2e-4,

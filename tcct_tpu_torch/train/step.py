@@ -178,7 +178,7 @@ def build_train_epoch(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig
 
 
 @contextlib.contextmanager
-def _eval_mode(model: torch.nn.Module):
+def eval_mode(model: torch.nn.Module):
     """The model in eval mode inside the block, its own mode restored after."""
     was_training = model.training
     model.eval()
@@ -221,7 +221,7 @@ def build_eval_step(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: bo
         imgs = torch.as_tensor(imgs_u8).to(device)
         labs = torch.as_tensor(labs_u8).to(device)
         img, lab = apply_val(imgs, labs, flip_v.to(device), stochastic=stochastic_val)
-        with _eval_mode(model):
+        with eval_mode(model):
             return _scores(model, _eval_variables(model, cfg.dtype), img.to(cfg.dtype), lab,
                            cfg.n_class)
 
@@ -241,7 +241,7 @@ def build_eval_epoch(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: b
                    flip_v: torch.Tensor) -> Dict[str, torch.Tensor]:
         flip_v = flip_v.to(device)
         sums: Dict[str, torch.Tensor] = {}
-        with _eval_mode(model):
+        with eval_mode(model):
             variables = _eval_variables(model, cfg.dtype)
             n = imgs_u8.shape[0]
             for i in range(n):
@@ -262,7 +262,7 @@ def build_predict(model: torch.nn.Module, n_class: int) -> Callable:
 
     @torch.no_grad()
     def predict(img: torch.Tensor) -> torch.Tensor:
-        with _eval_mode(model):
+        with eval_mode(model):
             pyr = _call(model, _eval_variables(model, img.dtype), (img,))
         logits = pyr[0] if isinstance(pyr, (list, tuple)) else pyr
         return F.one_hot(torch.argmax(torch.softmax(logits, -1), -1), n_class)

@@ -881,3 +881,37 @@ def test_bn_train_kernels_f32_input_bf16_params(cuda, shape):
     _bn_bwd_close(x, w, mean, var, gy, False, got)
     with pytest.raises(ValueError, match="float32/bfloat16 weight"):
         bn_act_train(x, w.half(), b, 1e-5, False)
+
+
+# Task 2's f32 BatchNorms (batch 8 at 224x224): every shape of the res18
+# step, then those res50 adds, up to 2048 channels (512 words a row: one row
+# lane a block) and 25.7 MB maps.
+BN_TASK2_SHAPES = [(8, 64, 112, 112), (8, 64, 56, 56), (8, 128, 28, 28), (8, 256, 14, 14),
+                   (8, 512, 7, 7), (8, 256, 56, 56), (8, 128, 56, 56), (8, 512, 28, 28),
+                   (8, 1024, 14, 14), (8, 2048, 7, 7)]
+
+
+@pytest.mark.parametrize("shape", BN_TASK2_SHAPES)
+def test_bn_train_kernels_at_task2_shapes(cuda, shape):
+    """K3 and K3b in f32 at the task-2 ResNets' shapes, one launch each,
+    against the plain versions at the bounds of the tests above, and
+    bitwise repeatable."""
+    x, w, b = _bn_inputs(cuda, shape, torch.float32, 13)
+    n, nb = bn_act_train.launches, bn_act_train_backward.launches
+    y, mean, var = bn_act_train(x, w, b, 1e-5, False)
+    torch.cuda.synchronize()
+    assert bn_act_train.launches == n + 1
+    rm, rv = bn_stats_reference(x, False)
+    assert bool(((mean - rm).abs() <= 1e-5 * x.abs().mean((0, 2, 3)) + 1e-7).all())
+    assert bool(((var - rv).abs() <= 1e-5 * (x * x).mean((0, 2, 3)) + 1e-7).all())
+    _close(y, bn_normalize_reference(x, mean, var, w, b, 1e-5, False), torch.float32)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    gy = torch.randn(x.shape, generator=g, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    got = bn_act_train_backward(x, w, mean, var, gy, 1e-5, False)
+    torch.cuda.synchronize()
+    assert bn_act_train_backward.launches == nb + 1
+    _bn_bwd_close(x, w, mean, var, gy, False, got)
+    again = bn_act_train_backward(x, w, mean, var, gy, 1e-5, False)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert torch.equal(bn_act_train(x, w, b, 1e-5, False)[0], y)

@@ -133,8 +133,11 @@ def test_prep_and_postprocess_match_jax(db, native):
 
 # jax, flax, cv2, the JAX package, and the attic (as a package or as the
 # top-level module its own test imports)
+# what the port must not import: the JAX package and its stack, and the host
+# libraries the card's machine lacks (cv2, pandas, openpyxl, sklearn, torchvision)
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|cv2|attic|crosscnn_fused|tcct_tpu(?!_torch))\b", re.M)
+    r"^\s*(import|from)\s+(jax|flax|optax|orbax|cv2|pandas|openpyxl|sklearn|torchvision|attic"
+    r"|crosscnn_fused|tcct_tpu(?!_torch))\b", re.M)
 
 
 def test_port_imports_no_jax_no_tcct_tpu_no_cv2():
@@ -148,8 +151,11 @@ def test_port_imports_no_jax_no_tcct_tpu_no_cv2():
     assert len(files) > 15 and bad == []
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"tcct_tpu_torch/ops/kernels/crosscnn_fused.py", "tcct_tpu_torch/models/registry.py",
-            "tcct_tpu_torch/infer/predictor.py", "chip_smoke.py"} <= names
+            "tcct_tpu_torch/infer/predictor.py", "chip_smoke.py",
+            "tcct_tpu_torch/task2/data.py", "tcct_tpu_torch/task2/train.py"} <= names
     assert _FORBIDDEN.search("import os\nfrom attic.crosscnn_fused import fused_cross_block\n")
+    for mod in ("pandas as pd", "openpyxl", "sklearn.metrics", "torchvision", "optax"):
+        assert _FORBIDDEN.search(f"    import {mod}\n")
     assert _FORBIDDEN.search("    import crosscnn_fused as attic\n")
     assert not _FORBIDDEN.search("from tcct_tpu_torch.ops.kernels.crosscnn_fused import x\n")
 
