@@ -42,25 +42,32 @@ toolkit (``nvcc``):
    of pixels, f32 at least 99.999 %) and the f32 model against the CPU path
    on a small input, times the steady state and profiles one batch (no
    LayerNorm launch may remain);
-4. serves the same volume with ``cnn_impl='fused'`` (the CNN branch
+4. exports the duke bf16 model (``infer/export.py``, ``drive_export``):
+   its ``tcct::`` ops held to the per-batch launch table, the program
+   served in a fresh process (``--serve-exported``) with the maps and the
+   launches per batch equal to the eager predictor's and a batch of 3
+   equal to the eager model's, f32 maps equal to the eager f32 maps and
+   on 99.999 % of pixels the CPU program's, the program's ms per batch
+   against the eager module's in turns, its profile by op and its cost;
+5. serves the same volume with ``cnn_impl='fused'`` (the CNN branch
    through the fused block kernel), counts read around it, and holds its
    class maps against the plain path's (f32: at least 99.9 % of pixels);
    then ``gtc_tb`` (the wide CNN branch, gated fusion) both ways, one
    batch of every other model of the registry, and one batch of ``stc_tt``
    in every other dataset bucket, both ways, each bucket's maps held with
    and without the site as for duke;
-5. holds the f32 train step on the card against the CPU path on the
+6. holds the f32 train step on the card against the CPU path on the
    golden 64x64 parity case (step-0 gradients, one AdamW step);
-6. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
+7. trains ``RegNet(stc_tt, 'train')`` at full width (bf16, batch 8 at
    256x256, seeded random weights and a seeded banded batch) for 5 steps
    with the launch counts read around the first, checks every loss is
    finite, prints ms/step, peak memory and the device profile of a sixth
    by group with its launch count, and holds one step run twice from one
    state and one generator to bitwise-equal parameters and statistics;
-7. runs the f32 train step on the card for 50 steps on the golden parity
+8. runs the f32 train step on the card for 50 steps on the golden parity
    case and holds the losses and the final parameter L2 at the bounds of
    ``tests/test_train_parity.py``;
-8. drives the training entry point (``drive_engine``): ``EyeSet.load``
+9. drives the training entry point (``drive_engine``): ``EyeSet.load``
    (synthetic goals, 608x512), a ``Trainer`` of ``stc_tt`` at full width
    with augmentation (bf16, batch 8, crop 256, debug) fitting 2 epochs
    with val, the launch counts read around the fit (every train kernel and
@@ -72,7 +79,7 @@ toolkit (``nvcc``):
    subprocess; the times (ms/step with and without augmentation in turns,
    the augmentation's launches and device ms, val ms a scan, an epoch's
    wall time);
-9. trains the rest of the zoo: ``gtc_tt`` (gated fusion, whose random
+10. trains the rest of the zoo: ``gtc_tt`` (gated fusion, whose random
    alpha maps make everything after the fusion f32) at full width, one
    bf16 step with the launch counts held to the config's table
    (``train_launches``), its ms/step, busy ms and launches beside
@@ -86,7 +93,7 @@ toolkit (``nvcc``):
    (``drive_zoo_steps``); one duke serving batch of each model and mixer
    the slice adds, counted, the f32 model against the CPU, ms
    (``drive_zoo_serving``);
-10. runs task 2, the ResNet glaucoma classifier, in f32 (``drive_task2``):
+11. runs task 2, the ResNet glaucoma classifier, in f32 (``drive_task2``):
    a counted res18 step (batch 8 at 224x224, augmented: K3 and K3b 20
    each, every call held against its plain version), the step on the card
    against the CPU, one step twice bit for bit, its profile, eager ms/step
@@ -94,7 +101,7 @@ toolkit (``nvcc``):
    res50 steps, a ``ClsTrainer`` debug fit and reload, eval images/s, the
    TTA, the ensemble CLI, and a PNG folder with xlsx labels; the K3/K3b rows
    of step 2 also run every f32 shape of the res18 and res50 steps;
-11. prints one JSON line of the kernels, then, as its last line,
+12. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -112,6 +119,12 @@ train step.  A kernel is compared only where DIR's C entries that it calls
 are declared exactly as this tree's; NAME prefixes pick kernels by name
 (``metapool``, ``dwconv3x3_backward``, ``fused_cross_block``, ...).
 
+    python3 chip_smoke.py --serve-exported PROGRAM OUT
+
+is the fresh process of step 4: it loads the exported bf16 program with
+``load_exported``, serves the duke volume through it with the launches
+counted, then a batch of 3, and writes the maps and counts to ``OUT``.
+
     python3 chip_smoke.py --profile DIR
 
 imports ``tcct_tpu_torch`` from DIR (another checkout, or ``.``), builds
@@ -121,7 +134,9 @@ ms, launches, the layer_norm and MetaPool groups); then the train step's
 ms/step, the device time of one step by group (train BatchNorm forward
 and backward, polarization bins and bilinear backward named apart) and its
 launch count, the ops that ``torch.use_deterministic_algorithms`` names,
-and which state tensors differ when one step runs twice from one state.
+and which state tensors differ when one step runs twice from one state;
+then the host us a call of each kernel wrapper at a small shape, forward
+and forward plus backward (``dispatch_diagnostics``).
 """
 
 from __future__ import annotations
@@ -392,6 +407,7 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
         bn_act_train,
         bn_act_train_backward,
         bn_act_train_backward_reference,
+        bn_act_train_flops,
         bn_normalize_reference,
         bn_stats_reference,
     )
@@ -399,9 +415,14 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
         dwconv3x3,
         dwconv3x3_backward,
         dwconv3x3_backward_reference,
+        dwconv3x3_flops,
         dwconv3x3_reference,
     )
-    from tcct_tpu_torch.ops.kernels.metapool import metapool_tokens, metapool_tokens_backward
+    from tcct_tpu_torch.ops.kernels.metapool import (
+        metapool_flops,
+        metapool_tokens,
+        metapool_tokens_backward,
+    )
     from tcct_tpu_torch.ops.pool import (
         metapool_tokens_backward_reference,
         metapool_tokens_reference,
@@ -438,9 +459,11 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
             return check_close(name, got, plain(*args), dn)
         return check
 
+    # each cost: (bytes, operations); the operations are the kernel module's
+    # formula, which utils/profiling.py's cost_analysis counts too
     def mp_cost(args):
         x = args[0]
-        return 2 * x.numel() * x.element_size(), 11 * x.numel()
+        return 2 * x.numel() * x.element_size(), metapool_flops(x.shape)
 
     # --- K2 / K2b ------------------------------------------------------------
     def dw_args(stride, bwd):
@@ -497,9 +520,11 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
             Ho, Wo = out_hw(x.shape, stride)
             n_out = x.shape[0] * Ho * Wo * x.shape[3]
             if len(args) == 2:
-                return (x.numel() + n_out + 9 * x.shape[3]) * x.element_size(), 18 * n_out
-            # x, g read; dx written; taps read, dw written; 18 flops each for dx and dw
-            return (2 * x.numel() + n_out + 18 * x.shape[3]) * x.element_size(), 36 * n_out
+                return ((x.numel() + n_out + 9 * x.shape[3]) * x.element_size(),
+                        dwconv3x3_flops(x.shape, stride))
+            # x, g read; dx written; taps read, dw written
+            return ((2 * x.numel() + n_out + 18 * x.shape[3]) * x.element_size(),
+                    dwconv3x3_flops(x.shape, stride, backward=True))
         return cost
 
     # --- K3 --------------------------------------------------------------------
@@ -546,7 +571,7 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
     def bn_cost(args):
         x = args[0]
         # x read, y written; weight, bias, mean, var as f32 vectors
-        return 2 * x.numel() * x.element_size() + 16 * x.shape[1], 8 * x.numel()
+        return 2 * x.numel() * x.element_size() + 16 * x.shape[1], bn_act_train_flops(x.shape)
 
     # --- K3b ---------------------------------------------------------------------
     # args: x, weight, the forward's mean and var, gy; then, for the library
@@ -592,7 +617,8 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
     def bnb_cost(args):
         x = args[0]
         # x, gy read, dx written; weight, mean, var read, dweight, dbias written
-        return 3 * x.numel() * x.element_size() + 20 * x.shape[1], 12 * x.numel()
+        return (3 * x.numel() * x.element_size() + 20 * x.shape[1],
+                bn_act_train_flops(x.shape, backward=True))
 
     def serve_rows(c):  # the serving path runs bf16
         return Counter({(k, "bfloat16"): n for k, n in c.items()})
@@ -1034,6 +1060,7 @@ def bench_metapool_block(report, card, sites, sites_small):
 
     from tcct_tpu_torch.ops.kernels.metapool import (
         metapool_block,
+        metapool_block_flops,
         metapool_block_reference,
         metapool_tokens,
     )
@@ -1064,7 +1091,7 @@ def bench_metapool_block(report, card, sites, sites_small):
                 err = check_site(label, got, metapool_block_reference(*args), args, dn)
             max_err = max(max_err, err)
             nbytes = (3 * x.numel() + 4 * C) * x.element_size()
-            flops = 30 * x.numel()  # two LayerNorms ~8 each, the window ~12, the add
+            flops = metapool_block_flops(x.shape)
             copies = [(x.clone(),) + args[1:] for _ in range(n_copies(nbytes))]
             t_k = device_ms(metapool_block, copies)
             t_p = device_ms(metapool_block_reference, copies)
@@ -1149,8 +1176,7 @@ def drive_slice(report, card):
 
     t0 = time.perf_counter()
     pred = load_predictor(DB, batch_size=BATCH, dtype=torch.bfloat16, device="cuda", seed=SEED)
-    H, W = pred.geo.prep_hw
-    vol = np.random.default_rng(SEED).integers(0, 256, (N_SCANS, H, W, 3), dtype=np.uint8)
+    vol = duke_volume()
     print(f"slice: load_predictor({DB!r}) bf16 batch {BATCH}: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -1331,6 +1357,7 @@ def bench_fused_block(report, card):
     from tcct_tpu_torch.models.crosscnn import seeded_cross_block
     from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
         fused_cross_block,
+        fused_cross_block_flops,
         fused_cross_block_reference,
         fused_plan,
     )
@@ -1344,7 +1371,7 @@ def bench_fused_block(report, card):
             B, H, W, cin = shape
             kk = 3 if plain else k
             macs = 9 * cin * cout + 3 * 9 * cout * cout + kk * cin * cout + kk * cout * cout
-            flops = 2 * B * H * W * macs
+            flops = fused_cross_block_flops(shape, cin, cout, kk)
             for dtype in (torch.bfloat16, torch.float32):
                 dn = str(dtype).split(".")[-1]
                 blk = seeded_cross_block(cin, cout, k, SEED + 10 + i, plain).to("cuda", dtype)
@@ -1811,6 +1838,180 @@ def drive_fused(report, card, plain):
               f"{plain['groups'][ew]:.3f} ms", flush=True)
 
 
+# --- the serving artifact: torch.export of the duke model ----------------------------
+
+EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_export")
+
+
+def duke_volume():
+    """The seeded 20-scan duke volume every serving phase serves."""
+    import numpy as np
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+
+    H, W = get_geometry(DB).prep_hw
+    return np.random.default_rng(SEED).integers(0, 256, (N_SCANS, H, W, 3), dtype=np.uint8)
+
+
+def serve_program(fn, vol, bs: int, dtype, device):
+    """``predict_scans`` through ``fn(x) -> logits`` (an exported program):
+    batches of ``bs``, the tail padded with zeros, uint8 to ``dtype`` / 255 on
+    ``device``, the argmax as uint8 class maps."""
+    import numpy as np
+    import torch
+
+    segs = []
+    for i in range(0, len(vol), bs):
+        chunk = vol[i: i + bs]
+        if len(chunk) < bs:
+            chunk = np.concatenate([chunk, np.zeros((bs - len(chunk),) + chunk.shape[1:],
+                                                    chunk.dtype)])
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+        with torch.inference_mode():
+            segs.append(torch.argmax(fn(x.to(dtype) / 255.0), dim=-1).to(torch.uint8))
+    return torch.cat(segs)[:len(vol)].cpu().numpy()
+
+
+def serve_exported(path: str, out: str) -> None:
+    """``--serve-exported PROGRAM OUT``, the fresh process of
+    :func:`drive_export`: loads the bf16 program with ``load_exported``,
+    serves the duke volume through it with the launch counts set to 0 just
+    before and read just after, then one batch of 3, and writes the class
+    maps and the counts to the npz ``OUT``."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.infer.export import load_exported
+
+    fn = load_exported(path)
+    vol = duke_volume()
+    reset_counters()
+    seg = serve_program(fn, vol, BATCH, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    counts = read_counters()
+    seg3 = serve_program(fn, vol[:3], 3, torch.bfloat16, "cuda")
+    np.savez(out, seg=seg, seg3=seg3, counts=json.dumps(counts))
+
+
+def drive_export(card, plain):
+    """The serving artifact on the card (``infer/export.py``): the duke
+    ``stc_tt`` predictor's bf16 model exported with a symbolic batch (its
+    time), the graph's ``tcct::`` ops held to ``expected_launches``; the
+    program saved under ``build/`` and served in a fresh process
+    (``--serve-exported``): class maps bitwise the eager predictor's, the
+    launches per batch the eager predictor's, a batch of 3 bitwise the
+    eager model's at 3; then in f32 (TF32 off) bitwise the eager f32 maps
+    and on at least 99.999 % of pixels the CPU program's from the same
+    weights; the program's ms per batch against the eager module's in turns
+    (eager and replayed), its device time by op from ``utils/profiling``,
+    and ``cost_analysis`` of one batch."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.infer.export import export_model, load_exported
+    from tcct_tpu_torch.infer.predictor import load_predictor
+    from tcct_tpu_torch.utils.profiling import cost_analysis, measured_traffic, trace
+
+    pred, vol = plain["pred"], plain["vol"]
+    H, W = pred.geo.prep_hw
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    path = os.path.join(EXPORT_DIR, "stc_tt_duke_bf16.pt2")
+    xb = torch.from_numpy(vol[:BATCH]).cuda()
+    xf = xb.to(torch.bfloat16) / 255.0
+    t0 = time.perf_counter()
+    export_model(pred.model, xf, path)
+    export_s = time.perf_counter() - t0
+    program = torch.export.load(path)
+    ops = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    strides = Counter(n.args[3] for n in program.graph.nodes
+                      if n.op == "call_function" and str(n.target) == "tcct.dwconv3x3.default")
+    got = {"metapool_block": ops["tcct.metapool_block.default"], "dwconv3x3_s1": strides[1],
+           "dwconv3x3_s2": strides[2], "fused_cross_block": ops["tcct.fused_cross_block.default"]}
+    want = expected_launches(pred.model, BATCH, (H, W), False)
+    print(f"export [{card}]: stc_tt duke bf16 batch {BATCH} (symbolic batch) exported in "
+          f"{export_s:.2f} s, saved {os.path.getsize(path) / 2 ** 20:.1f} MiB; tcct ops in the "
+          f"graph {got}; layer_norm ops "
+          f"{sum(n for t, n in ops.items() if 'layer_norm' in t)}", flush=True)
+    if got != want or any("layer_norm" in t for t in ops):
+        fail(f"export: the graph's ops {got} (layer_norm: "
+             f"{[t for t in ops if 'layer_norm' in t]}), expected {want} and no layer_norm")
+    del program
+
+    # a fresh process loads and serves it
+    out = os.path.join(EXPORT_DIR, "served.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-exported", path,
+                           out], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"export: the fresh process failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    with np.load(out) as served:
+        seg, seg3, counts = served["seg"], served["seg3"], json.loads(str(served["counts"]))
+    n_batches = math.ceil(N_SCANS / BATCH)
+    print(f"export: served {N_SCANS} scans in a fresh process ({time.perf_counter() - t0:.2f} s "
+          f"with its start): launches {counts}", flush=True)
+    for k, n in counts.items():
+        if n != n_batches * want.get(k, 0):
+            fail(f"export: kernel {k}: {n} launches over {n_batches} batches, expected "
+                 f"{n_batches * want.get(k, 0)} as the eager predictor's")
+    if not np.array_equal(seg, plain["seg"]):
+        fail(f"export: class maps differ from the eager predictor's on "
+             f"{float((seg != plain['seg']).mean()):.3e} of pixels")
+    with torch.inference_mode():
+        eager3 = pred._forward(xb[:3]).cpu().numpy()
+    if seg3.shape != (3, H, W) or not np.array_equal(seg3, eager3):
+        fail(f"export: a batch of 3 through the batch-{BATCH} program: {seg3.shape}, "
+             f"{float((seg3 != eager3).mean()) if seg3.shape == eager3.shape else 'n/a'} of "
+             f"pixels off the eager model's")
+    print(f"export: bf16 class maps bitwise the eager predictor's (20 scans), a batch of 3 "
+          f"bitwise the eager model's at 3", flush=True)
+
+    # timing in turns: the eager module and the program, eager and replayed
+    fn = load_exported(path)
+
+    def eager(x):
+        with torch.inference_mode():
+            return pred.model(x)[0]
+
+    rows = []
+    for name, f in (("eager module", eager), ("program", fn), ("program", fn),
+                    ("eager module", eager)):
+        rows.append((name, time_ms(f, [(xf,)], iters=40), device_ms(f, [(xf,)], iters=20)))
+    print(f"export [{card}]: ms per batch of {BATCH}, in turns (eager / replayed as one CUDA "
+          "graph): " + "; ".join(f"{n} {e:.3f} / {g:.3f}" for n, e, g in rows), flush=True)
+    tdir = os.path.join(EXPORT_DIR, "trace")
+    fn(xf)
+    with trace(tdir):
+        fn(xf)
+    traffic = measured_traffic(tdir)
+    print(f"export: profile of one program batch (utils/profiling): device self "
+          f"{traffic['self_time_s'] * 1e3:.3f} ms; by op:", flush=True)
+    for op, t in sorted(traffic["categories"].items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {t * 1e3:8.3f} ms  {op}", flush=True)
+    cost = cost_analysis(fn, xf)
+    print(f"export: cost_analysis of one batch: {cost['flops'] / 1e9:.2f} GFLOP, "
+          f"{cost['bytes_accessed'] / 1e9:.3f} GB accessed (inputs plus outputs of every op), "
+          f"{cost['transcendentals'] / 1e6:.2f} M transcendentals", flush=True)
+    del fn
+
+    # f32 (TF32 off): the card's program against the eager maps and the CPU's program
+    pred32 = load_predictor(DB, batch_size=BATCH, dtype=torch.float32, device="cuda", seed=SEED)
+    path32 = os.path.join(EXPORT_DIR, "stc_tt_duke_f32.pt2")
+    export_model(pred32.model, xb.float() / 255.0, path32)
+    seg32 = serve_program(load_exported(path32), vol, BATCH, torch.float32, "cuda")
+    if not np.array_equal(seg32, plain["seg32"]):
+        fail(f"export: f32 class maps differ from the eager f32 predictor's on "
+             f"{float((seg32 != plain['seg32']).mean()):.3e} of pixels")
+    cpu_model = pred32.model.to("cpu")
+    path_cpu = os.path.join(EXPORT_DIR, "stc_tt_duke_f32_cpu.pt2")
+    t0 = time.perf_counter()
+    export_model(cpu_model, xb.cpu().float() / 255.0, path_cpu)
+    seg_cpu = serve_program(load_exported(path_cpu), vol, BATCH, torch.float32, "cpu")
+    print(f"export: f32 program bitwise the eager f32 maps; the CPU program exported and served "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    held_agreement("export: f32 card program vs f32 CPU program", seg32, seg_cpu, 0.99999)
+    del pred32, cpu_model
+
+
 def drive_both_ways(net: str, card):
     """One model at full width on duke, bf16, one 20-scan volume, with the
     CNN branch plain and fused: launch counts, class maps, agreement of the
@@ -2081,13 +2282,20 @@ def drive_train(report, card, train_counts):
 
 # (label, module, attribute) of the functions whose device time a train
 # profile names apart; an attribute the tree lacks is skipped
+# (label, the op whose calls it names, module, function wrapped in a range
+# of the label where the module has it): a tree whose kernels are tcct::
+# ops is labelled by the ops' own profiler ranges, an older one (``--profile
+# DIR`` on a parent) by its autograd.Functions
 _TRAIN_LABELS = (
-    ("K3 forward (bn_act_train)", "tcct_tpu_torch.ops.kernels.bnstats", "_BNActTrain.forward"),
-    ("train BN backward", "tcct_tpu_torch.ops.kernels.bnstats", "_BNActTrain.backward"),
-    ("polarization bins, forward", "tcct_tpu_torch.losses.polar", "points_selection_bins"),
-    ("bilinear backward (adjoint)", "tcct_tpu_torch.ops.resize", "_ResizeBilinear.backward"),
-    ("depthwise backward (K2b and the passes around it)", "tcct_tpu_torch.ops.kernels.dwconv",
-     "_DWConv3x3.backward"),
+    ("K3 forward (bn_act_train)", "tcct::bn_act_train", "tcct_tpu_torch.ops.kernels.bnstats",
+     "_BNActTrain.forward"),
+    ("train BN backward", "tcct::bn_act_train_backward", "tcct_tpu_torch.ops.kernels.bnstats",
+     "_BNActTrain.backward"),
+    ("polarization bins, forward", None, "tcct_tpu_torch.losses.polar", "points_selection_bins"),
+    ("bilinear backward (adjoint)", None, "tcct_tpu_torch.ops.resize",
+     "_ResizeBilinear.backward"),
+    ("depthwise backward (K2b and the passes around it)", "tcct::dwconv3x3_backward",
+     "tcct_tpu_torch.ops.kernels.dwconv", "_DWConv3x3.backward"),
 )
 
 
@@ -2099,7 +2307,7 @@ def _wrap_labels():
     from torch.profiler import record_function
 
     undo = []
-    for label, mod_name, path in _TRAIN_LABELS:
+    for label, _, mod_name, path in _TRAIN_LABELS:
         obj = importlib.import_module(mod_name)
         *outer, attr = path.split(".")
         for name in outer:
@@ -2128,7 +2336,9 @@ def profile_train_step(fn, wall_ms: float, card: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    labels = {label for label, _, _ in _TRAIN_LABELS}
+    labels = {label for label, _, _, _ in _TRAIN_LABELS}
+    ranges = {label: label for label in labels}  # a range's name -> its label
+    ranges.update({op: label for label, op, _, _ in _TRAIN_LABELS if op})
     undo = _wrap_labels()
     try:
         fn()  # warm: a first call through the wrappers
@@ -2154,15 +2364,16 @@ def profile_train_step(fn, wall_ms: float, card: str):
             by_name_n[ev.name] += 1
         elif ev.device_type == DeviceType.CPU and ev.kernels:
             up = ev
-            while up is not None and up.name not in labels:
+            while up is not None and up.name not in ranges:
                 up = up.cpu_parent
             if up is None:
                 continue
+            label = ranges[up.name]
             for k in ev.kernels:
-                ms[up.name] += k.duration / 1e3
-                n[up.name] += 1
-                inside[up.name][_group_of(k.name)] += k.duration / 1e3
-                inside_n[up.name][_group_of(k.name)] += 1
+                ms[label] += k.duration / 1e3
+                n[label] += 1
+                inside[label][_group_of(k.name)] += k.duration / 1e3
+                inside_n[label][_group_of(k.name)] += 1
                 by_name_ms[k.name] -= k.duration / 1e3
                 by_name_n[k.name] -= 1
     for name, t in by_name_ms.items():
@@ -2285,6 +2496,65 @@ def train_diagnostics(card: str) -> None:
         print(f"train diagnostics: one step twice, cudnn.deterministic={det}, "
               f"use_deterministic_algorithms={flag}: {len(off)} of {n} tensors differ (max abs "
               f"difference {worst:.3e}): {_summary(off) or '-'}", flush=True)
+
+
+def dispatch_diagnostics(card: str) -> None:
+    """``--profile DIR``, last: the host's CPU us a call of each kernel
+    wrapper of the tree on ``sys.path`` at a small bf16 shape (a few us of
+    device work, so the host sets the pace): the forward under ``no_grad``,
+    and the forward with the backward through ``torch.autograd.grad``.  Read
+    parent against change for what the op dispatch costs a call."""
+    import torch
+
+    from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
+    from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3
+    from tcct_tpu_torch.ops.kernels.metapool import metapool_block, metapool_tokens
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    xm, xd, wd = rand(8, 64, 32), rand(8, 16, 16, 32), rand(3, 3, 32)
+    xb = rand(8, 32, 16, 16).contiguous(memory_format=torch.channels_last)
+    wb, bb = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    ln = [rand(32) for _ in range(4)]
+    cases = [("metapool_tokens", lambda *a: metapool_tokens(*a), (xm,)),
+             ("metapool_block", lambda x: metapool_block(x, *ln)[0], (xm,)),
+             ("dwconv3x3 s1", lambda x, w: dwconv3x3(x, w, 1), (xd, wd)),
+             ("dwconv3x3 s2", lambda x, w: dwconv3x3(x, w, 2), (xd, wd)),
+             ("bn_act_train", lambda x, w, b: bn_act_train(x, w, b, 1e-5, True)[0], (xb, wb, bb))]
+
+    def host_us(fn, n=1000, windows=5):
+        """The calling thread's CPU time a call, the least of a few windows:
+        the machine's cores are shared, and wall time on them swings by 2x
+        between turns."""
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(windows):
+            t0 = time.thread_time()
+            for _ in range(n):
+                fn()
+            best = min(best, time.thread_time() - t0)
+            torch.cuda.synchronize()
+        return best / n * 1e6
+
+    cells = []
+    for name, f, args in cases:
+        with torch.no_grad():
+            fwd = host_us(lambda: f(*args))
+        cell = f"{name} {fwd:.2f}"
+        if name != "metapool_block":  # the site has no backward
+            req = [a.detach().clone().requires_grad_() for a in args]
+            gy = torch.ones_like(f(*args))
+            both = host_us(lambda: torch.autograd.grad(f(*req), req, gy))
+            cell += f" / {both:.2f}"
+        cells.append(cell)
+    print(f"dispatch [{card}]: host CPU us a call (the thread's, least of 5 windows of "
+          "1000), forward / forward + backward (small bf16 shapes): " + "; ".join(cells),
+          flush=True)
 
 
 GOLDENS = {"train_parity": "stc_tt", "train_parity_gtc": "gtc_tt"}
@@ -3035,29 +3305,34 @@ def _task2_model(net: str):
 
 
 def _record_bn_calls(fn):
-    """Run ``fn()`` with every K3 and K3b launch's inputs and outputs kept
-    (copies): returns (fn's result, forward calls, backward calls)."""
-    import tcct_tpu_torch.ops.kernels.bnstats as bs
+    """Run ``fn()`` with the inputs and outputs of every call of the K3 and
+    K3b ops (``tcct::bn_act_train``, ``tcct::bn_act_train_backward``) kept
+    (copies), seen by a dispatch mode: returns (fn's result, forward calls,
+    backward calls)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
 
+    fwd_op = torch.ops.tcct.bn_act_train.default
+    bwd_op = torch.ops.tcct.bn_act_train_backward.default
     fwd, bwd = [], []
-    raw_f, raw_b = bs._kernel, bs._kernel_backward
 
-    def kern(x, w, b, eps, leaky):
-        y, mean, var = raw_f(x, w, b, eps, leaky)
-        fwd.append(([t.detach().clone() for t in (x, w, b, y, mean, var)], eps, leaky))
-        return y, mean, var
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is fwd_op:
+                x, w, b, eps, leaky = args
+                y, stats = out
+                fwd.append(([t.detach().clone() for t in (x, w, b, y, stats[0], stats[1])],
+                            eps, leaky))
+            elif func is bwd_op:
+                x, w, mean, var, gy, eps, leaky = args
+                dx, dwb = out
+                bwd.append(([t.detach().clone() for t in (x, w, mean, var, gy)],
+                            [dx.clone(), dwb[0].clone(), dwb[1].clone()], eps, leaky))
+            return out
 
-    def kern_backward(x, w, mean, var, gy, eps, leaky):
-        got = raw_b(x, w, mean, var, gy, eps, leaky)
-        bwd.append(([t.detach().clone() for t in (x, w, mean, var, gy)],
-                    [t.clone() for t in got], eps, leaky))
-        return got
-
-    bs._kernel, bs._kernel_backward = kern, kern_backward
-    try:
+    with Record():
         out = fn()
-    finally:
-        bs._kernel, bs._kernel_backward = raw_f, raw_b
     return out, fwd, bwd
 
 
@@ -3452,6 +3727,9 @@ def main() -> int:
         fail(f"run from the root of a checkout: cannot import tcct_tpu_torch ({e})")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve-exported":  # drive_export's fresh process
+        serve_exported(sys.argv[2], sys.argv[3])
+        return 0
 
     card = card_identity()
     print(card, flush=True)
@@ -3467,12 +3745,14 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         serve_diagnostics(card)
         train_diagnostics(card)
+        dispatch_diagnostics(card)
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--against":
         compare_against(sys.argv[2], card, sys.argv[3:])
         return 0
     if len(sys.argv) > 1:
-        fail(f"usage: chip_smoke.py [--against DIR [NAME ...] | --profile DIR], "
+        fail(f"usage: chip_smoke.py [--against DIR [NAME ...] | --profile DIR | "
+             f"--serve-exported PROGRAM OUT], "
              f"not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
@@ -3498,6 +3778,7 @@ def main() -> int:
     bench_metapool_block(report, card, serve[0], serve_small[0])
     bench_fused_block(report, card)
     plain = drive_slice(report, card)
+    drive_export(card, plain)
     drive_fused(report, card, plain)
     del plain
     drive_both_ways("gtc_tb", card)

@@ -16,24 +16,26 @@ The arithmetic is the JAX package's default train BatchNorm
 reductions, ``inv = rsqrt(var + eps) * weight`` in f32, and
 ``y = (t - mean) * inv + bias`` in the input dtype.
 
-:func:`bn_act_train` is a ``torch.autograd.Function``.  On a CUDA tensor
-its forward launches K3 and its backward :func:`bn_act_train_backward`,
-K3b: each one cooperative launch that sums per channel in a fixed order,
-then normalizes (or forms dx) in the same launch.  On a CPU tensor both
-run the plain versions.
+:func:`bn_act_train` calls the op ``tcct::bn_act_train``, whose autograd
+formula (``_BNActTrainAutograd``) calls the op
+``tcct::bn_act_train_backward``.  On a CUDA tensor the
+forward launches K3 and the backward K3b: each one cooperative launch that
+sums per channel in a fixed order, then normalizes (or forms dx) in the
+same launch.  On a CPU tensor both run the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tcct_tpu_torch.ops.kernels import build
+from tcct_tpu_torch.ops.kernels import build, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS = (0, 2, 3)  # every axis of NCHW but channels
@@ -168,7 +170,7 @@ def _workspace(x, M, C, backward: bool) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=x.device)
 
 
-def _kernel(x, weight, bias, eps, leaky):
+def _forward_cuda(x, weight, bias, eps: float, leaky: bool):
     M, C = _check(x, "bn_act_train", weight=weight, bias=bias)
     xc = x.contiguous(memory_format=torch.channels_last)
     y = torch.empty_like(xc, memory_format=torch.channels_last)
@@ -181,10 +183,32 @@ def _kernel(x, weight, bias, eps, leaky):
         _DTYPES[b.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"bn_act_train {tuple(x.shape)} {x.dtype} leaky={leaky}")
     bn_act_train.launches += 1
-    return y, stats[0], stats[1]
+    return y, stats[:2]
 
 
-def _kernel_backward(x, weight, mean, var, gy, eps, leaky):
+def _forward_cpu(x, weight, bias, eps: float, leaky: bool):
+    mean, var = bn_stats_reference(x, leaky)
+    return bn_normalize_reference(x, mean, var, weight, bias, eps, leaky), torch.stack([mean, var])
+
+
+def _like_y(x: torch.Tensor) -> torch.Tensor:
+    """An output shaped like NCHW ``x`` in the layout each implementation
+    gives: channels_last from the kernels, x's own from the plain versions."""
+    if x.device.type == "cuda":
+        return torch.empty_like(x, memory_format=torch.channels_last)
+    return torch.empty_like(x)
+
+
+# (y, stats [2, C] f32: mean, var); the kernel writes a third row, inv
+_forward_op = library.define(
+    "bn_act_train(Tensor x, Tensor weight, Tensor bias, float eps, bool leaky) "
+    "-> (Tensor, Tensor)",
+    cpu=_forward_cpu, cuda=_forward_cuda,
+    fake=lambda x, weight, bias, eps, leaky: (
+        _like_y(x), x.new_empty((2, x.shape[1]), dtype=torch.float32)))
+
+
+def _backward_cuda(x, weight, mean, var, gy, eps: float, leaky: bool):
     M, C = _check(x, "bn_act_train_backward", weight=weight, mean=mean, var=var)
     if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
         raise ValueError(f"bn_act_train_backward: want gy like x {tuple(x.shape)} {x.dtype}, "
@@ -204,7 +228,21 @@ def _kernel_backward(x, weight, mean, var, gy, eps, leaky):
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"bn_act_train_backward {tuple(x.shape)} {x.dtype} leaky={leaky}")
     bn_act_train_backward.launches += 1
-    return dx, dwb[0].to(weight.dtype), dwb[1].to(weight.dtype)
+    return dx, dwb
+
+
+def _backward_cpu(x, weight, mean, var, gy, eps: float, leaky: bool):
+    dx, dw, db = bn_act_train_backward_reference(x, weight, mean, var, gy, eps, leaky)
+    return dx, torch.stack([dw, db])
+
+
+# (dx, [2, C] in weight's dtype: dweight, dbias)
+_backward_op = library.define(
+    "bn_act_train_backward(Tensor x, Tensor weight, Tensor mean, Tensor var, Tensor gy, "
+    "float eps, bool leaky) -> (Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda x, weight, mean, var, gy, eps, leaky: (
+        _like_y(x), weight.new_empty((2, x.shape[1]))))
 
 
 def bn_act_train_backward(x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
@@ -212,45 +250,55 @@ def bn_act_train_backward(x: torch.Tensor, weight: torch.Tensor, mean: torch.Ten
                           leaky: bool = False):
     """The adjoint of :func:`bn_act_train` at ``gy``, given the forward's
     batch ``mean`` and ``var``: ``(dx in x's dtype, dweight, dbias in
-    weight's dtype)``.  A CPU tensor takes
-    :func:`bn_act_train_backward_reference`; a CUDA tensor launches K3b,
-    or the call raises."""
-    if x.device.type == "cpu":
-        return bn_act_train_backward_reference(x, weight, mean, var, gy, eps, leaky)
-    return _kernel_backward(x, weight, mean, var, gy, eps, leaky)
+    weight's dtype)`` (the op ``tcct::bn_act_train_backward``).  A CPU
+    tensor takes :func:`bn_act_train_backward_reference`; a CUDA tensor
+    launches K3b, or the call raises."""
+    library.check_device(x, "bn_act_train_backward")
+    dx, dwb = _backward_op(x, weight, mean, var, gy, float(eps), bool(leaky))
+    return dx, dwb[0], dwb[1]
 
 
-class _BNActTrain(torch.autograd.Function):
+class _BNActTrainAutograd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps, leaky):
-        if x.device.type == "cpu":
-            mean, var = bn_stats_reference(x, leaky)
-            y = bn_normalize_reference(x, mean, var, weight, bias, eps, leaky)
-        else:
-            y, mean, var = _kernel(x, weight, bias, eps, leaky)
-        ctx.save_for_backward(x, weight, mean, var)
+        y, stats = library.below_autograd(_forward_op, x, weight, bias, eps, leaky)
+        ctx.save_for_backward(x, weight, stats)
         ctx.eps, ctx.leaky, ctx.bias_dtype = eps, leaky, bias.dtype
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.mark_non_differentiable(stats)
+        return y, stats
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gy, _gmean, _gvar):
-        x, weight, mean, var = ctx.saved_tensors
-        dx, dw, db = bn_act_train_backward(x, weight, mean, var, gy, ctx.eps, ctx.leaky)
+    def backward(ctx, gy, _gstats):
+        x, weight, stats = ctx.saved_tensors
+        dx, dw, db = bn_act_train_backward(x, weight, stats[0], stats[1], gy, ctx.eps,
+                                           ctx.leaky)
         return dx, dw, db.to(ctx.bias_dtype), None, None
+
+
+library.autograd(_forward_op, _BNActTrainAutograd)
 
 
 def bn_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
                  leaky: bool = False):
     """Train-mode BatchNorm of NCHW ``x`` after an optional LeakyReLU(0.01):
-    ``(y in x's dtype, batch mean [C] f32, biased batch var [C] f32)``.
-    Differentiable in x, weight and bias (through y; the statistics are
-    outputs only).
+    ``(y in x's dtype, batch mean [C] f32, biased batch var [C] f32)`` (the
+    op ``tcct::bn_act_train``; the statistics are two rows of its second
+    output).  Differentiable in x, weight and bias (through y; the
+    statistics are outputs only).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernel, or the call raises."""
-    return _BNActTrain.apply(x, weight, bias, float(eps), bool(leaky))
+    library.check_device(x, "bn_act_train")
+    y, stats = _forward_op(x, weight, bias, float(eps), bool(leaky))
+    return y, stats[0], stats[1]
+
+
+def bn_act_train_flops(x_shape, backward: bool = False) -> int:
+    """Operations of K3 (``backward=False``) or K3b on NCHW ``x_shape``:
+    about 8 an element forward (the activation, two sums, the normalize),
+    12 backward."""
+    return (12 if backward else 8) * math.prod(x_shape)
 
 
 bn_act_train.launches = 0

@@ -33,7 +33,7 @@ from typing import List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from tcct_tpu_torch.ops.kernels import build
+from tcct_tpu_torch.ops.kernels import build, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,6 +103,8 @@ def pack_cross_block(block, dtype: torch.dtype) -> CrossBlockPack:
     when one of its tensors was replaced or written (a tensor made under
     ``torch.inference_mode()`` counts no writes: replace it to repack)."""
     convs, bns = _block_tensors(block)
+    if torch.compiler.is_compiling():  # traced (torch.export): the pack is part of the graph
+        return _pack(convs, bns, dtype)
     tensors = [t for c in convs for t in (c.weight, c.bias)]
     tensors += [t for bn in bns for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var)]
     stamp = (dtype, tensors[0].device) + tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
@@ -110,6 +112,12 @@ def pack_cross_block(block, dtype: torch.dtype) -> CrossBlockPack:
     cached = block.__dict__.get("_fused_pack")
     if cached is not None and cached[0] == stamp:
         return cached[1]
+    pack = _pack(convs, bns, dtype)
+    block.__dict__["_fused_pack"] = (stamp, pack)
+    return pack
+
+
+def _pack(convs, bns, dtype: torch.dtype) -> CrossBlockPack:
     cout, cin = convs[0].weight.shape[:2]
     k = convs[2].weight.shape[3]
     want = [(cout, ci, kh, kw) for kh, kw, ci in CrossBlockPack(None, None, cin, cout, k).geometry()]
@@ -122,9 +130,7 @@ def pack_cross_block(block, dtype: torch.dtype) -> CrossBlockPack:
     wf = None
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 32 == 0:
         wf = torch.cat([_fragment_major(t) for t in taps]).contiguous()
-    pack = CrossBlockPack(w.contiguous(), vec.contiguous(), cin, cout, k, wf)
-    block.__dict__["_fused_pack"] = (stamp, pack)
-    return pack
+    return CrossBlockPack(w.contiguous(), vec.contiguous(), cin, cout, k, wf)
 
 
 def _lrelu(t: torch.Tensor) -> torch.Tensor:
@@ -133,15 +139,17 @@ def _lrelu(t: torch.Tensor) -> torch.Tensor:
 
 def fused_cross_block_reference(x: torch.Tensor, block,
                                 acc: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain version: NHWC ``x`` [B,H,W,Cin] -> [B,H,W,Cout] in x's dtype.
-    The rounded operands are widened to f32, every conv is ``F.conv2d`` in
-    f32 (zero padding of its own input), the epilogues are f32, and a value
-    is rounded to x's dtype where the kernel rounds it.
+    """Plain version: NHWC ``x`` [B,H,W,Cin] -> [B,H,W,Cout] in x's dtype,
+    for a ``CrossCNNBlock`` or its :class:`CrossBlockPack` (``block``; the
+    op's CPU implementation passes the pack).  The rounded operands are
+    widened to f32, every conv is ``F.conv2d`` in f32 (zero padding of its
+    own input), the epilogues are f32, and a value is rounded to x's dtype
+    where the kernel rounds it.
 
     ``acc=torch.float64`` runs the same chain, rounded at the same places,
     with f64 sums and epilogues and returns it in f64: the yardstick for
     how far summation order moves either version."""
-    pk = pack_cross_block(block, x.dtype)
+    pk = block if isinstance(block, CrossBlockPack) else pack_cross_block(block, x.dtype)
     dt, k2 = x.dtype, pk.k // 2
     s12, t12, s34, t34, s5, t5 = (v[None, :, None, None].to(acc) for v in pk.vec[6:])
 
@@ -203,9 +211,52 @@ def fused_plan(B: int, H: int, W: int, cin: int, cout: int, k: int,
     return FusedPlan(*plan[:4], int(smem), plan[4])
 
 
+def _fused_cuda(x, w, vec, wf, cin: int, cout: int, k: int):
+    if x.dim() != 4 or x.dtype not in _DTYPES:
+        raise ValueError(f"fused_cross_block: want NHWC float32/bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    B, H, W, C = x.shape
+    if C != cin or w.device != x.device or vec.device != x.device:
+        raise ValueError(f"fused_cross_block: x has {C} channels on {x.device}, the block takes "
+                         f"{cin} on {w.device}")
+    if cin % 8 or cout % 8 or k % 2 == 0 or k < 3:
+        raise ValueError(f"fused_cross_block: want Cin and Cout multiples of 8 and k odd, got "
+                         f"{cin} {cout} {k}")
+    if x.dtype == torch.bfloat16 and wf is None:
+        raise ValueError(f"fused_cross_block: bfloat16 wants Cin a multiple of 16 and Cout of "
+                         f"32, got {cin} {cout}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    y = x.new_empty((B, H, W, cout))
+    if y.numel() == 0:
+        return y
+    w = (w if wf is None else wf).contiguous()
+    vec = vec.contiguous()
+    err = _fn("tcct_crosscnn_fused_fwd")(
+        x.data_ptr(), w.data_ptr(), vec.data_ptr(), y.data_ptr(), B, H, W, cin, cout, k,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"fused_cross_block {tuple(x.shape)} -> {cout} k {k} {x.dtype}")
+    fused_cross_block.launches += 1
+    return y
+
+
+# the block's pack as tensors (w tap-major, vec, wf fragment-major or None)
+# and its geometry as ints, so that a traced graph carries the pack
+_fused_op = library.define(
+    "fused_cross_block(Tensor x, Tensor w, Tensor vec, Tensor? wf, int cin, int cout, int k) "
+    "-> Tensor",
+    cpu=lambda x, w, vec, wf, cin, cout, k: fused_cross_block_reference(
+        x, CrossBlockPack(w, vec, cin, cout, k, wf)),
+    cuda=_fused_cuda,
+    fake=lambda x, w, vec, wf, cin, cout, k: x.new_empty(tuple(x.shape[:3]) + (cout,)))
+library.no_backward(_fused_op, "fused_cross_block")
+
+
 def fused_cross_block(x: torch.Tensor, block) -> torch.Tensor:
     """One eval-mode ``CrossCNNBlock`` in one kernel: NHWC ``x``
-    [B,H,W,Cin] -> [B,H,W,Cout] in x's dtype (f32 or bf16), any H and W.
+    [B,H,W,Cin] -> [B,H,W,Cout] in x's dtype (f32 or bf16), any H and W:
+    the op ``tcct::fused_cross_block`` on the block's pack.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel, or the call raises.  There is no backward: a block in train mode
@@ -218,37 +269,17 @@ def fused_cross_block(x: torch.Tensor, block) -> torch.Tensor:
                                     or any(p.requires_grad for p in block.parameters())):
         raise ValueError("fused_cross_block has no backward: call it under torch.no_grad() "
                          "or torch.inference_mode()")
-    if x.device.type == "cpu":
-        return fused_cross_block_reference(x, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_cross_block: unsupported device {x.device}")
-    if x.dim() != 4 or x.dtype not in _DTYPES:
-        raise ValueError(f"fused_cross_block: want NHWC float32/bfloat16, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    library.check_device(x, "fused_cross_block")
     pk = pack_cross_block(block, x.dtype)
-    B, H, W, C = x.shape
-    if C != pk.cin or pk.w.device != x.device:
-        raise ValueError(f"fused_cross_block: x has {C} channels on {x.device}, the block takes "
-                         f"{pk.cin} on {pk.w.device}")
-    if pk.cin % 8 or pk.cout % 8 or pk.k % 2 == 0 or pk.k < 3:
-        raise ValueError(f"fused_cross_block: want Cin and Cout multiples of 8 and k odd, got "
-                         f"{pk.cin} {pk.cout} {pk.k}")
-    if x.dtype == torch.bfloat16 and pk.wf is None:
-        raise ValueError(f"fused_cross_block: bfloat16 wants Cin a multiple of 16 and Cout of "
-                         f"32, got {pk.cin} {pk.cout}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
-    y = torch.empty((B, H, W, pk.cout), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    w = pk.w if pk.wf is None else pk.wf
-    err = _fn("tcct_crosscnn_fused_fwd")(
-        x.data_ptr(), w.data_ptr(), pk.vec.data_ptr(), y.data_ptr(), B, H, W, pk.cin, pk.cout,
-        pk.k, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"fused_cross_block {tuple(x.shape)} -> {pk.cout} k {pk.k} {x.dtype}")
-    fused_cross_block.launches += 1
-    return y
+    return _fused_op(x, pk.w, pk.vec, pk.wf, pk.cin, pk.cout, pk.k)
+
+
+def fused_cross_block_flops(x_shape, cin: int, cout: int, k: int) -> int:
+    """Operations of K4 on NHWC ``x_shape``: a multiply and an add for every
+    tap of its six convs at every pixel (no halo recompute)."""
+    B, H, W, _ = x_shape
+    geo = CrossBlockPack(None, None, cin, cout, k).geometry()
+    return 2 * B * H * W * sum(kh * kw * ci * cout for kh, kw, ci in geo)
 
 
 # launches of the kernel

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tcct_tpu_torch.ops.kernels import build
+from tcct_tpu_torch.ops.kernels import build, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -108,19 +108,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, what: str) -> None:
                          f"{tuple(w.shape)} {w.dtype} on {w.device}")
 
 
-def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-                      bias: Optional[torch.Tensor] = None, residual: bool = False,
-                      rows: int = 0) -> torch.Tensor:
-    """``dwconv3x3_reference(x, w, stride) + bias + x`` (the last two
-    optional) without autograd: NHWC [B,H,W,C] -> [B,Ho,Wo,C].  The sum is
-    rounded to x's dtype first, then the bias [C] and the input are added,
-    each as an f32 add with a rounding of its own, so the result equals the
-    three passes bit for bit.  ``residual`` needs stride 1.
-
-    A CPU tensor takes the plain versions; a CUDA tensor launches the
-    forward kernel once, or the call raises.  ``rows > 0`` (stride 1) names
-    the ring kernel's strip height and ``rows < 0`` the direct kernel, for
-    tests and measurements; 0 lets the launch pick kernel and strip."""
+def _check_forward(x, w, stride, bias, residual, rows) -> None:
     if stride not in (1, 2):
         raise ValueError(f"dwconv3x3: stride must be 1 or 2, got {stride}")
     if stride != 1 and (residual or rows > 0):
@@ -130,17 +118,28 @@ def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                              or bias.device != x.device):
         raise ValueError(f"dwconv3x3: want bias [{C}] {x.dtype} on {x.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
-    if x.device.type == "cpu":
-        y = dwconv3x3_reference(x, w, stride)
-        if bias is not None:
-            y = y + bias
-        return y + x if residual else y
+
+
+def _out_shape(x, stride: int):
+    B, H, W, C = x.shape
+    return B, (H - 1) // stride + 1, (W - 1) // stride + 1, C
+
+
+def _forward_cpu(x, w, bias, stride: int, residual: bool, rows: int):
+    _check_forward(x, w, stride, bias, residual, rows)
+    y = dwconv3x3_reference(x, w, stride)
+    if bias is not None:
+        y = y + bias
+    return (y + x if residual else y).contiguous()
+
+
+def _forward_cuda(x, w, bias, stride: int, residual: bool, rows: int):
+    _check_forward(x, w, stride, bias, residual, rows)
     _check(x, w, stride, "dwconv3x3")
     B, H, W, C = x.shape
     x = x.contiguous()
     w = w.contiguous()
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    y = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
+    y = x.new_empty(_out_shape(x, stride))
     if y.numel() == 0:
         return y
     bias_ptr = None if bias is None else bias.contiguous().data_ptr()
@@ -151,6 +150,29 @@ def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     dwconv3x3.launches += 1
     dwconv3x3.launches_s2 += stride == 2
     return y
+
+
+_forward_op = library.define(
+    "dwconv3x3(Tensor x, Tensor w, Tensor? bias, int stride, bool residual, int rows) -> Tensor",
+    cpu=_forward_cpu, cuda=_forward_cuda,
+    fake=lambda x, w, bias, stride, residual, rows: x.new_empty(_out_shape(x, stride)))
+
+
+def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                      bias: Optional[torch.Tensor] = None, residual: bool = False,
+                      rows: int = 0) -> torch.Tensor:
+    """``dwconv3x3_reference(x, w, stride) + bias + x`` (the last two
+    optional): NHWC [B,H,W,C] -> [B,Ho,Wo,C], the op ``tcct::dwconv3x3``.
+    The sum is rounded to x's dtype first, then the bias [C] and the input
+    are added, each as an f32 add with a rounding of its own, so the result
+    equals the three passes bit for bit.  ``residual`` needs stride 1.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    forward kernel once, or the call raises.  ``rows > 0`` (stride 1) names
+    the ring kernel's strip height and ``rows < 0`` the direct kernel, for
+    tests and measurements; 0 lets the launch pick kernel and strip."""
+    library.check_device(x, "dwconv3x3")
+    return _forward_op(x, w, bias, int(stride), bool(residual), int(rows))
 
 
 # the backward's block partials: a buffer a device, replaced by a larger one
@@ -172,25 +194,23 @@ def _workspace(x: torch.Tensor, g: torch.Tensor, stride: int) -> torch.Tensor:
     return bufs[-1]
 
 
-def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride: int = 1, *,
-                       bias: bool = False, residual: bool = False, need_dx: bool = True):
-    """Gradients of :func:`dwconv3x3` for the output gradient ``g``
-    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype,
-    db [C] in g's dtype)``, ``dw`` and ``db`` summed in f32 in a fixed
-    order and cast once.  ``residual`` (stride 1) adds ``g`` to ``dx``,
-    rounded as the plain add rounds; ``bias`` forms ``db``, the sum of
-    ``g`` over the pixels (else None); ``need_dx=False`` forms no ``dx``
-    (None).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the fused
-    backward kernel once, or the call raises."""
+def _check_backward(stride: int, residual: bool) -> None:
     if stride not in (1, 2):
         raise ValueError(f"dwconv3x3_backward: stride must be 1 or 2, got {stride}")
     if residual and stride != 1:
         raise ValueError("dwconv3x3_backward: residual=True needs stride 1")
-    if x.device.type == "cpu":
-        return dwconv3x3_backward_reference(x, w, g, stride, bias=bias, residual=residual,
-                                            need_dx=need_dx)
+
+
+def _backward_cpu(x, w, g, stride: int, bias: bool, residual: bool, need_dx: bool):
+    _check_backward(stride, residual)
+    dx, dw, db = dwconv3x3_backward_reference(x, w, g, stride, bias=bias, residual=residual,
+                                              need_dx=need_dx)
+    return (x.new_empty(0) if dx is None else dx.contiguous(), dw.contiguous(),
+            g.new_empty(0) if db is None else db)
+
+
+def _backward_cuda(x, w, g, stride: int, bias: bool, residual: bool, need_dx: bool):
+    _check_backward(stride, residual)
     _check(x, w, stride, "dwconv3x3_backward")
     B, H, W, C = x.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
@@ -198,15 +218,15 @@ def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride
         raise ValueError(f"dwconv3x3_backward: want g [{B},{Ho},{Wo},{C}] {x.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     x, w, g = x.contiguous(), w.contiguous(), g.contiguous()
-    dx = torch.empty_like(x) if need_dx else None
+    dx = torch.empty_like(x) if need_dx else x.new_empty(0)
     dw = torch.empty_like(w)
-    db = torch.empty((C,), dtype=g.dtype, device=g.device) if bias else None
+    db = g.new_empty((C,) if bias else (0,))
     if x.numel() == 0:
-        return dx, dw.zero_(), None if db is None else db.zero_()
+        return dx, dw.zero_(), db.zero_()
     part = _workspace(x, g, stride)
     err = _fn("tcct_dwconv3x3_bwd")(
-        x.data_ptr(), w.data_ptr(), g.data_ptr(), None if dx is None else dx.data_ptr(),
-        dw.data_ptr(), None if db is None else db.data_ptr(), part.data_ptr(), B, H, W, C,
+        x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+        dw.data_ptr(), db.data_ptr() if bias else None, part.data_ptr(), B, H, W, C,
         stride, _DTYPES[x.dtype], int(residual), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, f"dwconv3x3_backward {tuple(x.shape)} stride {stride} {x.dtype}")
     dwconv3x3_backward.launches += 1
@@ -214,21 +234,54 @@ def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride
     return dx, dw, db
 
 
-class _DWConv3x3(torch.autograd.Function):
+def _backward_fake(x, w, g, stride: int, bias: bool, residual: bool, need_dx: bool):
+    return (torch.empty_like(x, memory_format=torch.contiguous_format) if need_dx
+            else x.new_empty(0), torch.empty_like(w, memory_format=torch.contiguous_format),
+            g.new_empty((x.shape[-1],) if bias else (0,)))
+
+
+# dx and db are empty tensors where they are not wanted: an op returns no None
+_backward_op = library.define(
+    "dwconv3x3_backward(Tensor x, Tensor w, Tensor g, int stride, bool bias, bool residual, "
+    "bool need_dx) -> (Tensor, Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda, fake=_backward_fake)
+
+
+def dwconv3x3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, stride: int = 1, *,
+                       bias: bool = False, residual: bool = False, need_dx: bool = True):
+    """Gradients of :func:`dwconv3x3` for the output gradient ``g``
+    [B,Ho,Wo,C]: ``(dx [B,H,W,C] in x's dtype, dw [3,3,C] in w's dtype,
+    db [C] in g's dtype)``, ``dw`` and ``db`` summed in f32 in a fixed
+    order and cast once (the op ``tcct::dwconv3x3_backward``).
+    ``residual`` (stride 1) adds ``g`` to ``dx``, rounded as the plain add
+    rounds; ``bias`` forms ``db``, the sum of ``g`` over the pixels (else
+    None); ``need_dx=False`` forms no ``dx`` (None).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the fused
+    backward kernel once, or the call raises."""
+    library.check_device(x, "dwconv3x3_backward")
+    dx, dw, db = _backward_op(x, w, g, int(stride), bool(bias), bool(residual), bool(need_dx))
+    return dx if need_dx else None, dw, db if bias else None
+
+
+class _DWConv3x3Autograd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, stride, residual):
+    def forward(ctx, x, w, bias, stride, residual, rows):
         ctx.save_for_backward(x, w)
         ctx.stride, ctx.residual = stride, residual
-        return dwconv3x3_forward(x, w, stride, bias, residual)
+        return library.below_autograd(_forward_op, x, w, bias, stride, residual, rows)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx, dw, db = dwconv3x3_backward(x, w, g, ctx.stride, bias=need_b, residual=ctx.residual,
-                                        need_dx=need_x)
-        return dx, dw if need_w else None, db, None, None
+        dx, dw, db = dwconv3x3_backward(x, w, g, ctx.stride, bias=need_b,
+                                        residual=ctx.residual, need_dx=need_x)
+        return dx, dw if need_w else None, db, None, None, None
+
+
+library.autograd(_forward_op, _DWConv3x3Autograd)
 
 
 def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -243,7 +296,16 @@ def dwconv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels, or the call raises."""
-    return _DWConv3x3.apply(x, w, bias, stride, residual)
+    return dwconv3x3_forward(x, w, stride, bias, residual)
+
+
+def dwconv3x3_flops(x_shape, stride: int, backward: bool = False) -> int:
+    """Operations of K2 (``backward=False``) or K2b on NHWC ``x_shape``:
+    a multiply and an add a tap for each output element, 18; the backward
+    as many again for ``dw`` beside ``dx``."""
+    B, H, W, C = x_shape
+    n_out = B * ((H - 1) // stride + 1) * ((W - 1) // stride + 1) * C
+    return (36 if backward else 18) * n_out
 
 
 # launches of the forward / backward kernel, all strides and stride 2 only

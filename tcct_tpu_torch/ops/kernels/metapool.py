@@ -9,25 +9,29 @@ read and one write per element); see the source's header note for their
 design.  Unlike the TPU kernel they have no size budget: every stage of
 every geometry runs through them.
 
-:func:`metapool_tokens` is a ``torch.autograd.Function``: its forward
-launches the forward kernel and its backward the backward kernel.  On a
-CPU tensor the same function runs the plain forward and the plain
-backward.  :func:`metapool_block` is the eval block's whole token pass
-around the mixer (``norm1``, the mixer, the residual add, ``norm2``) as one
-launch of the same forward kernel with flags; it has no backward.
+:func:`metapool_tokens` calls the op ``tcct::metapool_tokens``, whose
+CUDA implementation launches the forward kernel and whose autograd formula
+(``_MetaPoolAutograd``) calls the op ``tcct::metapool_tokens_backward``
+(the backward kernel).  On a CPU tensor the same ops run the plain forward
+and the plain backward.
+:func:`metapool_block` (``tcct::metapool_block``) is the eval block's
+whole token pass around the mixer (``norm1``, the mixer, the residual add,
+``norm2``) as one launch of the same forward kernel with flags; it has no
+backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tcct_tpu_torch.ops.kernels import build
+from tcct_tpu_torch.ops.kernels import build, library
 from tcct_tpu_torch.ops.pool import metapool_tokens_backward_reference, metapool_tokens_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,31 +73,46 @@ def _launch(entry: str, x: torch.Tensor, what: str) -> torch.Tensor:
     return y
 
 
-def _forward(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return metapool_tokens_reference(x)
+def _tokens_cuda(x: torch.Tensor) -> torch.Tensor:
     y = _launch("tcct_metapool_fwd", x, "metapool_tokens")
     metapool_tokens.launches += 1
     return y
 
 
-def metapool_tokens_backward(g: torch.Tensor) -> torch.Tensor:
-    """Gradient of :func:`metapool_tokens` for the output gradient ``g``
-    [B, N, C]: ``window_sum(g / count) - g``, f32 inside, in g's dtype.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    backward kernel, or the call raises."""
-    if g.device.type == "cpu":
-        return metapool_tokens_backward_reference(g)
+def _tokens_backward_cuda(g: torch.Tensor) -> torch.Tensor:
     dx = _launch("tcct_metapool_bwd", g, "metapool_tokens_backward")
     metapool_tokens_backward.launches += 1
     return dx
 
 
-class _MetaPool(torch.autograd.Function):
+def _like(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+_tokens_op = library.define("metapool_tokens(Tensor x) -> Tensor",
+                            cpu=lambda x: metapool_tokens_reference(x).contiguous(),
+                            cuda=_tokens_cuda, fake=_like)
+_tokens_backward_op = library.define(
+    "metapool_tokens_backward(Tensor g) -> Tensor",
+    cpu=lambda g: metapool_tokens_backward_reference(g).contiguous(),
+    cuda=_tokens_backward_cuda, fake=_like)
+
+
+def metapool_tokens_backward(g: torch.Tensor) -> torch.Tensor:
+    """Gradient of :func:`metapool_tokens` for the output gradient ``g``
+    [B, N, C]: ``window_sum(g / count) - g``, f32 inside, in g's dtype
+    (the op ``tcct::metapool_tokens_backward``).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    backward kernel, or the call raises."""
+    library.check_device(g, "metapool_tokens_backward")
+    return _tokens_backward_op(g)
+
+
+class _MetaPoolAutograd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return _forward(x)
+        return library.below_autograd(_tokens_op, x)
 
     @staticmethod
     @once_differentiable
@@ -101,14 +120,25 @@ class _MetaPool(torch.autograd.Function):
         return metapool_tokens_backward(g)
 
 
+library.autograd(_tokens_op, _MetaPoolAutograd)
+
+
 def metapool_tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, N, C] -> [B, N, C]: ``AvgPool2d(3,1,1,count_include_pad=False)
-    - x`` over the (token, channel) axes, f32 inside, cast to x's dtype.
-    Differentiable: the backward is :func:`metapool_tokens_backward`.
+    - x`` over the (token, channel) axes, f32 inside, cast to x's dtype
+    (the op ``tcct::metapool_tokens``).  Differentiable: the backward is
+    :func:`metapool_tokens_backward`.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels, or the call raises."""
-    return _MetaPool.apply(x)
+    library.check_device(x, "metapool_tokens")
+    return _tokens_op(x)
+
+
+def metapool_flops(shape) -> int:
+    """Operations of K1 or K1b on [B, N, C]: the 3x3 window's 8 adds, the
+    division and the subtraction, about 11 an element."""
+    return 11 * math.prod(shape)
 
 
 def metapool_block_reference(x: torch.Tensor, w1: Optional[torch.Tensor] = None,
@@ -137,12 +167,58 @@ def _norms(*affine) -> bool:
     return all(given)
 
 
+def _block_cuda(x, w1, b1, w2, b2, eps: float, residual: bool):
+    norms = _norms(w1, b1, w2, b2)
+    what = "metapool_block"
+    _check_tokens(x, what)
+    B, N, C = x.shape
+    affine = [w1, b1, w2, b2] if norms else []
+    for t in affine:
+        if t.shape != (C,) or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: LayerNorm weights must be [{C}] {x.dtype} on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    x = x.contiguous()
+    w1, b1, w2, b2 = (t.contiguous() if t is not None else None for t in (w1, b1, w2, b2))
+    y = torch.empty_like(x)
+    n2 = torch.empty_like(x) if norms else x.new_empty(0)
+    if x.numel() == 0:
+        return y, n2
+    flags = (_NORMS if norms else 0) | (_RESIDUAL if residual else 0)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    err = _fn("tcct_metapool_block")(
+        x.data_ptr(), ptr(w1), ptr(b1), ptr(w2), ptr(b2), y.data_ptr(),
+        n2.data_ptr() if norms else None, B, N, C, _DTYPES[x.dtype], flags, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"{what} {tuple(x.shape)} {x.dtype} flags {flags}")
+    metapool_block.launches += 1
+    return y, n2
+
+
+def _block_cpu(x, w1, b1, w2, b2, eps: float, residual: bool):
+    y, n2 = metapool_block_reference(x, w1, b1, w2, b2, eps, residual)
+    return y.contiguous(), x.new_empty(0) if n2 is None else n2.contiguous()
+
+
+def _block_fake(x, w1, b1, w2, b2, eps: float, residual: bool):
+    return _like(x), _like(x) if _norms(w1, b1, w2, b2) else x.new_empty(0)
+
+
+# n2 is an empty tensor without the LayerNorms: an op returns no None
+_block_op = library.define(
+    "metapool_block(Tensor x, Tensor? w1, Tensor? b1, Tensor? w2, Tensor? b2, float eps, "
+    "bool residual) -> (Tensor, Tensor)", cpu=_block_cpu, cuda=_block_cuda, fake=_block_fake)
+library.no_backward(_block_op, "metapool_block")
+
+
 def metapool_block(x: torch.Tensor, w1: Optional[torch.Tensor] = None,
                    b1: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None,
                    b2: Optional[torch.Tensor] = None, eps: float = 1e-6, residual: bool = True
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MetaPool site of the eval block on [B, N, C] tokens, in one
-    launch of the forward kernel:
+    launch of the forward kernel (the op ``tcct::metapool_block``):
 
         n  = LayerNorm1(x)        (w1, b1)
         a  = metapool(n)          rounded once, as metapool_tokens
@@ -158,40 +234,19 @@ def metapool_block(x: torch.Tensor, w1: Optional[torch.Tensor] = None,
     kernel is exactly :func:`metapool_tokens`'s; ``residual`` alone gives
     ``metapool_tokens(x) + x`` bit for bit.
 
-    Inference only.  A CPU tensor takes the plain version
-    (:func:`metapool_block_reference`); a CUDA tensor launches the kernel,
-    or the call raises (also when autograd would want a gradient)."""
+    Inference only: raises if autograd would want a gradient.  A CPU tensor
+    takes the plain version (:func:`metapool_block_reference`); a CUDA
+    tensor launches the kernel, or the call raises."""
     norms = _norms(w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return metapool_block_reference(x, w1, b1, w2, b2, eps, residual)
-    what = "metapool_block"
-    _check_tokens(x, what)
-    B, N, C = x.shape
-    affine = [w1, b1, w2, b2] if norms else []
-    for t in affine:
-        if t.shape != (C,) or t.dtype != x.dtype or t.device != x.device:
-            raise ValueError(f"{what}: LayerNorm weights must be [{C}] {x.dtype} on {x.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *affine]):
-        raise ValueError(f"{what}: no backward; call it under torch.no_grad() or "
-                         "torch.inference_mode()")
-    x = x.contiguous()
-    w1, b1, w2, b2 = (t.contiguous() if t is not None else None for t in (w1, b1, w2, b2))
-    y = torch.empty_like(x)
-    n2 = torch.empty_like(x) if norms else None
-    if x.numel() == 0:
-        return y, n2
-    flags = (_NORMS if norms else 0) | (_RESIDUAL if residual else 0)
+    library.check_device(x, "metapool_block")
+    y, n2 = _block_op(x, w1, b1, w2, b2, float(eps), bool(residual))
+    return y, n2 if norms else None
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
 
-    err = _fn("tcct_metapool_block")(
-        x.data_ptr(), ptr(w1), ptr(b1), ptr(w2), ptr(b2), y.data_ptr(), ptr(n2), B, N, C,
-        _DTYPES[x.dtype], flags, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"{what} {tuple(x.shape)} {x.dtype} flags {flags}")
-    metapool_block.launches += 1
-    return y, n2
+def metapool_block_flops(shape) -> int:
+    """Operations of the site on [B, N, C]: the two LayerNorms about 8 an
+    element each, the window about 12, the residual add."""
+    return 30 * math.prod(shape)
 
 
 # launches of the forward / backward kernel and of the site

@@ -915,3 +915,54 @@ def test_bn_train_kernels_at_task2_shapes(cuda, shape):
     again = bn_act_train_backward(x, w, mean, var, gy, 1e-5, False)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert torch.equal(bn_act_train(x, w, b, 1e-5, False)[0], y)
+
+
+# --- the tcct:: ops on the card ------------------------------------------------------
+
+
+def _op_cases(dev, dtype):
+    """(op, arguments) of every tcct:: op at a small shape on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rand(*shape, grad=False):
+        return torch.randn(shape, generator=g, device=dev).to(dtype).requires_grad_(grad)
+
+    ops = torch.ops.tcct
+    w1 = rand(8) * 0.5 + 1
+    cases = [(ops.metapool_tokens.default, (rand(2, 5, 8, grad=True),)),
+             (ops.metapool_tokens_backward.default, (rand(2, 5, 8),)),
+             (ops.metapool_block.default, (rand(2, 5, 8), w1, rand(8), w1, rand(8), 1e-6, True)),
+             (ops.metapool_block.default, (rand(2, 5, 8), None, None, None, None, 1e-6, False))]
+    for s in (1, 2):
+        x, w, b = rand(2, 5, 7, 8, grad=True), rand(3, 3, 8, grad=True), rand(8, grad=True)
+        gy = rand(2, (5 - 1) // s + 1, (7 - 1) // s + 1, 8)
+        cases += [(ops.dwconv3x3.default, (x, w, b, s, s == 1, 0)),
+                  (ops.dwconv3x3_backward.default, (x.detach(), w.detach(), gy, s, True, s == 1,
+                                                    True)),
+                  (ops.dwconv3x3_backward.default, (x.detach(), w.detach(), gy, s, False, False,
+                                                    False))]
+    for leaky in (False, True):
+        x = (rand(2, 8, 5, 6) * 2 + 0.5).contiguous(memory_format=torch.channels_last)
+        w = (torch.rand(8, device=dev) + 0.5).requires_grad_()
+        b = (torch.randn(8, device=dev) * 0.1).requires_grad_()
+        mean, var = bn_stats_reference(x, leaky)
+        gy = rand(2, 8, 5, 6).contiguous(memory_format=torch.channels_last)
+        cases += [(ops.bn_act_train.default, (x.requires_grad_(), w, b, 1e-5, leaky)),
+                  (ops.bn_act_train_backward.default, (x.detach(), w.detach(), mean, var, gy,
+                                                       1e-5, leaky))]
+    blk = seeded_cross_block(32, 32, 5, 22).to(dev, dtype).eval()
+    pk = pack_cross_block(blk, dtype)
+    cases.append((ops.fused_cross_block.default,
+                  (rand(1, 6, 7, 32), pk.w, pk.vec, pk.wf, pk.cin, pk.cout, pk.k)))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opcheck_every_op_on_the_card(cuda, dtype):
+    """``torch.library.opcheck`` of every tcct:: op on CUDA tensors: the
+    fake implementation's shapes, types and strides (K3's channels_last y)
+    against the kernels', the schema, the autograd registration and the
+    AOT dispatch."""
+    for op, args in _op_cases(cuda, dtype):
+        res = torch.library.opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
