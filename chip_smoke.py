@@ -101,7 +101,24 @@ toolkit (``nvcc``):
    res50 steps, a ``ClsTrainer`` debug fit and reload, eval images/s, the
    TTA, the ensemble CLI, and a PNG folder with xlsx labels; the K3/K3b rows
    of step 2 also run every f32 shape of the res18 and res50 steps;
-12. prints one JSON line of the kernels, then, as its last line,
+12. runs data parallelism (``drive_distributed``, the port's
+   ``parallel/``): (a) the two-phase entry points of K3/K3b (sums, then
+   normalize; backward sums, then dx) at every BN shape of the stc_tt step,
+   bf16 and f32, bitwise the one-launch kernels at one rank, their device
+   time a step against the one launch and SyncBatchNorm's library kernels;
+   (b) NCCL with one rank: one augmented bf16 stc_tt step at full width on
+   ``make_mesh(1)`` bitwise the step without a mesh (every state tensor),
+   with the two-phase entry points launched 53 times each and K3/K3b not
+   at all; (c) two processes sharing the card over gloo (``--dp-worker``),
+   global batch 8: three augmented bf16 steps with the ranks' states
+   bitwise equal after each, ms/step and the collectives a step, and one
+   f32 step against one process within the bounds of step 6, a gradient
+   past them no further from the step in f64 (on the CPU) than twice the
+   one-process step's distance from it; (d) the duke
+   volume through ``load_predictor(mesh=)`` on the two ranks against the
+   one-process predictor; (e) the CLI with ``--pl`` under two processes;
+   the phase's seconds.  No speed is claimed: one card shows none;
+13. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -118,6 +135,11 @@ this, this, other), and each kernel's totals per serving batch and per
 train step.  A kernel is compared only where DIR's C entries that it calls
 are declared exactly as this tree's; NAME prefixes pick kernels by name
 (``metapool``, ``dwconv3x3_backward``, ``fused_cross_block``, ...).
+
+    python3 chip_smoke.py --dp-worker RANK STORE OUT
+
+is one of the two ranks of step 12 (c) and (d), meeting the other through
+the file store STORE and writing its numbers to OUT.
 
     python3 chip_smoke.py --serve-exported PROGRAM OUT
 
@@ -246,15 +268,27 @@ def path_shapes(cfg, batch: int, hw):
     return mp, s1, s2
 
 
-def train_launches(model):
+# the two-phase entry points of K3/K3b, which a data-parallel step runs
+SPLIT_BN = ("bn_act_sums", "bn_act_normalize", "bn_act_backward_sums", "bn_act_backward_dx")
+
+
+def train_launches(model, data_parallel: bool = False):
     """Launches of each kernel in one train step of ``model`` (a RegNet of
     the zoo: any name, flags, variant and mixer): the per-kernel sums of
-    :func:`train_shapes`."""
+    :func:`train_shapes`.  ``data_parallel``: a step on a mesh (any rank
+    count), whose train BatchNorms run the two-phase entry points (sums,
+    normalize; backward sums, dx) in place of K3 and K3b, the loss heads'
+    on the gathered batch too."""
     n = {k: sum(c.values()) for k, c in train_shapes(model, 1, (64, 64)).items()}
-    return {"metapool_tokens": n["mp"], "metapool_tokens_backward": n["mp"],
-            "dwconv3x3_s1": n["s1"], "dwconv3x3_backward_s1": n["s1"],
-            "dwconv3x3_s2": n["s2"], "dwconv3x3_backward_s2": n["s2"],
-            "bn_act_train": n["bn"], "bn_act_train_backward": n["bnb"]}
+    out = {"metapool_tokens": n["mp"], "metapool_tokens_backward": n["mp"],
+           "dwconv3x3_s1": n["s1"], "dwconv3x3_backward_s1": n["s1"],
+           "dwconv3x3_s2": n["s2"], "dwconv3x3_backward_s2": n["s2"],
+           "bn_act_train": n["bn"], "bn_act_train_backward": n["bnb"]}
+    if data_parallel:
+        out.update(bn_act_train=0, bn_act_train_backward=0, bn_act_sums=n["bn"],
+                   bn_act_normalize=n["bn"], bn_act_backward_sums=n["bnb"],
+                   bn_act_backward_dx=n["bnb"])
+    return out
 
 
 def cpe_shapes(cfg, batch: int, hw):
@@ -404,13 +438,22 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
     import torch.nn.functional as F
 
     from tcct_tpu_torch.ops.kernels.bnstats import (
+        bn_act_backward_dx,
+        bn_act_backward_sums,
+        bn_act_normalize,
+        bn_act_sums,
         bn_act_train,
         bn_act_train_backward,
         bn_act_train_backward_reference,
+        bn_act_train_backward_tolerance,
         bn_act_train_flops,
+        bn_backward_sums_reference,
         bn_normalize_reference,
         bn_stats_reference,
+        bn_sums_reference,
+        stats_from_sums,
     )
+    from tcct_tpu_torch.ops.kernels.bnstats import _dx_from_sums as bn_dx_reference
     from tcct_tpu_torch.ops.kernels.dwconv import (
         dwconv3x3,
         dwconv3x3_backward,
@@ -620,6 +663,127 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
         return (3 * x.numel() * x.element_size() + 20 * x.shape[1],
                 bn_act_train_flops(x.shape, backward=True))
 
+    # --- the two-phase entry points of K3/K3b (a data-parallel step) -------------
+    # sums: args as K3's; the library call is torch.batch_norm_stats (SyncBatchNorm's)
+    def sums_check(leaky):
+        def check(name, args, dn):
+            x = args[0]
+            got = bn_act_sums(x, leaky)
+            torch.cuda.synchronize()
+            t = (F.leaky_relu(x, 0.01) if leaky else x).float()
+            # f32 sums in another order: 1e-5 of sum|t| and of sum t^2
+            lim = 1e-5 * torch.stack([t.abs().sum((0, 2, 3)), (t * t).sum((0, 2, 3))]) + 1e-6
+            return check_within(name, got, bn_sums_reference(x, leaky), lim)
+        return check
+
+    def sums_lib(leaky):
+        def f(x, *_):
+            return torch.batch_norm_stats(F.leaky_relu(x, 0.01) if leaky else x, 1e-5)
+        return f
+
+    def sums_cost(args):
+        x = args[0]  # x read, [2, C] f32 written
+        return x.numel() * x.element_size() + 8 * x.shape[1], 3 * x.numel()
+
+    # normalize: args x, sums, count, weight, bias, mean, invstd (f32), weight
+    # and bias in x's type (the library call, torch.batch_norm_elemt)
+    def norm_args(leaky):
+        def make(shape, types):
+            x, w, b, w_lib, b_lib = bn_args(leaky)(shape, types)
+            sums = bn_sums_reference(x, leaky)
+            n = x.numel() // shape[1]
+            mean, var = stats_from_sums(sums, n)
+            return (x, sums, n, w, b, mean, torch.rsqrt(var + 1e-5), w_lib, b_lib)
+        return make
+
+    def norm_kern(leaky):
+        return lambda x, s, n, w, b, *_: bn_act_normalize(x, s, n, w, b, 1e-5, leaky)
+
+    def norm_plain(leaky):
+        def f(x, s, n, w, b, *_):
+            mean, var = stats_from_sums(s, n)
+            return bn_normalize_reference(x, mean, var, w, b, 1e-5, leaky)
+        return f
+
+    def norm_lib(leaky):
+        def f(x, s, n, w, b, mean, invstd, w_lib, b_lib):
+            t = F.leaky_relu(x, 0.01) if leaky else x
+            return torch.batch_norm_elemt(t, w_lib, b_lib, mean, invstd, 1e-5)
+        return f
+
+    def norm_check(leaky):
+        def check(name, args, dn):
+            got = norm_kern(leaky)(*args)
+            torch.cuda.synchronize()
+            return check_close(name, got[0], norm_plain(leaky)(*args), dn)
+        return check
+
+    def norm_cost(args):
+        x = args[0]  # x read, y written; sums, weight, bias read, [2, C] statistics written
+        return 2 * x.numel() * x.element_size() + 24 * x.shape[1], 5 * x.numel()
+
+    # backward sums: args as K3b's; the library call torch.batch_norm_backward_reduce
+    def bsums_check(leaky):
+        def check(name, args, dn):
+            x, gy = args[0], args[4]
+            got = bn_act_backward_sums(x, gy, leaky)
+            torch.cuda.synchronize()
+            t = (F.leaky_relu(x, 0.01) if leaky else x).float()
+            g = gy.float()
+            lim = 1e-5 * torch.stack([g.abs().sum((0, 2, 3)), (g * t).abs().sum((0, 2, 3))]) + 1e-6
+            return check_within(name, got, bn_backward_sums_reference(x, gy, leaky), lim)
+        return check
+
+    def bsums_lib(leaky):
+        def f(x, _w, m, v, g, t, invstd, w):
+            return torch.batch_norm_backward_reduce(g, t, m, invstd, w, False, True, True)
+        return f
+
+    def bsums_cost(args):
+        x = args[0]  # x, gy read; [2, C] f32 written
+        return 2 * x.numel() * x.element_size() + 8 * x.shape[1], 3 * x.numel()
+
+    # dx: args x, weight, mean, var, gy, sums, count; then for the library call
+    # (torch.batch_norm_backward_elemt) t, invstd, the weight in x's type, the
+    # two sums and the count as a tensor
+    def dx_args(leaky):
+        def make(shape, types):
+            x, w, mean, var, gy, t, invstd, w_lib = bnb_args(leaky)(shape, types)
+            sums = bn_backward_sums_reference(x, gy, leaky)
+            n = x.numel() // shape[1]
+            # SyncBatchNorm's sums: sum(gy) and sum(gy * (t - mean))
+            return (x, w, mean, var, gy, sums, n, t, invstd, w_lib, sums[0].contiguous(),
+                    sums[1] - mean * sums[0], torch.tensor([n], dtype=torch.int32, device=dev))
+        return make
+
+    def dx_kern(leaky):
+        return lambda x, w, m, v, g, s, n, *_: bn_act_backward_dx(x, w, m, v, g, s, n, 1e-5,
+                                                                   leaky)
+
+    def dx_plain(leaky):
+        return lambda x, w, m, v, g, s, n, *_: bn_dx_reference(x, w, m, v, g, s, n, 1e-5, leaky)
+
+    def dx_lib(leaky):
+        def f(x, _w, m, v, g, s, n, t, invstd, w, sum_dy, sum_dy_xmu, count):
+            gt = torch.batch_norm_backward_elemt(g, t, m, invstd, w, sum_dy, sum_dy_xmu, count)
+            return torch.ops.aten.leaky_relu_backward(gt, x, 0.01, False) if leaky else gt
+        return f
+
+    def dx_check(leaky):
+        def check(name, args, dn):
+            x, w, mean, var, gy = args[:5]
+            got = dx_kern(leaky)(*args)
+            torch.cuda.synchronize()
+            # the plain version on the same sums; the bound of K3b's dx (which
+            # also covers the sums' order) holds a fortiori
+            lim = bn_act_train_backward_tolerance(x, w, mean, var, gy, 1e-5, leaky)[0]
+            return check_within(name, got.double(), dx_plain(leaky)(*args).double(), lim)
+        return check
+
+    def dx_cost(args):
+        x = args[0]  # x, gy read, dx written; per-channel vectors
+        return 3 * x.numel() * x.element_size() + 28 * x.shape[1], 6 * x.numel()
+
     def serve_rows(c):  # the serving path runs bf16
         return Counter({(k, "bfloat16"): n for k, n in c.items()})
 
@@ -663,6 +827,31 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
                 *(t2 if not lk else (no, no))) for lk in (False, True)]
     bnb_rows = [(bnb_spec(lk), no, by_leaky(train["bnb"], lk), no, by_leaky(gtc["bnb"], lk),
                  *(t2 if not lk else (no, no))) for lk in (False, True)]
+    def split_rows(make_spec, part):  # the stc_tt step's BN shapes, the main path a DP step
+        return [(make_spec(lk), no, by_leaky(train[part], lk), no, no, no, no)
+                for lk in (False, True)]
+
+    def split_spec(kern, plain, lib, make, check, cost):
+        return lambda lk: spec(kern(lk), plain(lk), lib(lk), make(lk), check(lk), cost,
+                               " leaky" if lk else "")
+
+    bn_src = "tcct_tpu_torch/csrc/bnstats.cu"
+    split_tables = [
+        _table("bn_act_sums", bn_src, "tcct_tpu/ops/pallas/bnstats.py:129", split_rows(
+            split_spec(lambda lk: lambda x, *_: bn_act_sums(x, lk),
+                       lambda lk: lambda x, *_: bn_sums_reference(x, lk), sums_lib, bn_args,
+                       sums_check, sums_cost), "bn"), main="train"),
+        _table("bn_act_normalize", bn_src, "tcct_tpu/ops/pallas/bnstats.py:149", split_rows(
+            split_spec(norm_kern, norm_plain, norm_lib, norm_args, norm_check, norm_cost),
+            "bn"), main="train"),
+        _table("bn_act_backward_sums", bn_src, "tcct_tpu/ops/pallas/bnstats.py:181", split_rows(
+            split_spec(lambda lk: lambda x, w, m, v, g, *_: bn_act_backward_sums(x, g, lk),
+                       lambda lk: lambda x, w, m, v, g, *_: bn_backward_sums_reference(x, g, lk),
+                       bsums_lib, bnb_args, bsums_check, bsums_cost), "bnb"), main="train"),
+        _table("bn_act_backward_dx", bn_src, "tcct_tpu/ops/pallas/bnstats.py:181", split_rows(
+            split_spec(dx_kern, dx_plain, dx_lib, dx_args, dx_check, dx_cost), "bnb"),
+            main="train"),
+    ]
     return [
         # the serving path runs K1 inside the site (metapool_block): its
         # launches are the train step's, its serving shapes are timed beside
@@ -684,7 +873,7 @@ def kernel_tables(serve, train, serve_small, gtc, task2):
                "tcct_tpu/ops/pallas/bnstats.py:129", bn_rows),
         _table("bn_act_train_backward", "tcct_tpu_torch/csrc/bnstats.cu",
                "tcct_tpu/ops/pallas/bnstats.py:181", bnb_rows),
-    ]
+    ] + split_tables
 
 
 def row_types(shape, counters):
@@ -729,7 +918,8 @@ def bench_kernels(report, tables):
                     err = sp["check"](label, args, dn)
                     max_err = max(max_err, err)
                     nbytes, flops = sp["cost"](args)
-                    copies = [tuple(a.clone() for a in args) for _ in range(n_copies(nbytes))]
+                    copies = [tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+                              for _ in range(n_copies(nbytes))]
                     t_k = device_ms(sp["kern"], copies)
                     t_p = device_ms(sp["plain"], copies)
                     t_l = device_ms(sp["lib"], copies)
@@ -1126,7 +1316,14 @@ def bench_metapool_block(report, card, sites, sites_small):
 
 def _counted():
     """(row name, wrapper, attribute) of every launch count."""
-    from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_backward
+    from tcct_tpu_torch.ops.kernels.bnstats import (
+        bn_act_backward_dx,
+        bn_act_backward_sums,
+        bn_act_normalize,
+        bn_act_sums,
+        bn_act_train,
+        bn_act_train_backward,
+    )
     from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
     from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_backward
     from tcct_tpu_torch.ops.kernels.metapool import (
@@ -1143,7 +1340,11 @@ def _counted():
             ("dwconv3x3_backward", dwconv3x3_backward, "launches"),
             ("dwconv3x3_backward_s2", dwconv3x3_backward, "launches_s2"),
             ("bn_act_train", bn_act_train, "launches"),
-            ("bn_act_train_backward", bn_act_train_backward, "launches")]
+            ("bn_act_train_backward", bn_act_train_backward, "launches"),
+            ("bn_act_sums", bn_act_sums, "launches"),
+            ("bn_act_normalize", bn_act_normalize, "launches"),
+            ("bn_act_backward_sums", bn_act_backward_sums, "launches"),
+            ("bn_act_backward_dx", bn_act_backward_dx, "launches")]
 
 
 def reset_counters() -> None:
@@ -1165,6 +1366,7 @@ def read_counters():
         "bn_act_train": raw["bn_act_train"],
         "bn_act_train_backward": raw["bn_act_train_backward"],
         "fused_cross_block": raw["fused_cross_block"],
+        **{k: raw[k] for k in SPLIT_BN},
     }
 
 
@@ -3358,11 +3560,15 @@ def check_bn_calls(fwd, bwd, what: str):
 
 
 def _bn_autograd(x, weight, bias, eps, leaky):
-    """Train BatchNorm by autograd in x's dtype (the f64 reference of
-    ``task2_card_vs_cpu``): ``(x - mean) * inv + bias``, the batch mean and
-    biased var."""
+    """Train BatchNorm by autograd in x's dtype (the f64 references of
+    ``task2_card_vs_cpu`` and ``_f64_grads``): LeakyReLU(0.01) first with
+    ``leaky``, then ``(x - mean) * inv + bias``, the batch mean and biased
+    var."""
     import torch
+    import torch.nn.functional as F
 
+    if leaky:
+        x = F.leaky_relu(x, 0.01)
     dims = (0, 2, 3)
     mean = x.mean(dims)
     var = (x * x).mean(dims) - mean * mean
@@ -3712,6 +3918,492 @@ def drive_task2(report, card):
     print(f"task2: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_dp")
+DP_TIMEOUT_S = 300  # each child process, and each collective's group timeout
+DP_HW = (320, 320)  # the DP batch's scans, cropped to TRAIN_HW by the augmentation
+
+
+def _dp_model(drop_path_rate: float = 0.1):
+    import torch
+
+    from tcct_tpu_torch.models import RegNet, get_model
+    from tcct_tpu_torch.models.layers import init_weights
+
+    m = RegNet(get_model("stc_tt", TRAIN_NC, variant="train", drop_path_rate=drop_path_rate),
+               out_channels=TRAIN_NC)
+    return init_weights(m, torch.Generator().manual_seed(SEED))
+
+
+def _dp_step(mesh, dtype, record: bool = False, random: bool = True):
+    """A fresh seeded full-width stc_tt, its train step (every loss on,
+    constant lr) on ``mesh`` or none, and the optimizer (which keeps the
+    gradients it is given with ``record``).  ``random``: the augmentation,
+    DropPath 0.1 and the boundary noise on; else all three off (pinned),
+    so that the step is the same function of any order of the batch."""
+    import torch
+
+    from tcct_tpu_torch.train import AdamW, TrainConfig, build_train_step
+
+    class Recording(AdamW):
+        def update(self, params, grads):
+            if record:
+                self.seen = [g.detach().clone() for g in grads]
+            return super().update(params, grads)
+
+    model = _dp_model(0.1 if random else 0.0)
+    opt = Recording(LR)
+    cfg = TrainConfig(crop_hw=TRAIN_HW, n_class=TRAIN_NC, ds=True, udh=True, reg=True,
+                      augment=random, dtype=dtype, pinned_reg_noise=not random)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = build_train_step(model, opt, cfg, device="cuda", generator=gen, mesh=mesh)
+    return model, opt, step
+
+
+def split_vs_one_launch(card, train):
+    """(a) At every BN shape of the stc_tt train step, in bf16 and in f32
+    (and the types the step calls it with): the two-phase path at one rank
+    (sums, then normalize; backward sums, the weight gradients from them,
+    then dx) bitwise the one-launch K3/K3b, and its device time a step
+    against theirs and against SyncBatchNorm's library kernels
+    (batch_norm_stats + batch_norm_elemt; batch_norm_backward_reduce +
+    batch_norm_backward_elemt), replayed from CUDA graphs."""
+    import torch
+    import torch.nn.functional as F
+
+    from tcct_tpu_torch.ops.kernels import bnstats as B
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tot = Counter()
+    n_shapes = 0
+    for (shape, leaky, kind), n in sorted(train["bn"].items()):
+        for types in sorted({"bfloat16", "float32", kind}):
+            xd, _, wd = types.partition("/")
+            xd, wd = getattr(torch, xd), getattr(torch, wd or xd)
+            C = shape[1]
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(xd)
+            x = x.contiguous(memory_format=torch.channels_last)
+            gy = torch.randn(shape, generator=gen, device="cuda").to(xd)
+            gy = gy.contiguous(memory_format=torch.channels_last)
+            w = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(wd)
+            b = (torch.randn(C, generator=gen, device="cuda") * 0.1).to(wd)
+            count = x.numel() // C
+            y, m, v = B.bn_act_train(x, w, b, 1e-5, leaky)
+            dx, dw, db = B.bn_act_train_backward(x, w, m, v, gy, 1e-5, leaky)
+            y2, m2, v2 = B.bn_act_normalize(x, B.bn_act_sums(x, leaky), count, w, b, 1e-5, leaky)
+            gs = B.bn_act_backward_sums(x, gy, leaky)
+            dx2 = B.bn_act_backward_dx(x, w, m, v, gy, gs, count, 1e-5, leaky)
+            dw2, db2 = B.bn_weight_grads(gs, m, v, 1e-5, w.dtype)
+            torch.cuda.synchronize()
+            same = [torch.equal(p, q) for p, q in ((y, y2), (m, m2), (v, v2), (dx, dx2),
+                                                  (dw, dw2), (db, db2))]
+            if not all(same):
+                fail(f"dp (a): two-phase BN {list(shape)} {types} leaky={leaky}: not bitwise the "
+                     f"one launch (y, mean, var, dx, dweight, dbias: {same})")
+            n_shapes += 1
+            if types != kind:
+                continue  # timed at the step's own types
+            nbytes = 2 * x.numel() * x.element_size()
+            copies = [(x.clone(), gy.clone()) for _ in range(n_copies(nbytes))]
+            t = F.leaky_relu(x, 0.01) if leaky else x
+            w_x, b_x = w.to(xd), b.to(xd)
+            invstd = torch.rsqrt(v + 1e-5)
+
+            def one_fwd(xx, _g):
+                return B.bn_act_train(xx, w, b, 1e-5, leaky)
+
+            def split_fwd(xx, _g):
+                return B.bn_act_normalize(xx, B.bn_act_sums(xx, leaky), count, w, b, 1e-5,
+                                          leaky)
+
+            def lib_fwd(xx, _g):
+                tt = F.leaky_relu(xx, 0.01) if leaky else xx
+                mean, inv = torch.batch_norm_stats(tt, 1e-5)
+                return torch.batch_norm_elemt(tt, w_x, b_x, mean, inv, 1e-5)
+
+            def one_bwd(xx, g):
+                return B.bn_act_train_backward(xx, w, m, v, g, 1e-5, leaky)
+
+            def split_bwd(xx, g):
+                s2 = B.bn_act_backward_sums(xx, g, leaky)
+                B.bn_weight_grads(s2, m, v, 1e-5, w.dtype)
+                return B.bn_act_backward_dx(xx, w, m, v, g, s2, count, 1e-5, leaky)
+
+            cnt = torch.tensor([count], dtype=torch.int32, device="cuda")
+
+            def lib_bwd(_x, g):
+                sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(g, t, m, invstd, w_x,
+                                                                   True, True, True)
+                return torch.batch_norm_backward_elemt(g, t, m, invstd, w_x, sdy, sdyx, cnt)
+
+            for key, fn in (("one_fwd", one_fwd), ("split_fwd", split_fwd),
+                            ("lib_fwd", lib_fwd), ("one_bwd", one_bwd),
+                            ("split_bwd", split_bwd), ("lib_bwd", lib_bwd)):
+                tot[key] += n * device_ms(fn, copies)
+            del copies
+    print(f"dp (a) [{card}]: the two-phase K3/K3b at one rank bitwise the one launch at "
+          f"{n_shapes} (shape, types) cases of the stc_tt step's {len(train['bn'])} BN shapes", flush=True)
+    print(f"dp (a) [{card}]: device ms a stc_tt step (its 53 BNs, replayed): forward one launch "
+          f"{tot['one_fwd']:.4f}, two-phase {tot['split_fwd']:.4f}, SyncBatchNorm's "
+          f"{tot['lib_fwd']:.4f}; backward one launch {tot['one_bwd']:.4f}, two-phase "
+          f"{tot['split_bwd']:.4f} (with the weight gradients' small ops), SyncBatchNorm's "
+          f"{tot['lib_bwd']:.4f}", flush=True)
+
+
+def _state_bytes(model):
+    import torch
+
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in model.state_dict().values()])
+
+
+WITNESS_K = 2.0  # a DP gradient past the parity bound: at most this times 1p's distance from f64
+
+
+def _f64_grads(imgs, labs):
+    """The witness of the f32 DP check: the one-process step's gradients
+    (by name) on the CPU in f64, from the same seeded stc_tt and batch, no
+    random draws.  f64 masters and compute, and the step's three kernels by
+    plain autograd in f64 (their plain versions sum in f32 inside): the
+    train BatchNorms (:func:`_bn_autograd`), the depthwise 3x3 convs
+    (``F.conv2d``), the MetaPool mixers (``F.avg_pool2d``).  The losses are
+    taken in f32, as the step takes them."""
+    import torch
+    import torch.nn.functional as F
+
+    from tcct_tpu_torch.models import layers, mpvit
+    from tcct_tpu_torch.train import AdamW, TrainConfig, build_train_step, trainable_parameters
+
+    seen = []
+
+    class Keep(AdamW):
+        def update(self, params, grads):
+            seen.extend(g.detach().clone() for g in grads)
+            return super().update(params, grads)
+
+    model = _dp_model(0.0).double()
+    cfg = TrainConfig(crop_hw=TRAIN_HW, n_class=TRAIN_NC, ds=True, udh=True, reg=True,
+                      augment=False, dtype=torch.float64, pinned_reg_noise=True)
+    def dwconv(x, w, stride=1, bias=None, residual=False):  # NHWC x, [3, 3, C] taps
+        xc = x.permute(0, 3, 1, 2)
+        y = F.conv2d(xc, w.permute(2, 0, 1)[:, None], bias, stride, 1, groups=x.shape[3])
+        return (y + xc if residual else y).permute(0, 2, 3, 1)
+
+    raw = layers.bn_act_train, layers.dwconv3x3, mpvit.metapool_tokens
+    layers.bn_act_train, layers.dwconv3x3 = _bn_autograd, dwconv
+    mpvit.metapool_tokens = lambda x: F.avg_pool2d(x[:, None], 3, 1, 1,
+                                                   count_include_pad=False)[:, 0] - x
+    try:
+        build_train_step(model, Keep(LR), cfg, device="cpu")(imgs, labs)
+    finally:
+        layers.bn_act_train, layers.dwconv3x3, mpvit.metapool_tokens = raw
+    return dict(zip(trainable_parameters(model), seen))
+
+
+def _f32_step_bounds(got, want, truth, sd0, names):
+    """The f32 DP step against the one-process step at the bounds of
+    ``check_train_f32_card_vs_cpu`` (tests/test_torch_train.py's): loss
+    rtol 1e-5; BN statistics 1e-5 + 1e-4 |ref|; every parameter within 2.1
+    lr, at most 2 % of elements more than 5 % of lr apart, the update's L2
+    drift below 0.5; each gradient within max(2e-3 |ref|, 2e-4 global norm)
+    of the one-process step's or, past that bound, no further from the f64
+    step's (``truth``, :func:`_f64_grads`) than WITNESS_K times the
+    one-process step's is.  On the card the one-process step's own f32
+    weight gradients of the CrossCNN branch's high-resolution convs can lie
+    bounds from f64 (cuDNN's f32 sums of terms that cancel), and a DP step
+    sums them in another grouping: the f64 step tells which of the two
+    is off.  Returns the measured numbers; fails past a bound."""
+    import numpy as np
+
+    def dist(a, b):
+        return float((a.double().cpu() - b.double().cpu()).norm())
+
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    gnorm = float(np.sqrt(sum(float((g.double() ** 2).sum()) for g in want["grads"].values())))
+    worst = wit_worst = one_f64 = 0.0
+    worst_k = wit_k = ""
+    over = []
+    for k, g in want["grads"].items():
+        bound = max(2e-3 * float(g.double().norm()), 2e-4 * gnorm)
+        share = dist(got["grads"][k], g) / bound
+        one_f64 = max(one_f64, dist(g, truth[k]) / bound)
+        if share > worst:
+            worst, worst_k = share, k
+        if share > 1.0:
+            over.append(k)
+            ratio = dist(got["grads"][k], truth[k]) / max(dist(g, truth[k]), 1e-300)
+            if ratio > wit_worst:
+                wit_worst, wit_k = ratio, k
+    bs_worst = moved2 = drift2 = 0.0
+    n_el = n_off = 0
+    par_worst = 0.0
+    for k, ref in want["state"].items():
+        mine = got["state"][k]
+        if "running" in k:
+            bs_worst = max(bs_worst, float(((mine - ref).abs() / (1e-5 + 1e-4 * ref.abs())).max()))
+            continue
+        if k not in names:
+            continue
+        diff = (mine.double() - ref.double()).abs()
+        par_worst = max(par_worst, float(diff.max()) / (2.1 * LR))
+        n_el += diff.numel()
+        n_off += int((diff > 0.05 * LR).sum())
+        moved2 += float(((ref.double() - sd0[k].double()) ** 2).sum())
+        drift2 += float(((mine.double() - ref.double()) ** 2).sum())
+    drift = (drift2 / moved2) ** 0.5
+    out = {"loss_rel": loss_rel, "grad_worst_of_parity_bound": worst,
+           "grad_worst_tensor": worst_k, "tensors_over_parity_bound": over,
+           "witness_worst": wit_worst, "witness_worst_tensor": wit_k,
+           "one_process_vs_f64_worst_of_bound": one_f64, "tensors": len(want["grads"]),
+           "bn_worst": bs_worst, "param_worst": par_worst, "off_share": n_off / n_el,
+           "drift": drift}
+    if (loss_rel > 1e-5 or wit_worst > WITNESS_K or bs_worst > 1.0 or par_worst > 1.0
+            or n_off > 0.02 * n_el or drift >= 0.5):
+        fail(f"dp (c): the f32 two-rank step against one process: {out}")
+    return out
+
+
+def dp_worker(rank: int, store: str, out: str) -> None:
+    """(c) and (d), one of two ranks sharing cuda:0 over gloo: three
+    augmented bf16 stc_tt steps (global batch 8, 4 rows a rank), the ranks'
+    states bitwise equal after each; one f32 step against one process (rank
+    0 runs it); the duke volume through ``load_predictor(mesh=)`` against
+    the one-process predictor (rank 0).  Writes its numbers to ``out``."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.infer.predictor import load_predictor
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.parallel import distributed as D
+    from tcct_tpu_torch.parallel import init_distributed, make_mesh
+    from tcct_tpu_torch.train import trainable_parameters
+
+    init_distributed(f"file://{store}", 2, rank, timeout_s=DP_TIMEOUT_S)
+    mesh = make_mesh(2)
+    if mesh.backend != "gloo" or mesh.device != torch.device("cuda", 0):
+        fail(f"dp (c): two ranks on one card want gloo on cuda:0, got {mesh}")
+    calls = Counter()
+
+    def counting(fn, kind):
+        def wrapped(t, *a, **k):
+            calls[kind] += 1
+            calls[kind + " bytes"] += t.numel() * t.element_size()
+            return fn(t, *a, **k)
+        return wrapped
+
+    D.all_reduce_ = counting(D.all_reduce_, "all_reduce")
+    D.all_gather_rows = counting(D.all_gather_rows, "all_gather")
+    res = {"rank": rank}
+    imgs, labs = banded_batch(TRAIN_BATCH, DP_HW, TRAIN_NC, SEED)
+
+    # (c) three bf16 steps, the ranks bitwise equal after each
+    model, _, step = _dp_step(mesh, torch.bfloat16)
+    times, losses, per_step = [], [], None
+    for i in range(3):
+        calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _ = step(imgs, labs)
+        vals = {k: float(v) for k, v in metrics.items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step = dict(calls)
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"dp (c): rank {rank} step {i}: non-finite loss {vals}")
+        losses.append(vals["total"])
+        both = mesh.all_gather_rows(_state_bytes(model)[None])
+        if not torch.equal(both[0], both[1]):
+            fail(f"dp (c): after step {i} the two ranks' states differ")
+    res.update(bf16_ms=times, bf16_losses=losses, collectives=per_step,
+               state_tensors=len(model.state_dict()))
+    del model, step
+    torch.cuda.empty_cache()
+
+    # (c) one f32 step against one process on the same batch (256x256 scans,
+    # no random draws), and past the parity bound against the step in f64
+    imgs32, labs32 = banded_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_NC, SEED)
+
+    def f32_step(m):
+        model, opt, step = _dp_step(m, torch.float32, record=True, random=False)
+        sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        metrics, _ = step(imgs32, labs32)
+        names = list(trainable_parameters(model))
+        got = {"loss": float(metrics["total"]), "grads": dict(zip(names, opt.seen)),
+               "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+        return got, sd0, set(names)
+
+    got, sd0, names = f32_step(mesh)
+    if rank == 0:
+        want, _, _ = f32_step(None)
+        t0 = time.perf_counter()
+        truth = _f64_grads(imgs32, labs32)
+        res["f64_s"] = time.perf_counter() - t0
+        res["f32"] = _f32_step_bounds(got, want, truth, sd0, names)
+        res["f32_loss"] = (got["loss"], want["loss"])
+        del want, truth
+    del got, sd0
+    torch.cuda.empty_cache()
+    mesh.barrier("after the f32 step", DP_TIMEOUT_S)
+
+    # (d) the duke volume, each rank its rows of each batch
+    vol = duke_volume()
+    pred = load_predictor(DB, batch_size=BATCH, dtype=torch.bfloat16, device="cuda",
+                          seed=SEED, mesh=mesh)
+    reset_counters()
+    seg = pred.predict_scans(vol)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    n_batches = math.ceil(N_SCANS / BATCH)
+    want_n = expected_launches(pred.model, BATCH // 2, get_geometry(DB).prep_hw, False)
+    for k, n in counts.items():
+        if n != n_batches * want_n.get(k, 0):
+            fail(f"dp (d): rank {rank}: kernel {k}: {n} launches over {n_batches} batches, "
+                 f"expected {n_batches * want_n.get(k, 0)}")
+    both = mesh.all_gather_rows(torch.from_numpy(seg).cuda()[None])
+    if not torch.equal(both[0], both[1]):
+        fail("dp (d): the two ranks returned different class maps")
+    res["predict_launches"] = counts
+    if rank == 0:
+        one = load_predictor(DB, batch_size=BATCH, dtype=torch.bfloat16, device="cuda",
+                             seed=SEED).predict_scans(vol)
+        res["maps_bitwise"] = bool(np.array_equal(seg, one))
+        # cuDNN picks its conv algorithms by batch size (4 rows a rank, 8 in
+        # one process), and bf16 rounds by them: drive_buckets' threshold
+        res["maps_agree"] = held_agreement("dp (d): the two-rank predictor's bf16 maps vs one "
+                                           "process's", seg, one, 0.999)
+    mesh.barrier("end", DP_TIMEOUT_S)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _run_ranks(cmds, envs, what: str):
+    """Start one process a rank, wait for each within DP_TIMEOUT_S, kill
+    what is left; returns the outputs.  Fails if a rank failed."""
+    procs = [subprocess.Popen(c, cwd=os.path.dirname(os.path.abspath(__file__)), env=e,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c, e in zip(cmds, envs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: a rank ran past {DP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{what}: rank {r} exited {p.returncode}:\n{o[-3000:]}")
+    return outs
+
+
+def drive_distributed(report, card, train):
+    """Data parallelism on the card (step 12 of the docstring): (a) the two-phase K3/K3b
+    bitwise the one launch at the stc_tt step's BN shapes, timed; (b) NCCL
+    with one rank: one augmented bf16 stc_tt step at full width on
+    ``make_mesh(1)`` bitwise the step without a mesh (every state tensor),
+    the launch counts read around it; (c) and (d) two ranks sharing the card
+    over gloo (``dp_worker``); (e) the CLI with ``--pl`` under two
+    processes.  Claims no speed: one card shows none."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tcct_tpu_torch.parallel import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    split_vs_one_launch(card, train)
+
+    # (b) NCCL, one rank
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    init_distributed(f"file://{DP_DIR}/store_b", 1, 0, timeout_s=DP_TIMEOUT_S)
+    mesh = make_mesh(1)
+    if mesh.backend != "nccl":
+        fail(f"dp (b): one rank on one card wants nccl, got {mesh.backend}")
+    imgs, labs = banded_batch(TRAIN_BATCH, DP_HW, TRAIN_NC, SEED)
+    ends = []
+    for m in (None, mesh):
+        model, _, step = _dp_step(m, torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_counters()
+        metrics, _ = step(imgs, labs)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        ends.append(({k: v.detach().clone() for k, v in model.state_dict().items()}, counts,
+                     float(metrics["total"])))
+        del model, step
+    (single, c1, l1), (dp, c2, l2) = ends
+    off = [k for k in single if not torch.equal(single[k], dp[k])]
+    print(f"dp (b) [{card}]: NCCL world size 1: one augmented bf16 stc_tt step on make_mesh(1) "
+          f"(loss {l2:.6f}) against the step without a mesh (loss {l1:.6f}): "
+          f"{len(single) - len(off)} of {len(single)} state tensors bitwise equal", flush=True)
+    if off:
+        fail(f"dp (b): {len(off)} state tensors differ ({', '.join(off[:6])} ...)")
+    want = train_launches(_dp_model(), data_parallel=True)
+    print(f"dp (b): launches of the mesh step {c2}", flush=True)
+    for k, n in c2.items():
+        if n != want.get(k, 0):
+            fail(f"dp (b): kernel {k}: {n} launches in the mesh step, expected {want.get(k, 0)}")
+    for e in report["kernels"]:
+        if e["name"] in SPLIT_BN:
+            e["launches"] = c2[e["name"]]
+    del single, dp, ends
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (c), (d): two ranks sharing cuda:0
+    t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    outs = [os.path.join(DP_DIR, f"rank{r}.json") for r in range(2)]
+    _run_ranks([[sys.executable, me, "--dp-worker", str(r), f"{DP_DIR}/store_c", outs[r]]
+                for r in range(2)], [dict(os.environ)] * 2, "dp (c)")
+    res = [json.load(open(o)) for o in outs]
+    r0 = res[0]
+    coll = r0["collectives"]
+    print(f"dp (c) [{card}]: two ranks on one card over gloo, stc_tt full width, global batch "
+          f"{TRAIN_BATCH} ({TRAIN_BATCH // 2} a rank), 3 augmented bf16 steps: losses "
+          f"{', '.join(f'{v:.6f}' for v in r0['bf16_losses'])}, the ranks' "
+          f"{r0['state_tensors']} state tensors bitwise equal after each; ms/step "
+          f"{', '.join(f'{t:.1f}' for t in r0['bf16_ms'])} (two processes sharing one card: no "
+          f"speed is claimed); collectives a step: {coll.get('all_reduce', 0)} all-reduces "
+          f"({coll.get('all_reduce bytes', 0)} bytes), {coll.get('all_gather', 0)} all-gathers "
+          f"({coll.get('all_gather bytes', 0)} bytes a rank)", flush=True)
+    print(f"dp (c): f32 step (TF32 off), two ranks vs one process: loss {r0['f32_loss'][0]:.7f} "
+          f"vs {r0['f32_loss'][1]:.7f}; the witness step in f64 on the CPU in "
+          f"{r0['f64_s']:.1f} s; {r0['f32']}", flush=True)
+    print(f"dp (d): the duke volume through load_predictor(mesh=) on two ranks: maps bitwise "
+          f"the one-process predictor's: {r0['maps_bitwise']}, agreement {r0['maps_agree']:.6f}; "
+          f"launches a rank {res[1]['predict_launches']} ({time.perf_counter() - t0:.1f} s "
+          f"for (c) and (d))", flush=True)
+
+    # (e) the CLI, --pl, two processes
+    t0 = time.perf_counter()
+    root = os.path.join(DP_DIR, "cli")
+    envs = []
+    for r in range(2):
+        env = dict(os.environ, TCCT_COORDINATOR=f"file://{DP_DIR}/store_e",
+                   TCCT_NUM_PROCESSES="2", TCCT_PROCESS_ID=str(r))
+        envs.append(env)
+    cmd = [sys.executable, "-m", "tcct_tpu_torch.cli.main", "--db", ENGINE_DB, "--bug", "true",
+           "--bs", str(ENGINE_BATCH), "--ds", "true", "--pl", "true", "--root", root]
+    logs = _run_ranks([cmd, cmd], envs, "dp (e)")
+    line = f"DATA-PARALLEL: bs={ENGINE_BATCH} over 2/2 ranks"
+    for r, log in enumerate(logs):
+        if line not in log:
+            fail(f"dp (e): rank {r} printed no '{line}':\n{log[-2000:]}")
+    lines = [json.loads(x) for x in open(os.path.join(root, "metrics.jsonl"))]
+    if len(lines) != 1 or not math.isfinite(lines[0].get("total", float("nan"))):
+        fail(f"dp (e): want one metrics.jsonl line (rank 0's) with a finite total: {lines}")
+    print(f"dp (e): {' '.join(cmd[1:])} under two processes (TCCT_*): '{line}', exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, rank 0's log total {lines[0]['total']:.5f}",
+          flush=True)
+    print(f"dp [{card}]: data parallelism in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3729,6 +4421,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-exported":  # drive_export's fresh process
         serve_exported(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--dp-worker":  # drive_distributed's ranks
+        dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return 0
 
     card = card_identity()
@@ -3752,7 +4447,7 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1:
         fail(f"usage: chip_smoke.py [--against DIR [NAME ...] | --profile DIR | "
-             f"--serve-exported PROGRAM OUT], "
+             f"--serve-exported PROGRAM OUT | --dp-worker RANK STORE OUT], "
              f"not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
@@ -3792,6 +4487,7 @@ def main() -> int:
     drive_zoo_steps(card)
     drive_zoo_serving(card)
     drive_task2(report, card)
+    drive_distributed(report, card, train)
 
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

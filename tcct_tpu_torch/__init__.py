@@ -19,6 +19,9 @@ JAX package's CLI surface:
 - ``data``   — per-dataset geometry, prep/postprocess, ``EyeSet``, the
   augmentation on the device, the native PNG loader and the prefetcher.
 - ``cli``    — ``python -m tcct_tpu_torch.cli.main``, the training CLI.
+- ``parallel`` — data parallelism over ``torch.distributed`` (one process a
+  device): process groups, the ``('data',)`` mesh, the collectives of the
+  data-parallel step, ``--pl``.
 - ``task2``  — task 2, the GOALS glaucoma classifier: a ResNet-18/34/50 with
   per-stage dropout, its data (PNG prep and xlsx labels without cv2 or
   pandas) and augmentation on the device, ``ClsTrainer``, the TTA ensemble,

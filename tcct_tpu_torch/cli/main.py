@@ -12,8 +12,18 @@ mixer (``--mixer``).  Differences from the JAX CLI:
   lane layout (the default, auto, is off here);
 - ``metapool_pallas`` names the MetaPool mixer, whose kernel runs on the
   card either way;
-- ``--pl`` is accepted and one device is used (data parallelism is ROADMAP
-  A.7); ``--gpu`` is ignored, as in the JAX CLI.
+- ``--gpu`` is ignored, as in the JAX CLI.
+
+``--pl`` (default true) trains data-parallel when the launch started more
+than one process: set ``TCCT_COORDINATOR`` (host:port), ``TCCT_NUM_PROCESSES``
+and ``TCCT_PROCESS_ID`` in each, as for the JAX CLI, or start it with
+``torchrun --nproc_per_node N -m tcct_tpu_torch.cli.main ...``.  Each
+process takes one device (``--device cuda``, the default, is
+``cuda:<local rank % cards>`` and raises where no card is visible;
+``--device cpu`` the CPU); the mesh spans the largest rank count that divides
+``--bs`` (ranks past it stop), and the batch semantics are the
+one-process run's.  Ranks sharing a card run over gloo, ranks with a card
+each over NCCL.  With one process, one device.
 """
 
 from __future__ import annotations
@@ -58,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ds", type=str2bool, default=False, help="deep supervision")
     p.add_argument("--coff_ds", type=float, default=1.0)
     p.add_argument("--pl", type=str2bool, default=True,
-                   help="accepted; one device is used (data parallelism: ROADMAP A.7)")
+                   help="data-parallel over the launched processes (TCCT_* or torchrun), "
+                        "one device each")
     p.add_argument("--bug", type=str2bool, default=False, help="debug/smoke mode")
     p.add_argument("--data_root", type=str, default="",
                    help="dataset root (else $TCCT_DATA_ROOT or synthetic)")
@@ -92,6 +103,24 @@ def main(argv=None):
     from tcct_tpu_torch.models import RegNet, get_model
     from tcct_tpu_torch.train import TrainConfig, Trainer
 
+    mesh = None
+    if args.pl:
+        from tcct_tpu_torch.parallel import init_distributed, make_mesh, pick_dp_devices
+        from tcct_tpu_torch.parallel.distributed import launched_processes
+
+        world = launched_processes()
+        if world > 1:
+            device = init_distributed(device=args.device)
+            n = pick_dp_devices(args.bs, world)
+            mesh = make_mesh(n)
+            if mesh.rank < 0:
+                print(f"DATA-PARALLEL: rank outside the {n}-rank mesh of bs={args.bs}; idle",
+                      flush=True)
+                torch.distributed.destroy_process_group()
+                return
+            args.device = str(device)
+            print(f"DATA-PARALLEL: bs={args.bs} over {n}/{world} ranks", flush=True)
+
     dataset = EyeSet.load(args.db, root=args.data_root)
     nc = dataset.out_channels
     print("OUT-CHANNELS:", nc, "| synthetic:", dataset.synthetic, flush=True)
@@ -113,7 +142,7 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
     trainer = Trainer(net, dataset, cfg, root=args.root, bs=args.bs, lr=args.lr,
                       weight_decay=args.wd, device=args.device, debug=args.bug,
-                      stochastic_val=args.stochastic_val)
+                      stochastic_val=args.stochastic_val, mesh=mesh)
     if args.import_pt:
         from tcct_tpu_torch.infer import load_reference_pt
 
@@ -121,9 +150,12 @@ def main(argv=None):
         res = trainer.model.load_state_dict(load_reference_pt(args.import_pt), strict=False)
         print(f"imported: {len(res.missing_keys)} missing, {len(res.unexpected_keys)} "
               f"unexpected", flush=True)
+        trainer.place_state()
     if args.resume:
         print("resumed:", trainer.resume("val_top") or trainer.resume("last"), flush=True)
     trainer.fit(epochs=1 if args.bug else args.epochs)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -53,6 +53,25 @@
 //      is one cvt.rn.bf16x2.f32 (an integer round-to-nearest-even made the
 //      large shapes compute-bound).
 // No float atomics: repeated runs give bitwise-equal results.
+//
+// Two-phase entry points, for a batch split over the ranks of a data-parallel
+// step (the TPU kernel's own structure: _stats_kernel, then _norm_kernel):
+//   sums      (tcct_bn_act_sums): phases 1-3 of the forward or the backward,
+//             ending in the channel's two f32 sums (sum t, sum t*t; or sum gy,
+//             sum gy*t), written to a [2, C] output.  Same grid, words and
+//             order as the one launch, so with the same x (and gy) the sums
+//             are bitwise the ones the one launch forms.  Nothing is kept in
+//             shared memory: no elementwise pass follows in this launch.
+//   finish    (tcct_bn_act_normalize, tcct_bn_act_backward_dx): given the sums
+//             of the whole batch (all-reduced across the ranks) and its row
+//             count, every block forms the per-channel values of phase 3 for
+//             all channels itself (no grid barrier: an ordinary launch) and
+//             runs phase 4 over its rows, reading x (and gy) again from device
+//             memory.  That re-read is what the split costs: the forward moves
+//             x twice and y once (the one launch: x once, mostly, and y), the
+//             backward x and gy twice and dx once.
+// At one rank, sums then finish give bitwise the one launch's y, mean, var and
+// dx: the same sums, then the same f32 arithmetic on them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -150,6 +169,9 @@ __device__ __forceinline__ void store_param(void* p, int dt, int c, float v) {
   else static_cast<uint16_t*>(p)[c] = (uint16_t)bf16_bits(v);
 }
 
+// What a launch runs: the one-launch kernel, or one of the two phases.
+enum Mode { FULL = 0, SUMS = 1, FINISH = 2 };
+
 struct Params {
   const void* x;       // [M, C] in T
   const void* gy;      // backward: [M, C] in T
@@ -161,6 +183,8 @@ struct Params {
   float* stats;        // forward: [3, C] mean, var, inv (outputs); backward: [3, C] coefficients
   void* dwb;           // backward: [2, C] dweight, dbias in weight's type
   float* part;         // [2C, grid] the blocks' partial sums
+  float* sums;         // SUMS: [2, C] output; FINISH: [2, C] sums of the whole batch
+  float count;         // rows of the whole batch (FULL: M), the divisor n
   long long M;
   long long rows;      // rows a block
   long long keep;      // rows a block keeps in shared memory
@@ -289,21 +313,21 @@ __device__ __forceinline__ typename Word<T, VEC>::type dx_word(
   return narrow<T, VEC>(fg);
 }
 
-// Phase 3 for the channels c = blockIdx.x + k * grid of this block, from
-// their two sums: forward, mean, var and inv into p.stats; backward, the
-// coefficients a, b, c2 into p.stats and dweight, dbias into p.dwb.
+// Per-channel values of channel c from its two sums, n = p.count.  Forward:
+// v = mean, var, inv.  Backward (s1 = sum(gy), s2 = sum(gy * t)): v = the
+// coefficients a, b, c2 of dx_word, and dwb = dweight, dbias.
 template <bool BWD>
-__device__ __forceinline__ void finish_channel(const Params& p, int c, float s1, float s2) {
-  const int C = p.C;
-  const float n = (float)p.M;
+__device__ __forceinline__ void channel_values(const Params& p, int c, float s1, float s2,
+                                               float* v, float* dwb) {
+  const float n = p.count;
   const float w = load_param(p.weight, p.wdt, c);
   if constexpr (!BWD) {
     const float mu = s1 / n;
-    const float v = __fsub_rn(s2 / n, __fmul_rn(mu, mu));
-    p.stats[c] = mu;
-    p.stats[C + c] = v;
-    p.stats[2 * C + c] = __fmul_rn(1.f / __fsqrt_rn(__fadd_rn(v, p.eps)), w);
-  } else {  // s1 = sum(gy), s2 = sum(gy * t)
+    const float var = __fsub_rn(s2 / n, __fmul_rn(mu, mu));
+    v[0] = mu;
+    v[1] = var;
+    v[2] = __fmul_rn(1.f / __fsqrt_rn(__fadd_rn(var, p.eps)), w);
+  } else {
     const float mu = p.mean[c];
     const float rs = 1.f / __fsqrt_rn(__fadd_rn(p.var[c], p.eps));
     const float inv = __fmul_rn(w, rs);
@@ -311,17 +335,34 @@ __device__ __forceinline__ void finish_channel(const Params& p, int c, float s1,
     const float gvar =
         __fmul_rn(__fmul_rn(__fmul_rn(ginv, -0.5f), w), __fmul_rn(__fmul_rn(rs, rs), rs));
     const float gmean = __fsub_rn(__fmul_rn(-inv, s1), __fmul_rn(2.f * mu, gvar));
-    p.stats[c] = inv;
-    p.stats[C + c] = gmean / n;
-    p.stats[2 * C + c] = __fmul_rn(gvar / n, 2.f);
-    store_param(p.dwb, p.wdt, c, __fmul_rn(ginv, rs));
-    store_param(p.dwb, p.wdt, C + c, s1);
+    v[0] = inv;
+    v[1] = gmean / n;
+    v[2] = __fmul_rn(gvar / n, 2.f);
+    dwb[0] = __fmul_rn(ginv, rs);
+    dwb[1] = s1;
+  }
+}
+
+// Phase 3 of the one launch for channel c: forward, mean, var and inv into
+// p.stats; backward, the coefficients a, b, c2 into p.stats and dweight,
+// dbias into p.dwb.
+template <bool BWD>
+__device__ __forceinline__ void finish_channel(const Params& p, int c, float s1, float s2) {
+  const int C = p.C;
+  float v[3], dwb[2];
+  channel_values<BWD>(p, c, s1, s2, v, dwb);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) p.stats[q * C + c] = v[q];
+  if constexpr (BWD) {
+    store_param(p.dwb, p.wdt, c, dwb[0]);
+    store_param(p.dwb, p.wdt, C + c, dwb[1]);
   }
 }
 
 // The forward (BWD false: sums of t and t*t, then y) or the backward (BWD
-// true: sums of gy and gy*t, then dx).  Phases as in the header.
-template <typename T, int VEC, bool LEAKY, bool BWD, int UNROLL>
+// true: sums of gy and gy*t, then dx).  Phases as in the header; MODE SUMS
+// runs phases 1-3 and writes the two sums, FINISH phase 4 from given sums.
+template <typename T, int VEC, bool LEAKY, bool BWD, int UNROLL, int MODE>
 __device__ __forceinline__ void bn_act(const Params& p) {
   using V = typename Word<T, VEC>::type;
   constexpr int NT = BWD ? 2 : 1;  // tensors swept: x (and gy)
@@ -338,88 +379,116 @@ __device__ __forceinline__ void bn_act(const Params& p) {
   const V* xw = static_cast<const V*>(p.x);
   const V* gw = static_cast<const V*>(p.gy);
 
-  // 1. sweep: f32 sums, UNROLL rows of the lane in flight; words kept
-  float s1[VEC], s2[VEC];
+  if constexpr (MODE != FINISH) {
+    // 1. sweep: f32 sums, UNROLL rows of the lane in flight; words kept
+    float s1[VEC], s2[VEC];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
-  if (r < R)
-    for (long long m = m0 + r; m < m1; m += (long long)UNROLL * R) {
-      V vx[UNROLL], vg[UNROLL];
+    for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+    if (r < R)
+      for (long long m = m0 + r; m < m1; m += (long long)UNROLL * R) {
+        V vx[UNROLL], vg[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const long long mu = m + (long long)u * R;
-        if (mu < m1 && mu - m0 < p.keep) {
-          vx[u] = ld_first(xw + mu * W + wc);
-          if constexpr (BWD) vg[u] = ld_first(gw + mu * W + wc);
-        } else if (mu < m1) {
-          vx[u] = xw[mu * W + wc];
-          if constexpr (BWD) vg[u] = gw[mu * W + wc];
+        for (int u = 0; u < UNROLL; ++u) {
+          const long long mu = m + (long long)u * R;
+          if (mu < m1 && mu - m0 < p.keep) {
+            vx[u] = ld_first(xw + mu * W + wc);
+            if constexpr (BWD) vg[u] = ld_first(gw + mu * W + wc);
+          } else if (mu < m1) {
+            vx[u] = xw[mu * W + wc];
+            if constexpr (BWD) vg[u] = gw[mu * W + wc];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const long long i = m + (long long)u * R - m0;
+          if (m + (long long)u * R >= m1) continue;
+          if (i < p.keep) {
+            kept[(i * NT) * W + wc] = vx[u];
+            if constexpr (BWD) kept[(i * NT + 1) * W + wc] = vg[u];
+          }
+          float fx[VEC];
+          widen<T, VEC>(vx[u], fx);
+          if constexpr (BWD) {
+            float fg[VEC];
+            widen<T, VEC>(vg[u], fg);
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              s1[k] += fg[k];
+              s2[k] = fmaf(fg[k], act<T, LEAKY>(fx[k]), s2[k]);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              const float t = act<T, LEAKY>(fx[k]);
+              s1[k] += t;
+              s2[k] = fmaf(t, t, s2[k]);
+            }
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const long long i = m + (long long)u * R - m0;
-        if (m + (long long)u * R >= m1) continue;
-        if (i < p.keep) {
-          kept[(i * NT) * W + wc] = vx[u];
-          if constexpr (BWD) kept[(i * NT + 1) * W + wc] = vg[u];
-        }
-        float fx[VEC];
-        widen<T, VEC>(vx[u], fx);
-        if constexpr (BWD) {
-          float fg[VEC];
-          widen<T, VEC>(vg[u], fg);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            s1[k] += fg[k];
-            s2[k] = fmaf(fg[k], act<T, LEAKY>(fx[k]), s2[k]);
-          }
+
+    // 2. the block's partials
+    block_partials<VEC>(red, s1, s2, r, wc, p);
+    cg::this_grid().sync();
+
+    // 3. this block's channels: their sums, then (FULL) their values
+    const int nb = gridDim.x;
+    const int mine = (int)blockIdx.x < C ? (C - 1 - (int)blockIdx.x) / nb + 1 : 0;
+    const int warp = tid / 32, lane = tid % 32;
+    for (int k0 = 0; k0 < mine; k0 += WARPS) {
+      const int kn = min(WARPS, mine - k0);
+      for (int t = warp; t < 2 * kn; t += WARPS) {
+        const int c = blockIdx.x + (k0 + t / 2) * nb;
+        const float a = warp_partials(p.part, (t & 1) * C + c, nb, lane);
+        if (lane == 0) fin[t] = a;
+      }
+      __syncthreads();
+      if (tid < kn) {
+        const int c = blockIdx.x + (k0 + tid) * nb;
+        if constexpr (MODE == SUMS) {
+          p.sums[c] = fin[2 * tid];
+          p.sums[C + c] = fin[2 * tid + 1];
         } else {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float t = act<T, LEAKY>(fx[k]);
-            s1[k] += t;
-            s2[k] = fmaf(t, t, s2[k]);
-          }
+          finish_channel<BWD>(p, c, fin[2 * tid], fin[2 * tid + 1]);
         }
       }
+      __syncthreads();
     }
+    if constexpr (MODE == SUMS) return;
+    cg::this_grid().sync();
 
-  // 2. the block's partials
-  block_partials<VEC>(red, s1, s2, r, wc, p);
-  cg::this_grid().sync();
-
-  // 3. this block's channels
-  const int nb = gridDim.x;
-  const int mine = (int)blockIdx.x < C ? (C - 1 - (int)blockIdx.x) / nb + 1 : 0;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int k0 = 0; k0 < mine; k0 += WARPS) {
-    const int kn = min(WARPS, mine - k0);
-    for (int t = warp; t < 2 * kn; t += WARPS) {
-      const int c = blockIdx.x + (k0 + t / 2) * nb;
-      const float a = warp_partials(p.part, (t & 1) * C + c, nb, lane);
-      if (lane == 0) fin[t] = a;
+    // the per-channel values of phase 4, from device memory
+    for (int c = tid; c < C; c += THREADS) {
+      if constexpr (BWD) {
+        for (int q = 0; q < 3; ++q) prm[q * C + c] = __ldcg(p.stats + q * C + c);
+      } else {
+        prm[c] = rnd<T>(__ldcg(p.stats + c));
+        prm[C + c] = rnd<T>(__ldcg(p.stats + 2 * C + c));
+        prm[2 * C + c] = rnd<T>(load_param(p.bias, p.bdt, c));
+      }
     }
-    __syncthreads();
-    if (tid < kn)
-      finish_channel<BWD>(p, blockIdx.x + (k0 + tid) * nb, fin[2 * tid], fin[2 * tid + 1]);
-    __syncthreads();
+  } else {
+    // FINISH: every block forms every channel's values from the given sums;
+    // block 0 writes the forward's mean, var and inv
+    for (int c = tid; c < C; c += THREADS) {
+      float v[3], dwb[2];
+      channel_values<BWD>(p, c, p.sums[c], p.sums[C + c], v, dwb);
+      if constexpr (BWD) {
+        for (int q = 0; q < 3; ++q) prm[q * C + c] = v[q];
+      } else {
+        if (blockIdx.x == 0)
+          for (int q = 0; q < 3; ++q) p.stats[q * C + c] = v[q];
+        prm[c] = rnd<T>(v[0]);
+        prm[C + c] = rnd<T>(v[2]);
+        prm[2 * C + c] = rnd<T>(load_param(p.bias, p.bdt, c));
+      }
+    }
   }
-  cg::this_grid().sync();
+  __syncthreads();
 
   // 4. the elementwise pass over the block's rows: first the rows read
   // again from device memory (the last read in phase 1, the likeliest still
   // in L2), then the kept rows from shared memory
-  for (int c = tid; c < C; c += THREADS) {
-    if constexpr (BWD) {
-      for (int q = 0; q < 3; ++q) prm[q * C + c] = __ldcg(p.stats + q * C + c);
-    } else {
-      prm[c] = rnd<T>(__ldcg(p.stats + c));
-      prm[C + c] = rnd<T>(__ldcg(p.stats + 2 * C + c));
-      prm[2 * C + c] = rnd<T>(load_param(p.bias, p.bdt, c));
-    }
-  }
-  __syncthreads();
   if (r >= R) return;
   V* out = static_cast<V*>(p.out);
   const long long mk = min(m1, m0 + p.keep);
@@ -458,12 +527,27 @@ __device__ __forceinline__ void bn_act(const Params& p) {
 
 template <typename T, int VEC, bool LEAKY, int UNROLL>
 __global__ void __launch_bounds__(THREADS, 1) bn_act_fwd_kernel(const Params p) {
-  bn_act<T, VEC, LEAKY, false, UNROLL>(p);
+  bn_act<T, VEC, LEAKY, false, UNROLL, FULL>(p);
 }
 
 template <typename T, int VEC, bool LEAKY, int UNROLL>
 __global__ void __launch_bounds__(THREADS, 1) bn_act_bwd_kernel(const Params p) {
-  bn_act<T, VEC, LEAKY, true, UNROLL>(p);
+  bn_act<T, VEC, LEAKY, true, UNROLL, FULL>(p);
+}
+
+template <typename T, int VEC, bool LEAKY, bool BWD, int UNROLL>
+__global__ void __launch_bounds__(THREADS, 1) bn_act_sums_kernel(const Params p) {
+  bn_act<T, VEC, LEAKY, BWD, UNROLL, SUMS>(p);
+}
+
+template <typename T, int VEC, bool LEAKY, int UNROLL>
+__global__ void __launch_bounds__(THREADS, 1) bn_act_norm_kernel(const Params p) {
+  bn_act<T, VEC, LEAKY, false, UNROLL, FINISH>(p);
+}
+
+template <typename T, int VEC, bool LEAKY, int UNROLL>
+__global__ void __launch_bounds__(THREADS, 1) bn_act_dx_kernel(const Params p) {
+  bn_act<T, VEC, LEAKY, true, UNROLL, FINISH>(p);
 }
 
 // Launch geometry of one call: the grid, rows a block, rows kept, words.
@@ -517,7 +601,7 @@ int geometry(long long M, int C, int esize, int tensors, bool aligned16, Geom* g
 }
 
 template <auto Kernel>
-int launch(const Geom& g, Params& p, cudaStream_t stream) {
+int launch(const Geom& g, Params& p, cudaStream_t stream, bool cooperative) {
   static bool attr = false;  // one per kernel
   if (!attr) {
     int sms, smem_max;
@@ -532,35 +616,59 @@ int launch(const Geom& g, Params& p, cudaStream_t stream) {
   p.rows = g.rows;
   p.keep = g.keep;
   void* args[] = {&p};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(Kernel), g.nb,
-                                              THREADS, args, g.smem, stream);
+  const void* fn = reinterpret_cast<const void*>(Kernel);
+  cudaError_t e = cooperative
+                      ? cudaLaunchCooperativeKernel(fn, g.nb, THREADS, args, g.smem, stream)
+                      : cudaLaunchKernel(fn, g.nb, THREADS, args, g.smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool BWD, bool LEAKY>
+// The kernel of (T, BWD, LEAKY, MODE) at the geometry's word width.
+template <typename T, bool BWD, bool LEAKY, int MODE>
 int run_typed(const Geom& g, Params& p, cudaStream_t s) {
   constexpr int V16 = 16 / sizeof(T);
-  if constexpr (BWD) {  // 16-byte words in flight: 8 a thread
-    if (g.vec == V16) return launch<bn_act_bwd_kernel<T, V16, LEAKY, 4>>(g, p, s);
-    return launch<bn_act_bwd_kernel<T, 1, LEAKY, 8>>(g, p, s);
+  constexpr int U16 = BWD ? 4 : 8;  // 16-byte words in flight: 8 a thread
+  const bool wide = g.vec == V16;
+  if constexpr (MODE == SUMS) {
+    if (wide) return launch<bn_act_sums_kernel<T, V16, LEAKY, BWD, U16>>(g, p, s, true);
+    return launch<bn_act_sums_kernel<T, 1, LEAKY, BWD, 8>>(g, p, s, true);
+  } else if constexpr (MODE == FINISH && BWD) {
+    if (wide) return launch<bn_act_dx_kernel<T, V16, LEAKY, U16>>(g, p, s, false);
+    return launch<bn_act_dx_kernel<T, 1, LEAKY, 8>>(g, p, s, false);
+  } else if constexpr (MODE == FINISH) {
+    if (wide) return launch<bn_act_norm_kernel<T, V16, LEAKY, U16>>(g, p, s, false);
+    return launch<bn_act_norm_kernel<T, 1, LEAKY, 8>>(g, p, s, false);
+  } else if constexpr (BWD) {
+    if (wide) return launch<bn_act_bwd_kernel<T, V16, LEAKY, U16>>(g, p, s, true);
+    return launch<bn_act_bwd_kernel<T, 1, LEAKY, 8>>(g, p, s, true);
   } else {
-    if (g.vec == V16) return launch<bn_act_fwd_kernel<T, V16, LEAKY, 8>>(g, p, s);
-    return launch<bn_act_fwd_kernel<T, 1, LEAKY, 8>>(g, p, s);
+    if (wide) return launch<bn_act_fwd_kernel<T, V16, LEAKY, U16>>(g, p, s, true);
+    return launch<bn_act_fwd_kernel<T, 1, LEAKY, 8>>(g, p, s, true);
   }
 }
 
-template <bool BWD>
+// The word width follows the alignment of every tensor the launch reads or
+// writes in rows; the sums pass has no output rows, so with an aligned
+// output it takes the one launch's words, grid and order.
+template <bool BWD, int MODE>
 int run(Params& p, int dtype, int leaky, cudaStream_t s) {
   const int esize = dtype == 0 ? 4 : 2;
-  uintptr_t ptrs = (uintptr_t)p.x | (uintptr_t)p.out | (BWD ? (uintptr_t)p.gy : 0);
+  const uintptr_t ptrs = (uintptr_t)p.x | (MODE == SUMS ? 0 : (uintptr_t)p.out) |
+                         (BWD ? (uintptr_t)p.gy : 0);
   Geom g;
   const int e = geometry(p.M, p.C, esize, BWD ? 2 : 1, ptrs % 16 == 0, &g);
   if (e) return e;
+  if (MODE != FULL) {  // nothing kept on chip: no elementwise pass follows the sweep
+    g.keep = 0;
+    g.smem = fixed_floats(p.C, g.vec) * sizeof(float);
+  }
   if (dtype == 0)
-    return leaky ? run_typed<float, BWD, true>(g, p, s) : run_typed<float, BWD, false>(g, p, s);
+    return leaky ? run_typed<float, BWD, true, MODE>(g, p, s)
+                 : run_typed<float, BWD, false, MODE>(g, p, s);
   if (dtype == 1)
-    return leaky ? run_typed<bf16, BWD, true>(g, p, s) : run_typed<bf16, BWD, false>(g, p, s);
+    return leaky ? run_typed<bf16, BWD, true, MODE>(g, p, s)
+                 : run_typed<bf16, BWD, false, MODE>(g, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -594,7 +702,8 @@ extern "C" int tcct_bn_act_train(const void* x, void* y, const void* weight, con
   p.eps = eps;
   p.wdt = wdt;
   p.bdt = bdt;
-  return run<false>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
+  p.count = (float)M;
+  return run<false, FULL>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
 }
 
 // Backward.  x, gy, dx: [M, C] in dtype; weight: [C] of type wdt; mean,
@@ -620,5 +729,71 @@ extern "C" int tcct_bn_act_train_backward(const void* x, const void* gy, void* d
   p.C = C;
   p.eps = eps;
   p.wdt = wdt;
-  return run<true>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
+  p.count = (float)M;
+  return run<true, FULL>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
+}
+
+// Sums pass.  x (and, backward, gy): [M, C] in dtype; sums: [2, C] f32
+// outputs, forward sum(t), sum(t*t), backward sum(gy), sum(gy*t), with
+// t = act(x); part: the workspace of tcct_bn_act_workspace(M, C, dtype,
+// backward).  One cooperative launch; returns its error.
+extern "C" int tcct_bn_act_sums(const void* x, const void* gy, void* sums, void* part,
+                                long long M, int C, int leaky, int dtype, int backward,
+                                void* stream) {
+  Params p{};
+  p.x = x;
+  p.gy = gy;
+  p.sums = static_cast<float*>(sums);
+  p.part = static_cast<float*>(part);
+  p.M = M;
+  p.C = C;
+  p.count = (float)M;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return backward ? run<true, SUMS>(p, dtype, leaky, s) : run<false, SUMS>(p, dtype, leaky, s);
+}
+
+// Normalize pass.  x, y: [M, C] in dtype; weight, bias: [C] of type wdt,
+// bdt; sums: [2, C] f32, sum(t) and sum(t*t) over count rows (the whole
+// batch); stats: [3, C] f32 outputs mean, var, inv.  One launch.
+extern "C" int tcct_bn_act_normalize(const void* x, void* y, const void* weight,
+                                     const void* bias, const void* sums, void* stats,
+                                     long long M, long long count, int C, float eps, int leaky,
+                                     int dtype, int wdt, int bdt, void* stream) {
+  Params p{};
+  p.x = x;
+  p.out = y;
+  p.weight = weight;
+  p.bias = bias;
+  p.sums = const_cast<float*>(static_cast<const float*>(sums));
+  p.stats = static_cast<float*>(stats);
+  p.M = M;
+  p.count = (float)count;
+  p.C = C;
+  p.eps = eps;
+  p.wdt = wdt;
+  p.bdt = bdt;
+  return run<false, FINISH>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
+}
+
+// dx pass.  x, gy, dx: [M, C] in dtype; weight: [C] of type wdt; mean, var:
+// [C] f32 (the forward's); sums: [2, C] f32, sum(gy) and sum(gy*t) over
+// count rows (the whole batch).  One launch; returns its error.
+extern "C" int tcct_bn_act_backward_dx(const void* x, const void* gy, void* dx,
+                                       const void* weight, const void* mean, const void* var,
+                                       const void* sums, long long M, long long count, int C,
+                                       float eps, int leaky, int dtype, int wdt, void* stream) {
+  Params p{};
+  p.x = x;
+  p.gy = gy;
+  p.out = dx;
+  p.weight = weight;
+  p.mean = static_cast<const float*>(mean);
+  p.var = static_cast<const float*>(var);
+  p.sums = const_cast<float*>(static_cast<const float*>(sums));
+  p.M = M;
+  p.count = (float)count;
+  p.C = C;
+  p.eps = eps;
+  p.wdt = wdt;
+  return run<true, FINISH>(p, dtype, leaky, static_cast<cudaStream_t>(stream));
 }

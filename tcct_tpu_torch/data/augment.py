@@ -48,6 +48,11 @@ class TrainDraws:
     contrast: torch.Tensor  # f32 factors, 1 + U(-0.2, 0.2)
     brightness: torch.Tensor
 
+    def rows(self, start: int, stop: int) -> "TrainDraws":
+        """The draws of samples ``[start:stop)`` (a data-parallel rank's rows
+        of draws made for the global batch)."""
+        return TrainDraws(*(getattr(self, f.name)[start:stop] for f in dataclasses.fields(self)))
+
 
 def _uniform(shape, lo: float, hi: float, generator, device) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=device) * (hi - lo) + lo
@@ -151,23 +156,34 @@ def hue_saturation_value(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tenso
 # batch pipelines
 # ---------------------------------------------------------------------------
 
+def _crop_index(params: TrainDraws, crop_hw: Tuple[int, int], dev):
+    """The gather indices of the crop with both flips folded in: (batch,
+    rows, cols), broadcasting to [B, ch, cw]."""
+    ch, cw = crop_hw
+    dy = torch.arange(ch, device=dev)
+    dx = torch.arange(cw, device=dev)
+    rows = params.y0[:, None] + torch.where(params.flip_v[:, None], ch - 1 - dy, dy)
+    cols = params.x0[:, None] + torch.where(params.flip_h[:, None], cw - 1 - dx, dx)
+    bi = torch.arange(rows.shape[0], device=dev)[:, None, None]
+    return bi, rows[:, :, None], cols[:, None, :]
+
+
 def apply_train(imgs_u8: torch.Tensor, labs_u8: torch.Tensor, params: TrainDraws,
                 crop_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, H, W, 3] uint8, [B, H, W] uint8 -> ([B, ch, cw, 3] f32 in [0, 1],
     [B, ch, cw] int64): the crop (flips folded into its gather), then the
     RGB shift, HSV shift, contrast and brightness, then the clip."""
-    B = imgs_u8.shape[0]
-    ch, cw = crop_hw
-    dev = imgs_u8.device
-    dy = torch.arange(ch, device=dev)
-    dx = torch.arange(cw, device=dev)
-    rows = params.y0[:, None] + torch.where(params.flip_v[:, None], ch - 1 - dy, dy)
-    cols = params.x0[:, None] + torch.where(params.flip_h[:, None], cw - 1 - dx, dx)
-    bi = torch.arange(B, device=dev)[:, None, None]
-    rows, cols = rows[:, :, None], cols[:, None, :]
-    img = imgs_u8[bi, rows, cols].float() / 255.0
-    lab = labs_u8[bi, rows, cols].long()
-    return colour_chain(img, params), lab
+    idx = _crop_index(params, crop_hw, imgs_u8.device)
+    img = imgs_u8[idx].float() / 255.0
+    return colour_chain(img, params), crop_labels(labs_u8, params, crop_hw)
+
+
+def crop_labels(labs_u8: torch.Tensor, params: TrainDraws,
+                crop_hw: Tuple[int, int]) -> torch.Tensor:
+    """The labels of :func:`apply_train` alone: [B, H, W] uint8 -> [B, ch,
+    cw] int64 (what a data-parallel rank forms for the whole batch, the
+    images only for its rows)."""
+    return labs_u8[_crop_index(params, crop_hw, labs_u8.device)].long()
 
 
 def colour_chain(img: torch.Tensor, params) -> torch.Tensor:

@@ -11,6 +11,11 @@ of the main head) comes back.
 module path (cuDNN convs), or ``'fused'``, one launch of the fused block
 kernel per CrossCNN block (``ops/kernels/crosscnn_fused.py``).  The JAX
 predictor's ``'packed'`` is the TPU's lane layout and has no counterpart.
+
+``mesh`` (a ``parallel.DataMesh``) serves data-parallel: every rank is
+given the whole volume, runs its rows of each bucket-sized batch (the
+batch size a multiple of the mesh's ranks) and gathers the uint8 class
+maps of the others, so every rank returns the whole volume's maps.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from tcct_tpu_torch.data.eyeset import postprocess
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
 from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
+from tcct_tpu_torch.parallel.distributed import Rows
 
 
 class VolumePredictor:
@@ -32,7 +38,8 @@ class VolumePredictor:
     BN statistics alike, as the JAX predictor's ``cast_floating`` does)."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain"):
+                 dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain",
+                 mesh=None):
         if cnn_impl == "packed":
             raise ValueError("cnn_impl='packed' is the JAX package's space-to-depth layout for "
                              "the TPU's lane width; this package has 'plain' and 'fused'")
@@ -42,6 +49,14 @@ class VolumePredictor:
         if cnn_impl == "fused" and not hasattr(getattr(base, "base_cnn", None), "path_estan"):
             raise ValueError(f"cnn_impl='fused': {type(base).__name__} has no CrossCNN blocks "
                              "to fuse")
+        if mesh is not None:
+            if mesh.rank < 0:
+                raise ValueError("VolumePredictor: this rank is not a member of the mesh")
+            if batch_size % mesh.size:
+                raise ValueError(f"VolumePredictor: batch size {batch_size} does not split "
+                                 f"over the {mesh.size}-rank mesh")
+            device = mesh.device
+        self.mesh = mesh
         self.cnn_impl = cnn_impl
         self.device = torch.device(device)
         if self.device.type == "cuda" and dtype == torch.float32:
@@ -68,17 +83,21 @@ class VolumePredictor:
         """[N, H, W, 3] uint8 (already geometry-prepped) -> [N, H, W] uint8
         class maps.  N is arbitrary; the last batch is padded to the bucket
         size.  Every batch is queued on the device before the one copy of
-        the results back to the host."""
+        the results back to the host.  On a mesh each rank runs its rows of
+        each batch and gathers the rest."""
         n = imgs_u8.shape[0]
         bs = self.batch_size
+        rows = self.mesh.rows(bs) if self.mesh is not None else Rows(0, bs, bs)
         segs = []
         for i in range(0, n, bs):
             chunk = imgs_u8[i: i + bs]
             if chunk.shape[0] < bs:  # pad the tail to the static bucket shape
                 pad = np.zeros((bs - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
                 chunk = np.concatenate([chunk, pad], 0)
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device, non_blocking=True)
-            segs.append(self._forward(x))
+            x = torch.from_numpy(np.ascontiguousarray(chunk[rows.start:rows.stop])).to(
+                self.device, non_blocking=True)
+            seg = self._forward(x)
+            segs.append(seg if self.mesh is None else self.mesh.all_gather_rows(seg))
         if not segs:
             return np.zeros(imgs_u8.shape[:3], np.uint8)
         return torch.cat(segs)[:n].cpu().numpy()
@@ -96,13 +115,14 @@ class VolumePredictor:
 def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",
                    variant: str = "infer", batch_size: int = 8, cnn_impl: str = "plain",
                    mixer: str = "metapool", dtype: torch.dtype = torch.bfloat16, device="cuda",
-                   seed: int = 0) -> VolumePredictor:
+                   seed: int = 0, mesh=None) -> VolumePredictor:
     """Predictor for dataset ``db`` running ``RegNet(net, variant)``:
     weights from a reference ``.pt`` file, or seeded random-init weights
     when ``pt_path`` is None.  ``net`` is any registry name
     (``models/registry.py``; ``relay`` ignores ``variant`` and ``mixer``,
     ``tcct32`` serves its own architecture with ``variant='t32'``);
-    ``cnn_impl`` is ``'plain'`` or ``'fused'`` (an FTC model without MSCA)."""
+    ``cnn_impl`` is ``'plain'`` or ``'fused'`` (an FTC model without MSCA);
+    ``mesh`` serves data-parallel (every rank builds the same weights)."""
     from tcct_tpu_torch.infer.importer import load_into, load_reference_pt
     from tcct_tpu_torch.models import RegNet, get_model
     from tcct_tpu_torch.models.layers import init_weights
@@ -115,4 +135,4 @@ def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
     return VolumePredictor(model, geo, batch_size=batch_size, dtype=dtype, device=device,
-                           cnn_impl=cnn_impl)
+                           cnn_impl=cnn_impl, mesh=mesh)

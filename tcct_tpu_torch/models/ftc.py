@@ -58,6 +58,7 @@ from tcct_tpu_torch.models.crosscnn import CrossResNet
 from tcct_tpu_torch.models.layers import BatchNorm2d, _TrainPass, conv2d, leaky_relu
 from tcct_tpu_torch.models.mpvit import CRPE_MIXERS, MPViT, MPViTConfig
 from tcct_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
+from tcct_tpu_torch.parallel.distributed import Rows
 
 
 def unused_prefixes(model: nn.Module, serving: bool = False) -> Tuple[str, ...]:
@@ -131,18 +132,23 @@ def pinned_alpha_nchw(B: int, C: int, h: int, w: int) -> np.ndarray:
     return ((np.sin(i * 12.9898) * 43758.5453) % 1.0).astype(np.float32)
 
 
-def gate_alpha(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def gate_alpha(shape, generator: Optional[torch.Generator], device,
+               rows: Optional[Rows] = None) -> torch.Tensor:
     """The train-mode alpha map of a fused level of NCHW ``shape``: a
     [B, C, max(3, H // 32), max(3, W // 32)] f32 draw (or the pinned
     pattern), bicubic to (H, W) with ``align_corners=False``, clamped to
-    [0, 1], in channels_last memory."""
+    [0, 1], in channels_last memory.  ``rows`` (a ``parallel.Rows``, a
+    data-parallel rank's): the draw (or the pattern) covers the global
+    batch of ``rows.total`` and the map keeps ``[rows.start:rows.stop)``."""
     B, C, H, W = shape
+    rows = rows if rows is not None else Rows(0, B, B)
     h, w = max(3, H // 32), max(3, W // 32)
     if _PINNED_GATE:
-        a = torch.from_numpy(pinned_alpha_nchw(B, C, h, w)).to(device)
+        a = torch.from_numpy(pinned_alpha_nchw(rows.total, C, h, w)).to(device)
     else:
-        a = torch.rand((B, C, h, w), generator=generator, device=device)
-    a = torch.clamp(resize_bicubic(a, (H, W), align_corners=False), 0.0, 1.0)
+        a = torch.rand((rows.total, C, h, w), generator=generator, device=device)
+    a = torch.clamp(resize_bicubic(a[rows.start:rows.stop], (H, W), align_corners=False),
+                    0.0, 1.0)
     return a.contiguous(memory_format=torch.channels_last)
 
 
@@ -242,7 +248,9 @@ class FTC(nn.Module):
                 "generator); none is set (stochastic gating would silently become the eval "
                 "alpha 0.5), or pin them with pinned_gate()")
         return [gate_alpha((c.shape[0], getattr(self, f"tran_cnn{i}")[0].out_channels)
-                           + tuple(c.shape[2:]), gen, c.device)
+                           + tuple(c.shape[2:]), gen, c.device,
+                           self.train_pass.draw_rows(c.shape[0])
+                           if self.train_pass is not None else None)
                 for i, c in enumerate(cs)]
 
     def forward(self, x: torch.Tensor, with_feats: bool = False,

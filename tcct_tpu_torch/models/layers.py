@@ -22,7 +22,12 @@ Numerics follow the JAX package (``tcct_tpu/models/layers.py``):
 Train mode is ``module.train()``.  A train step runs its forward inside
 :func:`train_pass`, which hands the model's DropPaths their generator and
 collects the new BN running statistics instead of writing them into the
-(compute-dtype) buffers the forward reads.
+(compute-dtype) buffers the forward reads.  A data-parallel step's pass
+also carries the mesh and this rank's rows of the global batch: the train
+BatchNorms then take the statistics of the whole batch (the two-phase
+kernels and an all-reduce of their sums), and every random draw is made at
+the global batch's shape, of which the rank keeps its rows, so each rank's
+generator advances as a one-process step's does.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train
+from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_split
 from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3
+from tcct_tpu_torch.parallel.distributed import Rows
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -147,23 +153,62 @@ class Conv2d(nn.Conv2d):
 
 
 class _TrainPass:
-    """What one train-mode forward shares with its BN and DropPath modules."""
+    """What one train-mode forward shares with its BN and DropPath modules
+    (and a gated FTC's fusion, and the RegNet's loss heads)."""
 
-    def __init__(self, generator: Optional[torch.Generator]):
+    def __init__(self, generator: Optional[torch.Generator], mesh=None,
+                 rows: Optional[Rows] = None):
         self.generator = generator
         self.new_stats: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.mesh = mesh  # a parallel.DataMesh: the BNs take the two-phase kernels
+        self.rows = rows  # this rank's rows of the global batch
+        self.whole = rows is None  # the tensors in flight hold the whole batch
+
+    def draw_rows(self, b: int) -> Rows:
+        """The rows of a draw over the batch axis of a tensor of ``b`` rows:
+        draw ``total`` rows, keep ``[start:stop)``."""
+        if self.whole:
+            return Rows(0, b, b)
+        if self.rows.stop - self.rows.start != b:
+            raise ValueError(f"train_pass: a tensor of {b} rows in a pass over rows "
+                             f"[{self.rows.start}, {self.rows.stop}) of {self.rows.total}")
+        return self.rows
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch of this rank's rows ``t`` (differentiable into
+        them), or ``t`` itself where the pass already holds the whole batch."""
+        return t if self.whole else self.mesh.gather_rows(t)
+
+    @contextlib.contextmanager
+    def whole_batch(self):
+        """Inside the block the tensors in flight hold the whole batch on
+        every rank (the loss heads after :meth:`gather`): BNs sum them
+        without an all-reduce, draws cover them whole."""
+        prev = self.whole
+        self.whole = True
+        try:
+            yield
+        finally:
+            self.whole = prev
 
 
 @contextlib.contextmanager
-def train_pass(model: nn.Module, generator: Optional[torch.Generator] = None):
+def train_pass(model: nn.Module, generator: Optional[torch.Generator] = None, mesh=None,
+               rows: Optional[Rows] = None):
     """One train-mode forward of ``model``: its DropPaths (and a gated FTC's
     fusion, ``models/ftc.py``) draw from ``generator``, and each of its
     train-mode BatchNorms puts its new running statistics (f32 ``(mean,
     var)``) into the yielded dict, keyed by module, instead of updating its
     buffers.  A BN run twice in the pass updates from its first result, as
     flax's mutable ``batch_stats`` does.  The modules that take part are
-    those whose class declares a ``train_pass`` attribute."""
-    ctx = _TrainPass(generator)
+    those whose class declares a ``train_pass`` attribute.
+
+    With ``mesh`` (a ``parallel.DataMesh``) and ``rows`` (a
+    ``parallel.Rows``) the input holds this rank's rows of the global
+    batch: the BNs run the two-phase kernels, all-reduce their sums over
+    the mesh and divide by the global count, and the draws are made for the
+    whole batch, the rank keeping its rows."""
+    ctx = _TrainPass(generator, mesh, rows)
     mods = [m for m in model.modules() if hasattr(type(m), "train_pass")]
     for m in mods:
         m.train_pass = ctx
@@ -200,7 +245,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor, leaky: bool = False) -> torch.Tensor:
         if self.training:
-            y, mean, var = bn_act_train(x, self.weight, self.bias, self.eps, leaky)
+            ctx = self.train_pass
+            if ctx is None or ctx.mesh is None:
+                y, mean, var = bn_act_train(x, self.weight, self.bias, self.eps, leaky)
+            else:  # a data-parallel pass: the statistics of the whole batch
+                rows = ctx.draw_rows(x.shape[0])
+                count = x.numel() // x.shape[1] * rows.total // (rows.stop - rows.start)
+                y, mean, var = bn_act_train_split(
+                    x, self.weight, self.bias, self.eps, leaky, count,
+                    None if ctx.whole else ctx.mesh.all_reduce_)
             self._update_running_stats(mean, var)
             return y
         if leaky:
@@ -268,7 +321,8 @@ class DropPath(nn.Module):
     """Stochastic depth per sample (timm DropPath; JAX counterpart
     ``tcct_tpu/models/layers.py::DropPath``): in train mode each sample is
     kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
-    the mask drawn from :func:`train_pass`'s generator.  The identity in
+    the mask drawn from :func:`train_pass`'s generator (for the global
+    batch, of which a data-parallel rank keeps its rows).  The identity in
     eval mode or at rate 0."""
 
     train_pass: Optional[_TrainPass] = None  # set by train_pass()
@@ -285,8 +339,9 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in train mode draws from train_pass(model, generator); "
                              "none is set")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=gen, device=x.device) < keep
+        rows = self.train_pass.draw_rows(x.shape[0])
+        shape = (rows.total,) + (1,) * (x.dim() - 1)
+        mask = (torch.rand(shape, generator=gen, device=x.device) < keep)[rows.start:rows.stop]
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -18,10 +18,22 @@ head.  The wrapper owns:
 
 ``con`` picks the polarization loss's distance to the prototypes:
 ``'cos'`` (the reference's default) or ``'mse'`` (``--type_udh=mse``).
+
+In a data-parallel train pass (``layers.train_pass`` with a mesh and this
+rank's rows) the losses are functions of the whole batch, as the JAX
+package's sharded step computes them: the Dice loss sums per class over
+batch and pixels, the polarization loss ranks every pixel of the batch.  So
+:meth:`RegNet.forward_with_losses` gathers the logit maps and feats of
+every rank (differentiably into this rank's rows) and computes the losses
+on the whole batch, identically on every rank; the loss heads' parameters
+then get the whole gradient on each rank, the base model's the rank count
+times its rows' share (``parallel.gather_rows``), and ``train/step.py``
+averages them over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -51,6 +63,8 @@ def _nhwc(x):
 
 
 class RegNet(nn.Module):
+    train_pass = None  # set by layers.train_pass()
+
     def __init__(self, base: nn.Module, out_channels: int = 5, num_emb: int = 32,
                  lap_reg_depth: int = 2, con: str = "cos"):
         super().__init__()
@@ -115,17 +129,28 @@ class RegNet(nn.Module):
         """NHWC image and one-hot ``true`` -> ``(logit maps, feats, aux)``:
         the base model (train variant for ``use_udh``) and the enabled
         auxiliary losses on the main head, in one forward.  ``generator``
-        draws the boundary loss's noise (``None`` pins it)."""
+        draws the boundary loss's noise (``None`` pins it).
+
+        In a data-parallel pass ``x`` is this rank's rows and ``true`` the
+        whole batch's one-hot: the logit maps and feats come back whole
+        (gathered), and the losses are the whole batch's."""
         if use_udh:
             pyr, feats = self.base(x, with_feats=True)
         else:
             pyr, feats = self.base(x), None
-        p0 = pyr[0]
-        aux = {}
-        if use_udh:
-            aux["udh"] = self.regular_udh(feats, p0, true)
-        if use_reg:
-            aux["reg"] = self.regular_reg(p0, true, generator)
-        if use_epl:
-            aux["epl"] = self.regular_epl(p0, true)
+        ctx = self.train_pass
+        region = contextlib.nullcontext()
+        if ctx is not None and not ctx.whole:
+            pyr = [ctx.gather(p) for p in pyr]
+            feats = None if feats is None else [ctx.gather(f) for f in feats]
+            region = ctx.whole_batch()
+        with region:
+            p0 = pyr[0]
+            aux = {}
+            if use_udh:
+                aux["udh"] = self.regular_udh(feats, p0, true)
+            if use_reg:
+                aux["reg"] = self.regular_reg(p0, true, generator)
+            if use_epl:
+                aux["epl"] = self.regular_epl(p0, true)
         return pyr, feats, aux

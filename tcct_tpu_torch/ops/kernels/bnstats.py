@@ -22,6 +22,17 @@ formula (``_BNActTrainAutograd``) calls the op
 forward launches K3 and the backward K3b: each one cooperative launch that
 sums per channel in a fixed order, then normalizes (or forms dx) in the
 same launch.  On a CPU tensor both run the plain versions.
+
+A batch split over the ranks of a data-parallel step needs the statistics
+of the whole batch, so each kernel also has a two-phase form, four ops of
+their own (the TPU kernel's own structure, ``_stats_kernel`` then
+``_norm_kernel``): :func:`bn_act_sums` (the per-channel f32 sums of t and
+t*t), then, once the caller has added the sums across the ranks,
+:func:`bn_act_normalize` over the batch's ``count`` rows; backward
+:func:`bn_act_backward_sums` (the sums of gy and gy*t) and
+:func:`bn_act_backward_dx`.  :func:`bn_act_train_split` is the autograd
+function over them; the collective is the caller's ``reduce``.  At one
+rank the split path gives bitwise the one launch's results.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,12 +60,25 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
+def bn_sums_reference(x: torch.Tensor, leaky: bool = False) -> torch.Tensor:
+    """Plain sums sweep of NCHW ``x``: [2, C] f32, ``sum(t)`` and
+    ``sum(t*t)`` of ``t = act(x)`` per channel."""
+    tf = _act(x, leaky).float()
+    return torch.stack([tf.sum(_DIMS), (tf * tf).sum(_DIMS)])
+
+
+def stats_from_sums(sums: torch.Tensor, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel f32 ``(mean, var)`` from [2, C] sums over ``count`` rows:
+    ``mean = sum(t) / n``, ``var = sum(t*t) / n - mean^2`` (biased, not
+    clamped), the kernels' arithmetic."""
+    mean = sums[0] / count
+    return mean, sums[1] / count - mean * mean
+
+
 def bn_stats_reference(x: torch.Tensor, leaky: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain statistics sweep of NCHW ``x``: per-channel f32 ``(mean, var)``
     of ``act(x)``, ``var = E[t^2] - mean^2`` (biased, not clamped)."""
-    tf = _act(x, leaky).float()
-    mean = tf.mean(_DIMS)
-    return mean, (tf * tf).mean(_DIMS) - mean * mean
+    return stats_from_sums(bn_sums_reference(x, leaky), x.numel() // x.shape[1])
 
 
 def bn_normalize_reference(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -70,25 +94,51 @@ def bn_normalize_reference(x: torch.Tensor, mean: torch.Tensor, var: torch.Tenso
             + _per_channel(bias.to(dt)))
 
 
-def bn_act_train_backward_reference(x, weight, mean, var, gy, eps: float = 1e-5,
-                                    leaky: bool = False):
-    """Plain analytic adjoint of ``y = BN_train(act(x))`` (the JAX
-    package's ``bnstats.py::_bwd`` without the packing), f32 inside:
-    ``(dx in x's dtype, dweight, dbias in weight's dtype)``."""
-    n = x.numel() // x.shape[1]
+def bn_backward_sums_reference(x: torch.Tensor, gy: torch.Tensor,
+                               leaky: bool = False) -> torch.Tensor:
+    """Plain sums of the backward: [2, C] f32, ``sum(gy)`` and
+    ``sum(gy * t)`` per channel."""
+    gyf = gy.float()
+    return torch.stack([gyf.sum(_DIMS), (gyf * _act(x, leaky).float()).sum(_DIMS)])
+
+
+def bn_weight_grads(sums: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                    dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dweight, dbias)`` in ``dtype`` from the backward's [2, C] sums:
+    ``(sum(gy*t) - mean * sum(gy)) / sqrt(var + eps)`` and ``sum(gy)``,
+    each step rounded in f32 as K3b rounds it.  Summed over the rows the
+    sums cover, so on one rank's sums they are that rank's share."""
+    r = torch.reciprocal(torch.sqrt(var + eps))
+    return ((sums[1] - mean * sums[0]) * r).to(dtype), sums[0].to(dtype, copy=True)
+
+
+def _dx_from_sums(x, weight, mean, var, gy, sums, count: int, eps: float, leaky: bool):
+    """dx (in x's dtype) of the analytic adjoint from the backward's sums
+    over ``count`` rows, f32 inside."""
     tf = _act(x, leaky).float()
     gyf = gy.float()
     r = torch.reciprocal(torch.sqrt(var + eps))
     w = weight.float()
     inv = w * r
-    gsum = gyf.sum(_DIMS)
-    ginv = (gyf * tf).sum(_DIMS) - mean * gsum
+    gsum = sums[0]
+    ginv = sums[1] - mean * gsum
     gvar = ginv * (-0.5) * w * r ** 3
     gmean = -inv * gsum - 2.0 * mean * gvar
+    n = count
     dt = gyf * _per_channel(inv) + _per_channel(gmean / n) + _per_channel(gvar / n) * 2.0 * tf
     if leaky:
         dt = dt * torch.where(x >= 0, 1.0, 0.01)
-    return dt.to(x.dtype), (ginv * r).to(weight.dtype), gsum.to(weight.dtype)
+    return dt.to(x.dtype)
+
+
+def bn_act_train_backward_reference(x, weight, mean, var, gy, eps: float = 1e-5,
+                                    leaky: bool = False):
+    """Plain analytic adjoint of ``y = BN_train(act(x))`` (the JAX
+    package's ``bnstats.py::_bwd`` without the packing), f32 inside:
+    ``(dx in x's dtype, dweight, dbias in weight's dtype)``."""
+    sums = bn_backward_sums_reference(x, gy, leaky)
+    dx = _dx_from_sums(x, weight, mean, var, gy, sums, x.numel() // x.shape[1], eps, leaky)
+    return (dx,) + bn_weight_grads(sums, mean, var, eps, weight.dtype)
 
 
 def bn_act_train_backward_tolerance(x, weight, mean, var, gy, eps: float = 1e-5,
@@ -133,6 +183,9 @@ def _fn(name: str):
         "tcct_bn_act_workspace": ([ll, i, i, i], ll),
         "tcct_bn_act_train": ([p] * 6 + [ll, i, f, i, i, i, i, p], i),
         "tcct_bn_act_train_backward": ([p] * 9 + [ll, i, f, i, i, i, p], i),
+        "tcct_bn_act_sums": ([p] * 4 + [ll, i, i, i, i, p], i),
+        "tcct_bn_act_normalize": ([p] * 6 + [ll, ll, i, f, i, i, i, i, p], i),
+        "tcct_bn_act_backward_dx": ([p] * 7 + [ll, ll, i, f, i, i, i, p], i),
     }[name]
     return fn
 
@@ -294,6 +347,211 @@ def bn_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps:
     return y, stats[0], stats[1]
 
 
+# --- the two-phase entry points ------------------------------------------------------
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _sums_cuda(x, gy, leaky: bool, backward: bool):
+    M, C = _check(x, "bn_act_backward_sums" if backward else "bn_act_sums")
+    xc = _rows(x)
+    gc = _rows(gy) if backward else None
+    if backward and (gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device):
+        raise ValueError(f"bn_act_backward_sums: want gy like x {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(gy.shape)} {gy.dtype} on {gy.device}")
+    sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    part = _workspace(x, M, C, backward)
+    err = _fn("tcct_bn_act_sums")(
+        xc.data_ptr(), gc.data_ptr() if backward else None, sums.data_ptr(), part.data_ptr(),
+        M, C, int(leaky), _DTYPES[x.dtype], int(backward),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"bn_act_sums {tuple(x.shape)} {x.dtype} leaky={leaky} "
+                     f"backward={backward}")
+    return sums
+
+
+def _check_sums(x, sums, count: int, what: str) -> None:
+    C = x.shape[1]
+    if tuple(sums.shape) != (2, C) or sums.dtype != torch.float32 or sums.device != x.device:
+        raise ValueError(f"{what}: want sums [2, {C}] float32 on {x.device}, got "
+                         f"{tuple(sums.shape)} {sums.dtype} on {sums.device}")
+    if count < x.numel() // max(C, 1):
+        raise ValueError(f"{what}: count {count} is fewer than x's {x.numel() // C} rows")
+
+
+def _sums_fwd_cuda(x, leaky: bool):
+    out = _sums_cuda(x, None, leaky, False)
+    bn_act_sums.launches += 1
+    return out
+
+
+_sums_op = library.define(
+    "bn_act_sums(Tensor x, bool leaky) -> Tensor",
+    cpu=lambda x, leaky: bn_sums_reference(x, leaky), cuda=_sums_fwd_cuda,
+    fake=lambda x, leaky: x.new_empty((2, x.shape[1]), dtype=torch.float32))
+
+
+def _normalize_cuda(x, sums, count: int, weight, bias, eps: float, leaky: bool):
+    M, C = _check(x, "bn_act_normalize", weight=weight, bias=bias)
+    _check_sums(x, sums, count, "bn_act_normalize")
+    xc = _rows(x)
+    y = torch.empty_like(xc, memory_format=torch.channels_last)
+    stats = torch.empty((3, C), dtype=torch.float32, device=x.device)  # mean, var, inv
+    w, b = _param(weight, "bn_act_normalize"), _param(bias, "bn_act_normalize")
+    sc = sums.contiguous()
+    err = _fn("tcct_bn_act_normalize")(
+        xc.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), sc.data_ptr(),
+        stats.data_ptr(), M, int(count), C, float(eps), int(leaky), _DTYPES[x.dtype],
+        _DTYPES[w.dtype], _DTYPES[b.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"bn_act_normalize {tuple(x.shape)} {x.dtype} leaky={leaky}")
+    bn_act_normalize.launches += 1
+    return y, stats[:2]
+
+
+def _normalize_cpu(x, sums, count: int, weight, bias, eps: float, leaky: bool):
+    mean, var = stats_from_sums(sums, count)
+    return bn_normalize_reference(x, mean, var, weight, bias, eps, leaky), torch.stack([mean, var])
+
+
+# (y, stats [2, C] f32: mean, var of the count rows the sums cover)
+_normalize_op = library.define(
+    "bn_act_normalize(Tensor x, Tensor sums, int count, Tensor weight, Tensor bias, float eps, "
+    "bool leaky) -> (Tensor, Tensor)",
+    cpu=_normalize_cpu, cuda=_normalize_cuda,
+    fake=lambda x, sums, count, weight, bias, eps, leaky: (
+        _like_y(x), x.new_empty((2, x.shape[1]), dtype=torch.float32)))
+
+
+def _backward_sums_cuda(x, gy, leaky: bool):
+    out = _sums_cuda(x, gy, leaky, True)
+    bn_act_backward_sums.launches += 1
+    return out
+
+
+_backward_sums_op = library.define(
+    "bn_act_backward_sums(Tensor x, Tensor gy, bool leaky) -> Tensor",
+    cpu=lambda x, gy, leaky: bn_backward_sums_reference(x, gy, leaky),
+    cuda=_backward_sums_cuda,
+    fake=lambda x, gy, leaky: x.new_empty((2, x.shape[1]), dtype=torch.float32))
+
+
+def _backward_dx_cuda(x, weight, mean, var, gy, sums, count: int, eps: float, leaky: bool):
+    M, C = _check(x, "bn_act_backward_dx", weight=weight, mean=mean, var=var)
+    _check_sums(x, sums, count, "bn_act_backward_dx")
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
+        raise ValueError(f"bn_act_backward_dx: want gy like x {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(gy.shape)} {gy.dtype} on {gy.device}")
+    xc, gc = _rows(x), _rows(gy)
+    dx = torch.empty_like(xc, memory_format=torch.channels_last)
+    w = _param(weight, "bn_act_backward_dx")
+    m32, v32, sc = mean.float().contiguous(), var.float().contiguous(), sums.contiguous()
+    err = _fn("tcct_bn_act_backward_dx")(
+        xc.data_ptr(), gc.data_ptr(), dx.data_ptr(), w.data_ptr(), m32.data_ptr(),
+        v32.data_ptr(), sc.data_ptr(), M, int(count), C, float(eps), int(leaky),
+        _DTYPES[x.dtype], _DTYPES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"bn_act_backward_dx {tuple(x.shape)} {x.dtype} leaky={leaky}")
+    bn_act_backward_dx.launches += 1
+    return dx
+
+
+_backward_dx_op = library.define(
+    "bn_act_backward_dx(Tensor x, Tensor weight, Tensor mean, Tensor var, Tensor gy, "
+    "Tensor sums, int count, float eps, bool leaky) -> Tensor",
+    cpu=lambda x, weight, mean, var, gy, sums, count, eps, leaky: _dx_from_sums(
+        x, weight, mean, var, gy, sums, count, eps, leaky),
+    cuda=_backward_dx_cuda,
+    fake=lambda x, weight, mean, var, gy, sums, count, eps, leaky: _like_y(x))
+
+for _op, _what in ((_sums_op, "bn_act_sums"), (_normalize_op, "bn_act_normalize"),
+                   (_backward_sums_op, "bn_act_backward_sums"),
+                   (_backward_dx_op, "bn_act_backward_dx")):
+    library.no_backward(_op, _what)
+
+
+def bn_act_sums(x: torch.Tensor, leaky: bool = False) -> torch.Tensor:
+    """The forward's sums pass (the op ``tcct::bn_act_sums``): [2, C] f32,
+    ``sum(t)`` and ``sum(t*t)`` of ``t = act(x)`` per channel.  A CUDA
+    tensor launches the first phases of K3 (bitwise its sums), a CPU
+    tensor takes :func:`bn_sums_reference`."""
+    library.check_device(x, "bn_act_sums")
+    return _sums_op(x, bool(leaky))
+
+
+def bn_act_normalize(x: torch.Tensor, sums: torch.Tensor, count: int, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-5, leaky: bool = False):
+    """The forward's finish pass (the op ``tcct::bn_act_normalize``): with
+    ``sums`` the [2, C] sums of :func:`bn_act_sums` over ``count`` rows (the
+    whole batch, added across the ranks), ``(y in x's dtype, mean [C] f32,
+    var [C] f32)``, each as K3 forms it from its own sums."""
+    library.check_device(x, "bn_act_normalize")
+    y, stats = _normalize_op(x, sums, int(count), weight, bias, float(eps), bool(leaky))
+    return y, stats[0], stats[1]
+
+
+def bn_act_backward_sums(x: torch.Tensor, gy: torch.Tensor, leaky: bool = False) -> torch.Tensor:
+    """The backward's sums pass (the op ``tcct::bn_act_backward_sums``):
+    [2, C] f32, ``sum(gy)`` and ``sum(gy * act(x))`` per channel, bitwise
+    K3b's on a CUDA tensor."""
+    library.check_device(x, "bn_act_backward_sums")
+    return _backward_sums_op(x, gy, bool(leaky))
+
+
+def bn_act_backward_dx(x: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
+                       var: torch.Tensor, gy: torch.Tensor, sums: torch.Tensor, count: int,
+                       eps: float = 1e-5, leaky: bool = False) -> torch.Tensor:
+    """The backward's finish pass (the op ``tcct::bn_act_backward_dx``): dx
+    in x's dtype from the forward's ``mean`` and ``var`` and the [2, C]
+    backward sums over ``count`` rows (the whole batch)."""
+    library.check_device(x, "bn_act_backward_dx")
+    return _backward_dx_op(x, weight, mean, var, gy, sums, int(count), float(eps), bool(leaky))
+
+
+class _BNActTrainSplit(torch.autograd.Function):
+    """Train BN over a batch whose rows are split across ranks: the sums
+    pass, ``reduce`` (the caller's all-reduce of the [2, C] sums, in place),
+    the finish pass; backward the same, with dweight and dbias from this
+    rank's own sums (partial gradients, added across the ranks with the
+    rest of the gradient) and dx from the reduced ones."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, leaky, count, reduce):
+        sums = bn_act_sums(x, leaky)
+        if reduce is not None:
+            reduce(sums)
+        y, mean, var = bn_act_normalize(x, sums, count, weight, bias, eps, leaky)
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.conf = (eps, leaky, count, reduce, bias.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, var = ctx.saved_tensors
+        eps, leaky, count, reduce, bias_dtype = ctx.conf
+        sums = bn_act_backward_sums(x, gy, leaky)
+        dw, db = bn_weight_grads(sums, mean, var, eps, weight.dtype)
+        if reduce is not None:
+            reduce(sums)
+        dx = bn_act_backward_dx(x, weight, mean, var, gy, sums, count, eps, leaky)
+        return dx, dw, db.to(bias_dtype), None, None, None, None
+
+
+def bn_act_train_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       eps: float = 1e-5, leaky: bool = False, count: Optional[int] = None,
+                       reduce: Optional[Callable[[torch.Tensor], None]] = None):
+    """:func:`bn_act_train` through the two-phase entry points, for a batch
+    of ``count`` rows (B*H*W; default x's own) of which ``x`` holds some:
+    ``reduce(sums)`` adds a [2, C] f32 tensor across the ranks in place
+    (None: this rank holds the whole batch).  Returns ``(y, mean, var)``
+    of the whole batch; differentiable in x, weight and bias.  At one rank
+    bitwise :func:`bn_act_train`'s results and gradients."""
+    count = x.numel() // x.shape[1] if count is None else int(count)
+    return _BNActTrainSplit.apply(x, weight, bias, float(eps), bool(leaky), count, reduce)
+
+
 def bn_act_train_flops(x_shape, backward: bool = False) -> int:
     """Operations of K3 (``backward=False``) or K3b on NCHW ``x_shape``:
     about 8 an element forward (the activation, two sums, the normalize),
@@ -303,3 +561,7 @@ def bn_act_train_flops(x_shape, backward: bool = False) -> int:
 
 bn_act_train.launches = 0
 bn_act_train_backward.launches = 0
+bn_act_sums.launches = 0
+bn_act_normalize.launches = 0
+bn_act_backward_sums.launches = 0
+bn_act_backward_dx.launches = 0

@@ -1,0 +1,152 @@
+"""The data-parallel mesh (JAX counterpart ``tcct_tpu/parallel/mesh.py``).
+
+A 1-D ``('data',)`` mesh over the ranks of the initialised process group,
+one device a rank: batches split on their leading axis, each rank holding
+a contiguous block of rows (JAX's ``P('data')``), parameters and state
+replicated.  Where the JAX package lets XLA make BatchNorm's statistics
+global and add the gradients, the port's train step does both itself
+(``train/step.py``): the batch statistics through the two-phase train
+BatchNorm and an all-reduce of its [2, C] sums, the gradients through one
+all-reduce of their flat concatenation.
+
+A ``'model'`` axis (width sharding of wide inputs) is not ported: a mesh
+whose ``'model'`` axis is larger than 1 raises (ROADMAP A.7, the
+width-sharded predictor).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn as nn
+
+from tcct_tpu_torch.parallel import distributed as D
+
+
+@dataclasses.dataclass(frozen=True)
+class DataMesh:
+    """The ranks of one ``('data',)`` mesh: ``size`` ranks, this process's
+    ``rank`` among them, their process ``group`` (None: the default group,
+    or no group at all for a one-rank mesh without one) and this rank's
+    ``device``.  ``shape`` maps axis names to sizes, as a JAX mesh's."""
+
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    size: int
+    rank: int
+    group: Optional[object]
+    device: torch.device
+    backend: str
+
+    def rows(self, batch: int) -> D.Rows:
+        """This rank's rows of a global batch of ``batch`` rows."""
+        return D.row_range(batch, self.size, self.rank)
+
+    def shards(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` rows splits over the mesh; a batch
+        that does not runs replicated, every rank on all of it."""
+        return batch % self.size == 0
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the mesh in place (a one-rank group still runs
+        the collective; without a group it is ``t``)."""
+        return D.all_reduce_(t, self.group) if self.backend != "none" else t
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return D.gather_rows(t, self.group) if self.size > 1 else t
+
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return D.all_gather_rows(t, self.group) if self.size > 1 else t
+
+    def barrier(self, name: str = "", timeout_s: int = D.DEFAULT_TIMEOUT_S) -> None:
+        if self.size > 1:
+            D.barrier(name, timeout_s, self.group)
+
+    @property
+    def is_writer(self) -> bool:
+        """Rank 0 of the mesh: the one that writes checkpoints and logs."""
+        return self.rank == 0
+
+
+def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("data",),
+              shape: Optional[Sequence[int]] = None) -> DataMesh:
+    """A mesh over the first ``n_devices`` ranks of the process group (all
+    of them by default; one device a rank).  ``shape`` partitions them over
+    the named axes; the default puts every rank on the first.  Without an
+    initialised group only a one-rank mesh exists (this process).  A rank
+    past ``n_devices`` gets a mesh of which it is no member (``rank``
+    -1).  Its device is the rank's (``distributed.rank_device``)."""
+    world = dist.get_world_size() if D.is_initialized() else 1
+    n = n_devices or world
+    if shape is None:
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not name axes {tuple(axis_names)}")
+    sizes = dict(zip(axis_names, shape))
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"make_mesh: a 'model' axis of {sizes['model']} (width sharding) is not ported; "
+            "ROADMAP A.7 names the width-sharded predictor as its next item")
+    if "data" not in sizes:
+        raise ValueError(f"make_mesh: axes {tuple(axis_names)} have no 'data' axis")
+    if world < n:
+        raise RuntimeError(
+            f"make_mesh: need {n} devices, only {world} visible (one device a rank). "
+            "Start one process a device (TCCT_NUM_PROCESSES / TCCT_PROCESS_ID, or torchrun) "
+            "and call parallel.init_distributed() first")
+    total = 1
+    for s in shape:
+        total *= s
+    if total != n:
+        raise ValueError(f"mesh shape {shape} != {n} devices")
+    device = D.rank_device()
+    if not D.is_initialized():
+        return DataMesh(tuple(axis_names), sizes, 1, 0, None, device, "none")
+    me = dist.get_rank()
+    group = None
+    if n < world:  # every rank of the default group takes part in new_group
+        group = dist.new_group(ranks=list(range(n)))
+    return DataMesh(tuple(axis_names), sizes, n, me if me < n else -1, group, device,
+                    dist.get_backend())
+
+
+def pick_dp_devices(bs: int, n_devices: int) -> int:
+    """Largest device count <= n_devices that divides the global batch, so
+    DP keeps single-device batch semantics exactly (CLI --pl)."""
+    return max(d for d in range(1, max(n_devices, 1) + 1) if bs % d == 0)
+
+
+def shard_batch(mesh: Optional[DataMesh], batch):
+    """This rank's contiguous block of leading rows of each tensor (or
+    array) of ``batch`` (one, or a tuple or list of them), as JAX's
+    ``P('data')`` lays them out.  A batch whose rows do not split over the
+    mesh, or no mesh, comes back whole."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_batch(mesh, b) for b in batch)
+    if mesh is None or not mesh.shards(batch.shape[0]):
+        return batch
+    rows = mesh.rows(batch.shape[0])
+    return batch[rows.start:rows.stop]
+
+
+@torch.no_grad()
+def replicate(mesh: Optional[DataMesh], module_or_tensors):
+    """Rank 0's values in every rank's copy, in place: every parameter and
+    buffer of a module, or a tensor, or each tensor of a list or tuple.
+    Returns its argument."""
+    if mesh is None or mesh.size == 1:
+        return module_or_tensors
+    if isinstance(module_or_tensors, nn.Module):
+        tensors = list(module_or_tensors.parameters()) + list(module_or_tensors.buffers())
+    elif isinstance(module_or_tensors, torch.Tensor):
+        tensors = [module_or_tensors]
+    else:
+        tensors = list(module_or_tensors)
+    src = dist.get_global_rank(mesh.group, 0) if mesh.group is not None else 0
+    for t in tensors:
+        D.broadcast_(t.data if isinstance(t, nn.Parameter) else t, src=src, group=mesh.group)
+    return module_or_tensors

@@ -18,11 +18,18 @@ which a split with files on disk streams; default 2 GiB) and
 ``TCCT_VAL_CAP`` (scans of val kept when val would not fit either).
 ``TCCT_STREAM_SUPERSTEP`` and ``TCCT_EPOCH_UNROLL`` have no counterpart:
 they amortise the dispatch of a TPU program over several batches, and an
-eager step here dispatches per op whatever the grouping.  The JAX
-``mesh=`` becomes ``device=``: data parallelism is not ported (ROADMAP
-A.7).  The val pass's flips come from one CPU generator seeded from
-``(777, epoch)``, drawn as one vector for the split (JAX folds the epoch
-into a PRNG key, whose values this package cannot reproduce).
+eager step here dispatches per op whatever the grouping.  The val pass's
+flips come from one CPU generator seeded from ``(777, epoch)``, drawn as
+one vector for the split (JAX folds the epoch into a PRNG key, whose values
+this package cannot reproduce).
+
+Data parallelism: ``mesh=`` (a ``parallel.DataMesh``, one process a rank)
+trains on the mesh's device.  Every rank builds the same model from the
+same seed, holds the whole dataset and the same epoch plan, gathers the
+whole batch each step and computes its rows (``train/step.py``); the state
+is broadcast from rank 0 after initialisation and after a resume or an
+import (:meth:`Trainer.place_state`).  Rank 0 alone writes the checkpoints
+and the metric log, each write between two barriers of the mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from tcct_tpu_torch.data.augment import draw_val, val_generator
 from tcct_tpu_torch.data.eyeset import EyeSet
 from tcct_tpu_torch.losses.polar import polar_prototypes
 from tcct_tpu_torch.models.layers import init_weights
+from tcct_tpu_torch.parallel.mesh import replicate
 from tcct_tpu_torch.train.schedule import cyclic_lr
 from tcct_tpu_torch.train.state import (
     CHECKPOINT_FILE,
@@ -77,16 +85,26 @@ class Trainer:
                  bs: int = 8, lr: Optional[float] = None, weight_decay: float = 2e-4,
                  seed: int = 2023, device="cuda", debug: bool = False,
                  stochastic_val: bool = True, streaming: Optional[bool] = None,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None, mesh=None):
         self.model = model
         self.dataset = dataset
         self.cfg = cfg
         self.root = root
         self.bs = bs
         self.debug = debug
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.rank < 0:
+                raise ValueError("Trainer: this rank is not a member of the mesh")
+            if bs % mesh.size != 0:
+                raise ValueError(
+                    f"batch size {bs} must be divisible by the {mesh.size}-device "
+                    "('data',) mesh for DP training")
+            device = mesh.device
         self.device = torch.device(device)
+        self.writer = mesh is None or mesh.is_writer
         os.makedirs(root, exist_ok=True)
-        self.logger = MetricLogger(os.path.join(root, "metrics.jsonl"))
+        self.logger = MetricLogger(os.path.join(root, "metrics.jsonl")) if self.writer else None
 
         self.steps_per_epoch = max(dataset.epoch_length("train") // bs, 1)
         if debug:
@@ -99,12 +117,15 @@ class Trainer:
         optimizer = make_optimizer(self.steps_per_epoch, lr=lr, weight_decay=weight_decay)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = TrainState(model, optimizer, generator)
+        self.place_state()
         self.train_step = build_train_step(model, optimizer, cfg, device=self.device,
-                                           generator=generator)
+                                           generator=generator, mesh=mesh)
         self.train_epoch_fn = build_train_epoch(model, optimizer, cfg, device=self.device,
-                                                generator=generator)
-        self.eval_step = build_eval_step(model, cfg, stochastic_val, device=self.device)
-        self.eval_epoch = build_eval_epoch(model, cfg, stochastic_val, device=self.device)
+                                                generator=generator, mesh=mesh)
+        self.eval_step = build_eval_step(model, cfg, stochastic_val, device=self.device,
+                                         mesh=mesh)
+        self.eval_epoch = build_eval_epoch(model, cfg, stochastic_val, device=self.device,
+                                           mesh=mesh)
 
         # stream when the train split exceeds the budget and has files on disk
         if hbm_budget_bytes is None:
@@ -131,6 +152,24 @@ class Trainer:
             self._dev[split] = (torch.from_numpy(im).to(self.device),
                                 torch.from_numpy(lb).to(self.device))
         self.best_dice = -1.0
+
+    def place_state(self) -> None:
+        """Rank 0's parameters, buffers and AdamW moments in every rank's
+        state (a broadcast over the mesh; nothing without one).  Call after
+        changing the state out of band: a resume, an imported checkpoint."""
+        if self.mesh is None:
+            return
+        replicate(self.mesh, self.model)
+        opt = self.state.optimizer
+        if opt.mu is not None:
+            replicate(self.mesh, opt.mu + opt.nu)
+
+    def _log(self, **kv) -> None:
+        if self.logger is not None:
+            self.logger.log(**kv)
+
+    def _save(self, name: str) -> None:
+        save_checkpoint(self.root, self.state, name, mesh=self.mesh)
 
     # -- epoch loops ---------------------------------------------------------
 
@@ -248,18 +287,20 @@ class Trainer:
                 logs["val_s"] = round(time.time() - t_val, 3)
                 if logs["val_f1s"] > self.best_dice:
                     self.best_dice = logs["val_f1s"]
-                    save_checkpoint(self.root, self.state, "val_top")
+                    self._save("val_top")
                 last_logs = logs
-                self.logger.log(epoch=epoch, **train_logs, **logs)
+                self._log(epoch=epoch, **train_logs, **logs)
             else:
-                self.logger.log(epoch=epoch, **train_logs)
-            save_checkpoint(self.root, self.state, "last")
+                self._log(epoch=epoch, **train_logs)
+            self._save("last")
             dt = time.time() - t0
-            print(f"{epoch:03d}* los={train_logs['los_epoch']:.4f} "
-                  f"{dt / 60:.2f} min/epoch, ~{dt / 60 * (epochs - epoch - 1):.1f} min left",
-                  flush=True)
-        print(f"fit done in {(time.time() - t_fit) / 60:.2f} min; best dice "
-              f"{self.best_dice:.4f}", flush=True)
+            if self.writer:
+                print(f"{epoch:03d}* los={train_logs['los_epoch']:.4f} "
+                      f"{dt / 60:.2f} min/epoch, ~{dt / 60 * (epochs - epoch - 1):.1f} min left",
+                      flush=True)
+        if self.writer:
+            print(f"fit done in {(time.time() - t_fit) / 60:.2f} min; best dice "
+                  f"{self.best_dice:.4f}", flush=True)
         return last_logs
 
     # -- small utilities (reference loopback.py:53-99) ------------------------
@@ -279,7 +320,10 @@ class Trainer:
                 print(name, p.detach().cpu().numpy())
 
     def remove_checkpoints(self, keep: str = "val_top") -> None:
-        """Delete the checkpoint directories but ``keep`` (loopback.py:95-99)."""
+        """Delete the checkpoint directories but ``keep`` (loopback.py:95-99);
+        on a mesh, rank 0 deletes."""
+        if not self.writer:
+            return
         for name in os.listdir(self.root):
             p = os.path.join(self.root, name)
             if (os.path.isdir(p) and name != keep
@@ -289,5 +333,10 @@ class Trainer:
     # -- persistence ----------------------------------------------------------
 
     def resume(self, name: str = "last") -> bool:
-        """Load checkpoint ``name`` of ``root`` into the state; False if absent."""
-        return restore_checkpoint(self.root, self.state, name) is not None
+        """Load checkpoint ``name`` of ``root`` into the state; False if absent.
+        Every rank of a mesh loads the same file, then rank 0's state is
+        broadcast."""
+        found = restore_checkpoint(self.root, self.state, name) is not None
+        if found:
+            self.place_state()
+        return found

@@ -187,10 +187,19 @@ class TrainState:
 CHECKPOINT_FILE = "state.pt"
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last") -> str:
+def save_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last", mesh=None) -> str:
     """Write ``state`` to ``<ckpt_dir>/<name>/state.pt``: into a temporary
-    directory first, then renamed over the old one.  Returns the path."""
+    directory first, then renamed over the old one.  Returns the path.
+    With ``mesh`` (a data-parallel run, whose ranks hold one state) only
+    rank 0 writes, between two barriers of the mesh: no rank goes on, to
+    read the file or to write another, before the write is whole."""
     path = os.path.abspath(os.path.join(ckpt_dir, name))
+    if mesh is not None:
+        mesh.barrier(f"before saving {name}")
+        if mesh.is_writer:
+            save_checkpoint(ckpt_dir, state, name)
+        mesh.barrier(f"after saving {name}")
+        return path
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -208,7 +217,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last") -> str
 def restore_checkpoint(ckpt_dir: str, state: TrainState, name: str = "last"
                        ) -> Optional[TrainState]:
     """Load ``<ckpt_dir>/<name>`` into ``state`` and return it, or None
-    when that checkpoint does not exist."""
+    when that checkpoint does not exist.  Every rank of a data-parallel run
+    loads the same file."""
     path = os.path.join(os.path.abspath(os.path.join(ckpt_dir, name)), CHECKPOINT_FILE)
     if not os.path.isfile(path):
         return None

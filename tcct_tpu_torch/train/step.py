@@ -17,6 +17,25 @@ The eval step is the eval-mode model in ``cfg.dtype`` on the val chain's
 images (``apply_val``), argmax one-hots and the Dice/IoU scores.  The
 epoch functions loop over an epoch on the device and return their metrics
 as device tensors, without a host sync, as the JAX package's scans do.
+
+Data parallelism (``mesh=``, a ``parallel.DataMesh``): every rank holds the
+whole global batch and the same generator state, as the JAX package's
+processes hold the whole batch (``tcct_tpu/parallel/mesh.py``).  The step
+makes every draw for the global batch and keeps this rank's rows
+(``train_pass(..., mesh, rows)``): the augmentation's (the rank augments
+its rows' images, and the whole batch's labels), the alpha maps', the
+DropPath masks'.  Its forward runs the rank's rows; its train BatchNorms
+take the whole batch's statistics; its losses are the whole batch's,
+computed identically on every rank from the gathered logits
+(``models/regnet.py``).  The gather's backward scales this rank's rows'
+gradient by the rank count (``parallel.gather_rows``), so every gradient
+that comes back is ``ranks`` times its share of the whole one: the whole
+gradient for the loss heads (the RegNet's own parameters, above the
+gather), ``ranks`` times this rank's rows' share for the base model.  One
+all-reduce of them all, flattened, and a division by the rank count give
+every rank the gradient of the one-process step, and the clip at 12 and
+AdamW see it alike.  A batch that does not split over the mesh (a streaming epoch's
+ragged tail) runs replicated, every rank on all of it, with no collective.
 """
 
 from __future__ import annotations
@@ -29,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from tcct_tpu_torch.data.augment import apply_train, apply_val, draw_train
+from tcct_tpu_torch.data.augment import apply_train, apply_val, crop_labels, draw_train
 from tcct_tpu_torch.losses.seg import (
     deep_supervision_loss,
     get_loss,
@@ -39,6 +58,7 @@ from tcct_tpu_torch.losses.seg import (
 )
 from tcct_tpu_torch.models.ftc import pinned_gate
 from tcct_tpu_torch.models.layers import BatchNorm2d, train_pass
+from tcct_tpu_torch.parallel.distributed import Rows
 from tcct_tpu_torch.train.precision import cast_floating
 from tcct_tpu_torch.train.state import AdamW, trainable_parameters
 
@@ -86,17 +106,22 @@ def build_loss_fn(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
     state-dict names to tensors; compute copies in ``cfg.dtype`` go into
     ``model`` (a ``RegNet``, in train mode) through ``functional_call``.
     ``generator`` draws, unless pinned, a gated model's alpha maps, then the
-    DropPath masks and, unless pinned, the boundary loss's noise."""
+    DropPath masks and, unless pinned, the boundary loss's noise.  With
+    ``mesh`` and ``rows`` (a ``parallel.Rows``), ``img`` is this rank's
+    rows of the global batch and ``true_oh`` the whole batch's: the loss is
+    the whole batch's (see the module's docstring)."""
     criterion = get_loss(cfg.loss)
     bn_names = {m: name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
 
     def loss_fn(params: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor],
                 img: torch.Tensor, true_oh: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None,
+                rows: Optional[Rows] = None):
         variables = cast_floating({**params, **buffers}, cfg.dtype)
         kw = dict(generator=None if cfg.pinned_reg_noise else generator,
                   use_udh=cfg.udh, use_reg=cfg.reg, use_epl=cfg.epl)
-        with train_pass(model, generator) as new_stats, pinned_gate(cfg.pinned_gate_noise):
+        with train_pass(model, generator, mesh, rows) as new_stats, \
+                pinned_gate(cfg.pinned_gate_noise):
             pyr, _, aux = _call(model, variables, (img, true_oh), kw)
         pyr = [p.float() for p in pyr]
         los = deep_supervision_loss(pyr, true_oh, criterion, ds=cfg.ds, coff_ds=cfg.coff_ds)
@@ -115,8 +140,25 @@ def build_loss_fn(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
     return loss_fn
 
 
+def reduce_gradients(grads, mesh) -> list:
+    """The gradient of the whole batch on every rank: the average over the
+    ranks of each rank's (``ranks`` times its share, see the module's
+    docstring), one all-reduce of their flat f32 concatenation in
+    parameter order."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mesh.all_reduce_(flat)
+    if mesh.size > 1:
+        flat /= mesh.size
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out
+
+
 def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
-                     device="cuda", generator: Optional[torch.Generator] = None) -> Callable:
+                     device="cuda", generator: Optional[torch.Generator] = None,
+                     mesh=None) -> Callable:
     """``step(imgs_u8 [B,H,W,3], labs_u8 [B,H,W]) -> (metrics, new BN
     statistics)``: one train step of ``model`` (a ``RegNet``, moved to
     ``device`` in channels_last), updating its parameters and BN running
@@ -124,7 +166,10 @@ def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
     ``generator`` (on ``device``) draws the augmentation, a gated model's
     alpha maps, the DropPath masks and the boundary loss's noise; it may be
     None only when none of them needs one.  The metrics are 0-d f32 tensors on ``device`` (no host
-    sync)."""
+    sync).  With ``mesh`` (a ``parallel.DataMesh``; ``device`` its rank's),
+    each rank is given the whole global batch, computes its rows and
+    leaves the step with the state of the one-process step on that batch
+    (see the module's docstring)."""
     if cfg.augment and generator is None:
         raise ValueError("augment=True draws from the step's generator; none was given")
     device = torch.device(device)
@@ -136,17 +181,30 @@ def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
     def train_step(imgs_u8, labs_u8):
         imgs = torch.as_tensor(imgs_u8).to(device)
         labs = torch.as_tensor(labs_u8).to(device)
+        B = imgs.shape[0]
+        split = mesh is not None and mesh.shards(B)
+        rows = mesh.rows(B) if split else Rows(0, B, B)
+        start, stop = rows.start, rows.stop
         if cfg.augment:
-            img, lab = apply_train(imgs, labs, draw_train(labs, generator, cfg.crop_hw),
-                                   cfg.crop_hw)
+            draws = draw_train(labs, generator, cfg.crop_hw)
+            if split:
+                img, _ = apply_train(imgs[start:stop], labs[start:stop],
+                                     draws.rows(start, stop), cfg.crop_hw)
+                lab = crop_labels(labs, draws, cfg.crop_hw)
+            else:
+                img, lab = apply_train(imgs, labs, draws, cfg.crop_hw)
         else:
-            img, lab = imgs.float() / 255.0, labs.long()
+            img, lab = imgs[start:stop].float() / 255.0, labs.long()
         img = img.to(cfg.dtype)
         true_oh = F.one_hot(lab, cfg.n_class).float()
         buffers = dict(model.named_buffers())
-        loss, (new_bs, metrics) = loss_fn(params, buffers, img, true_oh, generator)
+        loss, (new_bs, metrics) = loss_fn(params, buffers, img, true_oh, generator,
+                                          mesh if split else None,
+                                          rows if split else None)
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
         grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)]
+        if split:
+            grads = reduce_gradients(grads, mesh)
         metrics["grad_norm"] = optimizer.update([params[k] for k in names], grads)
         with torch.no_grad():
             for k, v in new_bs.items():
@@ -157,13 +215,15 @@ def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
 
 
 def build_train_epoch(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig, device="cuda",
-                      generator: Optional[torch.Generator] = None) -> Callable:
+                      generator: Optional[torch.Generator] = None, mesh=None) -> Callable:
     """``train_epoch(imgs_u8, labs_u8, idx_plan) -> metrics``: one train
     step per row of the [steps, bs] index plan, each batch gathered from
     the device-resident split with ``index_select`` on the device.  The
     metrics come back stacked, [steps] f32 tensors on the device, with no
-    host sync (what the JAX package's epoch scan returns)."""
-    step = build_train_step(model, optimizer, cfg, device=device, generator=generator)
+    host sync (what the JAX package's epoch scan returns).  With ``mesh``
+    every rank gathers the whole batch and the step splits it."""
+    step = build_train_step(model, optimizer, cfg, device=device, generator=generator,
+                            mesh=mesh)
 
     def train_epoch(imgs_u8: torch.Tensor, labs_u8: torch.Tensor,
                     idx_plan: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -196,10 +256,15 @@ def _eval_variables(model: torch.nn.Module, dtype: torch.dtype) -> Dict[str, tor
 
 
 def _scores(model: torch.nn.Module, variables, img: torch.Tensor, lab: torch.Tensor,
-            n_class: int) -> Dict[str, torch.Tensor]:
+            n_class: int, gather: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """The scores of the batch of ``lab``; ``img`` holds its rows, or with
+    ``gather`` (a mesh's ``all_gather_rows``) this rank's rows of it."""
     pyr = _call(model, variables, (img,))
     logits = (pyr[0] if isinstance(pyr, (list, tuple)) else pyr).float()
-    pred_oh = F.one_hot(torch.argmax(torch.softmax(logits, -1), -1), n_class).float()
+    pred = torch.argmax(torch.softmax(logits, -1), -1)
+    if gather is not None:
+        pred = gather(pred)
+    pred_oh = F.one_hot(pred, n_class).float()
     true_oh = F.one_hot(lab, n_class).float()
     return {"val_f1s": mdice_scorem(pred_oh, true_oh, start_idx=1),
             "val_iou": miou_scorem(pred_oh, true_oh, start_idx=1),
@@ -207,13 +272,16 @@ def _scores(model: torch.nn.Module, variables, img: torch.Tensor, lab: torch.Ten
 
 
 def build_eval_step(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: bool = True,
-                    device="cuda") -> Callable:
+                    device="cuda", mesh=None) -> Callable:
     """``eval_step(imgs_u8, labs_u8, flip_v) -> metrics``: the val chain
     (``apply_val``: with ``stochastic_val`` the reference's HFlip and the
     VFlips where ``flip_v``), the eval-mode ``model`` in ``cfg.dtype``
     without autograd, argmax one-hots, and ``val_f1s`` / ``val_iou`` (mean
     Dice / IoU of the classes past the background) and the per-class Dice
-    ``scores``, each averaged over the batch, as tensors on ``device``."""
+    ``scores``, each averaged over the batch, as tensors on ``device``.
+    With ``mesh``, every rank is given the whole batch and runs the model
+    on its rows, and the argmax maps are gathered; a batch that does not
+    split over the mesh runs replicated (the JAX package's rule)."""
     device = torch.device(device)
 
     @torch.no_grad()
@@ -221,19 +289,25 @@ def build_eval_step(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: bo
         imgs = torch.as_tensor(imgs_u8).to(device)
         labs = torch.as_tensor(labs_u8).to(device)
         img, lab = apply_val(imgs, labs, flip_v.to(device), stochastic=stochastic_val)
+        gather = None
+        if mesh is not None and mesh.shards(img.shape[0]):
+            rows = mesh.rows(img.shape[0])
+            img, gather = img[rows.start:rows.stop], mesh.all_gather_rows
         with eval_mode(model):
             return _scores(model, _eval_variables(model, cfg.dtype), img.to(cfg.dtype), lab,
-                           cfg.n_class)
+                           cfg.n_class, gather)
 
     return eval_step
 
 
 def build_eval_epoch(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: bool = True,
-                     device="cuda") -> Callable:
+                     device="cuda", mesh=None) -> Callable:
     """``eval_epoch(imgs_u8, labs_u8, flip_v) -> metrics``: the whole val
     split at batch size 1, each scan as :func:`build_eval_step` computes it,
     the weights cast once; the sums stay on the device and the means come
-    back as device tensors, for one host read at the end."""
+    back as device tensors, for one host read at the end.  A batch of one
+    splits over no mesh of two or more ranks, so under ``mesh`` every rank
+    runs the whole split (replicated, as the JAX package's rule gives)."""
     device = torch.device(device)
 
     @torch.no_grad()

@@ -13,12 +13,21 @@ import torch.nn.functional as F
 from tcct_tpu_torch.models.crosscnn import seeded_cross_block
 from tcct_tpu_torch.ops.kernels import build
 from tcct_tpu_torch.ops.kernels.bnstats import (
+    bn_act_backward_dx,
+    bn_act_backward_sums,
+    bn_act_normalize,
+    bn_act_sums,
     bn_act_train,
     bn_act_train_backward,
     bn_act_train_backward_reference,
     bn_act_train_backward_tolerance,
+    bn_act_train_split,
+    bn_backward_sums_reference,
     bn_normalize_reference,
     bn_stats_reference,
+    bn_sums_reference,
+    bn_weight_grads,
+    stats_from_sums,
 )
 from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
     _fn,
@@ -950,6 +959,14 @@ def _op_cases(dev, dtype):
         cases += [(ops.bn_act_train.default, (x.requires_grad_(), w, b, 1e-5, leaky)),
                   (ops.bn_act_train_backward.default, (x.detach(), w.detach(), mean, var, gy,
                                                        1e-5, leaky))]
+        xd, wd, n = x.detach(), w.detach(), x.numel() // 8
+        sums = bn_act_sums(xd, leaky)
+        cases += [(ops.bn_act_sums.default, (xd, leaky)),
+                  (ops.bn_act_normalize.default, (xd, sums, n, wd, b.detach(), 1e-5, leaky)),
+                  (ops.bn_act_backward_sums.default, (xd, gy, leaky)),
+                  (ops.bn_act_backward_dx.default, (xd, wd, mean, var, gy,
+                                                    bn_act_backward_sums(xd, gy, leaky), n,
+                                                    1e-5, leaky))]
     blk = seeded_cross_block(32, 32, 5, 22).to(dev, dtype).eval()
     pk = pack_cross_block(blk, dtype)
     cases.append((ops.fused_cross_block.default,
@@ -966,3 +983,122 @@ def test_opcheck_every_op_on_the_card(cuda, dtype):
     for op, args in _op_cases(cuda, dtype):
         res = torch.library.opcheck(op, args)
         assert set(res.values()) == {"SUCCESS"}, (op, res)
+
+
+# --- the two-phase entry points of K3/K3b (data parallelism) ----------------------------
+
+SPLIT_SHAPES = [(8, 32, 256, 256), (8, 64, 128, 128), (8, 160, 8, 8), (8, 1, 256, 256),
+                (4, 5, 33, 17), (8, 2048, 7, 7)]
+
+
+@pytest.mark.parametrize("leaky", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_bn_split_entry_points_are_the_one_launch_bitwise(cuda, shape, dtype, leaky):
+    """At one rank: sums then normalize give K3's y, mean and var bit for
+    bit; backward sums then dx give K3b's dx, and the weight gradients from
+    the sums K3b's dweight and dbias; one launch each, counted."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.3).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = (torch.rand(shape[1], generator=g, device=cuda) + 0.5).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda).to(dtype)
+    n = x.numel() // shape[1]
+    y, mean, var = bn_act_train(x, w, b, 1e-5, leaky)
+    dx, dw, db = bn_act_train_backward(x, w, mean, var, gy, 1e-5, leaky)
+    counts = [f.launches for f in (bn_act_sums, bn_act_normalize, bn_act_backward_sums,
+                                   bn_act_backward_dx)]
+    sums = bn_act_sums(x, leaky)
+    y2, mean2, var2 = bn_act_normalize(x, sums, n, w, b, 1e-5, leaky)
+    gs = bn_act_backward_sums(x, gy, leaky)
+    dx2 = bn_act_backward_dx(x, w, mean, var, gy, gs, n, 1e-5, leaky)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (bn_act_sums, bn_act_normalize, bn_act_backward_sums,
+                                 bn_act_backward_dx)] == [c + 1 for c in counts]
+    for a, c in ((y, y2), (mean, mean2), (var, var2), (dx, dx2)):
+        assert torch.equal(a, c)
+    dw2, db2 = bn_weight_grads(gs, mean, var, 1e-5, w.dtype)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES[2:])
+def test_bn_split_entry_points_match_plain(cuda, shape, dtype):
+    """Against the plain versions on the same inputs: the sums within 1e-5
+    of sum|t| (and of sum t^2, sum|gy|, sum|gy t|; f32 sums in another
+    order); y within the kernels' TOL; dx within K3b's bound; and with a
+    count larger than x's rows (another rank's rows in the sums) too."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = (torch.rand(shape[1], generator=g, device=cuda) + 0.5).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda).to(dtype)
+    t, gf = x.float(), gy.float()
+    lim = 1e-5 * torch.stack([t.abs().sum((0, 2, 3)), (t * t).sum((0, 2, 3))]) + 1e-6
+    assert ((bn_act_sums(x) - bn_sums_reference(x)).abs() <= lim).all()
+    lim = 1e-5 * torch.stack([gf.abs().sum((0, 2, 3)), (gf * t).abs().sum((0, 2, 3))]) + 1e-6
+    assert ((bn_act_backward_sums(x, gy) - bn_backward_sums_reference(x, gy)).abs() <= lim).all()
+    n = 3 * x.numel() // shape[1]  # as if two more ranks held as many rows
+    sums = bn_sums_reference(x) * 3
+    y, mean, var = bn_act_normalize(x, sums, n, w, b)
+    want_m, want_v = stats_from_sums(sums, n)
+    atol, rtol = TOL[dtype]
+    # the kernel divides by n; torch on the card multiplies by 1/n: an ulp or
+    # two, and var = E[t^2] - mean^2 carries it as that many ulps of E[t^2]
+    eps = 2.0 ** -23
+    assert ((mean - want_m).abs() <= 4 * eps * want_m.abs()).all()
+    assert ((var - want_v).abs() <= 8 * eps * (sums[1] / n)).all()
+    torch.testing.assert_close(y, bn_normalize_reference(x, mean, var, w, b), atol=atol,
+                               rtol=rtol)
+    gs = bn_backward_sums_reference(x, gy) * 3
+    from tcct_tpu_torch.ops.kernels.bnstats import _dx_from_sums
+
+    dx = bn_act_backward_dx(x, w, mean, var, gy, gs, n)
+    want = _dx_from_sums(x, w, mean, var, gy, gs, n, 1e-5, False)
+    lim = bn_act_train_backward_tolerance(x, w, mean, var, gy)[0]
+    assert ((dx.double() - want.double()).abs() <= lim).all()
+
+
+def test_bn_split_autograd_on_card_is_the_one_launch(cuda):
+    """``bn_act_train_split`` (what a data-parallel BatchNorm runs) without a
+    reduction: outputs and gradients bitwise ``bn_act_train``'s, and
+    captured in a CUDA graph its replay bitwise the eager call."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 48, 32, 32, generator=g, device=cuda).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    w = (torch.rand(48, generator=g, device=cuda) + 0.5).requires_grad_()
+    b = torch.randn(48, generator=g, device=cuda).requires_grad_()
+    gy = torch.randn(4, 48, 32, 32, generator=g, device=cuda).to(torch.bfloat16)
+    one = bn_act_train(x, w, b, 1e-5, True)
+    two = bn_act_train_split(x, w, b, 1e-5, True)
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+    g1 = torch.autograd.grad(one[0], [x, w, b], gy)
+    g2 = torch.autograd.grad(two[0], [x, w, b], gy)
+    assert all(torch.equal(p, q) for p, q in zip(g1, g2))
+    xs = x.detach()
+    n = xs.numel() // 48
+
+    def both():
+        s = bn_act_sums(xs, True)
+        return bn_act_normalize(xs, s, n, w.detach(), b.detach(), 1e-5, True)
+
+    eager = both()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(eager, out))
+
+
+def test_bn_split_entry_points_refuse(cuda):
+    x = torch.randn(2, 4, 3, 3, device=cuda)
+    w, b = torch.ones(4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="want sums"):
+        bn_act_normalize(x, torch.zeros(3, 4, device=cuda), 18, w, b)
+    with pytest.raises(ValueError, match="fewer than"):
+        bn_act_normalize(x, torch.zeros(2, 4, device=cuda), 5, w, b)
+    with pytest.raises(ValueError, match="want gy like x"):
+        bn_act_backward_sums(x, torch.zeros(2, 4, 3, 2, device=cuda))
