@@ -118,7 +118,21 @@ toolkit (``nvcc``):
    volume through ``load_predictor(mesh=)`` on the two ranks against the
    one-process predictor; (e) the CLI with ``--pl`` under two processes;
    the phase's seconds.  No speed is claimed: one card shows none;
-13. prints one JSON line of the kernels, then, as its last line,
+13. runs the width-sharded predictor (``drive_width_sharded``, the port's
+   ``parallel/spatial.py``): (a) the MetaPool site's shard entry point
+   (``metapool_block_shard``) at duke's four site shapes, 4 rows a rank,
+   split 2 and 4 ways, bf16 and f32, against its plain version, the
+   ranks' outputs reassembled bit for bit the one-launch site, timed
+   against the plain version and the one-launch site on as many tokens,
+   and the decoder's sharded upsampling against ``F.interpolate``; (b)
+   four processes sharing the card over gloo (``--ws-worker``) as a
+   (2, 2) ``('data', 'model')`` mesh serving the duke volume through
+   ``load_predictor(mesh=)`` in bf16 and f32: the launch counts a rank
+   (the shard site 4 a batch, K2 s1 9, K2 s2 3, the one-launch site 0),
+   the halo exchanges a batch with their bytes, every rank's maps equal,
+   and on at least 99.9 % of pixels the one-process maps of step 3;
+   the phase's seconds.  No speed is claimed;
+14. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  Without a CUDA card, or
@@ -140,6 +154,11 @@ are declared exactly as this tree's; NAME prefixes pick kernels by name
 
 is one of the two ranks of step 12 (c) and (d), meeting the other through
 the file store STORE and writing its numbers to OUT.
+
+    python3 chip_smoke.py --ws-worker RANK STORE OUT
+
+is one of the four ranks of step 13 (b), meeting the others through the
+file store STORE, writing its numbers to OUT and rank 0 its maps beside it.
 
     python3 chip_smoke.py --serve-exported PROGRAM OUT
 
@@ -1328,6 +1347,7 @@ def _counted():
     from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_backward
     from tcct_tpu_torch.ops.kernels.metapool import (
         metapool_block,
+        metapool_block_shard,
         metapool_tokens,
         metapool_tokens_backward,
     )
@@ -1335,6 +1355,7 @@ def _counted():
     return [("fused_cross_block", fused_cross_block, "launches"),
             ("metapool_tokens", metapool_tokens, "launches"),
             ("metapool_block", metapool_block, "launches"),
+            ("metapool_block_shard", metapool_block_shard, "launches"),
             ("dwconv3x3", dwconv3x3, "launches"), ("dwconv3x3_s2", dwconv3x3, "launches_s2"),
             ("metapool_tokens_backward", metapool_tokens_backward, "launches"),
             ("dwconv3x3_backward", dwconv3x3_backward, "launches"),
@@ -1358,6 +1379,7 @@ def read_counters():
     return {
         "metapool_tokens": raw["metapool_tokens"],
         "metapool_block": raw["metapool_block"],
+        "metapool_block_shard": raw["metapool_block_shard"],
         "dwconv3x3_s1": raw["dwconv3x3"] - raw["dwconv3x3_s2"],
         "dwconv3x3_s2": raw["dwconv3x3_s2"],
         "metapool_tokens_backward": raw["metapool_tokens_backward"],
@@ -4404,6 +4426,252 @@ def drive_distributed(report, card, train):
     print(f"dp [{card}]: data parallelism in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- the width-sharded predictor: a ('data', 'model') mesh --------------------------------
+
+WS_MESH = (2, 2)  # (data, model) ranks of the phase's four processes
+WS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ws")
+
+
+def ws_exchanges(model) -> int:
+    """Halo exchanges of one width-sharded forward of an FTC model with the
+    MetaPool mixer: the CNN branch's stem conv and five blocks of five
+    exchanged convs (3x3, 3x3; 1xk, 3x3; 3x3; MSCA adds its 5x5 and three
+    1xk), the MPViT stem's two convs, each patch embed, each block's
+    ConvPosEnc and MetaPool site, each stage's ResBlock depthwise conv, the
+    head and four decoder blocks' 3x3 conv and upsampling."""
+    base = model.base
+    n = 1 + 5 * (5 + (4 if base.base_cnn.msca else 0)) + 1 + 8
+    if base.flag_vit:
+        cfg = base.vit_cfg
+        n += 2 + sum(p + 2 * p * l + 1 for p, l in zip(cfg.num_path, cfg.num_layers))
+    return n
+
+
+def bench_site_shards(report, card, sites):
+    """(a) the site's shard entry point at duke's four site shapes, 4 rows
+    a rank (a (2, M) mesh's), split M = 2 and 4 ways, bf16 and f32: each
+    rank's call against its plain version (``check_site``'s bounds); the
+    ranks' outputs reassembled bit for bit the one-launch site on the whole
+    grid; timed against the plain version and the one-launch site on as
+    many tokens, with its bound (x and the two halos read, y and n2
+    written, over the memory rate).  Also the decoder's
+    sharded upsampling against ``F.interpolate`` at its widest shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.models.mpvit import MPViTConfig
+    from tcct_tpu_torch.ops.kernels.metapool import (
+        metapool_block,
+        metapool_block_flops,
+        metapool_block_shard,
+        metapool_block_shard_reference,
+    )
+    from tcct_tpu_torch.ops.resize import upsample2x_aligned_shard
+    from tcct_tpu_torch.parallel.spatial import cut_halos
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    rows = BATCH // WS_MESH[0]
+    grids = []  # (B, H, W, C) of each site of a serving batch's rank
+    H, W = get_geometry(DB).prep_hw
+    h, w = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    for i, C in enumerate(MPViTConfig().embed_dims):
+        if i:
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        grids.append((rows, h, w, C))
+    if sorted((BATCH, hh * ww, C) for _, hh, ww, C in grids) != sorted(sites):
+        fail(f"ws (a): site grids {grids} do not match the serving batch's sites {dict(sites)}")
+    print(f"ws (a) [{card}]: the MetaPool site on a width shard (metapool_block_shard) vs its "
+          f"plain version, reassembled vs the one-launch site:", flush=True)
+    tot, max_err = Counter(), 0.0
+    for B, hh, ww, C in grids:
+        for M in (2, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                x, w1, b1, w2, b2 = _site_inputs((B, hh * ww, C), dtype, gen)
+                affine = (w1, b1, w2, b2)
+                xg = x.reshape(B, hh, ww, C)
+                label = f"metapool_block_shard [{B},{hh}x{ww // M},{C}] of {M} {dn}"
+                calls, err = [], 0.0
+                with torch.inference_mode():
+                    for m in range(M):
+                        xs, lh, rh = cut_halos(xg, m, M, 1, 1, wrap=True)
+                        calls.append((xs.reshape(B, -1, C).contiguous(),
+                                      lh[:, :, 0].contiguous(), rh[:, :, 0].contiguous(),
+                                      m == 0, m == M - 1) + affine)
+                    outs = [metapool_block_shard(*a) for a in calls]
+                    torch.cuda.synchronize()
+                    for m, (a, got) in enumerate(zip(calls, outs)):
+                        want = metapool_block_shard_reference(*a)
+                        err = max(err, check_site(f"{label} rank {m}", got, want,
+                                                  (a[0],) + affine, dn))
+                    max_err = max(max_err, err)
+                    whole = metapool_block(x, *affine)
+                    for i in (0, 1):
+                        got = torch.cat([o[i].reshape(B, hh, -1, C) for o in outs], 2)
+                        if not torch.equal(got.reshape(B, -1, C), whole[i]):
+                            fail(f"{label}: the reassembled shards differ from the one-launch "
+                                 f"site ({'y' if i == 0 else 'n2'})")
+                a = calls[1]  # rank 1: two exchanged halos where M = 4
+                xs = a[0]
+                nbytes = (3 * xs.numel() + 2 * a[1].numel() + 4 * C) * xs.element_size()
+                copies = [(xs.clone(),) + a[1:] for _ in range(n_copies(nbytes))]
+                site = [(c[0],) + affine for c in copies]
+                t_k = device_ms(metapool_block_shard, copies)
+                t_p = device_ms(metapool_block_shard_reference, copies)
+                t_1 = device_ms(metapool_block, site)
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                b_ops = metapool_block_flops(xs.shape) / F32_FLOP_PER_S * 1e3
+                bound = max(b_bytes, b_ops)
+                print(f"  {label}: plain max_abs_err {err:.3e}, shards bitwise the one-launch "
+                      f"site; one rank {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, one-launch "
+                      f"site on as many tokens {t_1 * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+                      f"({'bytes' if b_bytes >= b_ops else 'operations'}), "
+                      f"{b_bytes / t_k * 100:.0f}% of the byte bound", flush=True)
+                if dtype == torch.bfloat16 and M == WS_MESH[1]:  # the main path's calls
+                    tot["ms"] += t_k
+                    tot["plain_ms"] += t_p
+                    tot["one_launch_ms"] += t_1
+                    tot["bound_ms"] += bound
+                del copies, site, calls, outs
+    report["kernels"].append({
+        "name": "metapool_block_shard", "route": "cuda",
+        "source": "tcct_tpu_torch/csrc/metapool.cu",
+        "replaces": "tcct_tpu/ops/pallas/metapool.py:64", "launches": 0, "max_abs_err": max_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "one_launch_site_ms": tot["one_launch_ms"]})
+    print(f"  a rank's bf16 batch on the {WS_MESH} mesh: 4 sites {tot['ms']:.4f} ms, plain "
+          f"{tot['plain_ms']:.4f}, the one-launch site on as many tokens "
+          f"{tot['one_launch_ms']:.4f}, bound {tot['bound_ms']:.4f} ms", flush=True)
+    # the decoder's last upsampling, a rank's block of it
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((rows, 32, H // 2, W // 2), generator=gen, device="cuda").to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        want = F.interpolate(x, size=(H, W), mode="bilinear", align_corners=True)
+        M = WS_MESH[1]
+        outs = []
+        for m in range(M):
+            xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, M, 1, 1)
+            xs = xs.permute(0, 3, 1, 2)
+            outs.append(upsample2x_aligned_shard(xs, lh, rh, m * xs.shape[3], W // 2))
+        d = (torch.cat(outs, 3).float() - want.float()).abs()
+        scale = float(x.float().abs().max())
+        print(f"ws (a): the sharded 2x upsampling (align_corners=True) at {list(x.shape)} over "
+              f"{M} {str(dtype)[6:]} vs F.interpolate on the card: max diff {float(d.max()):.3e} "
+              f"({float(d.max()) / scale:.2e} of max|x|), {int((d > 0).sum())} of {d.numel()} "
+              f"elements differ", flush=True)
+        if float(d.max()) > (2.0 ** -20 if dtype == torch.float32 else 2.0 ** -7) * scale:
+            fail("ws (a): the sharded upsampling is further from F.interpolate than an f32 "
+                 "rounding (f32) or one bf16 step (bf16)")
+
+
+def ws_worker(rank: int, store: str, out: str) -> None:
+    """(b), one of four ranks sharing cuda:0 over gloo as a (2, 2) mesh: the
+    duke volume through ``load_predictor(mesh=)`` in bf16 and in f32 (TF32
+    off), a warm-up batch first, then the volume with the launch counts and
+    the exchanges set to 0 just before and read just after, the counts held
+    to the config's (per rank a batch: the shard site 4, K2 s1 9, K2 s2 3,
+    the one-launch site 0), the ranks' maps equal.  Writes its numbers to
+    ``out`` and its maps beside it."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+    from tcct_tpu_torch.parallel import init_distributed, make_mesh
+
+    n = WS_MESH[0] * WS_MESH[1]
+    init_distributed(f"file://{store}", n, rank, timeout_s=DP_TIMEOUT_S)
+    mesh = make_mesh(n, ("data", "model"), shape=WS_MESH)
+    if mesh.backend != "gloo" or mesh.device != torch.device("cuda", 0):
+        fail(f"ws (b): four ranks on one card want gloo on cuda:0, got {mesh}")
+    vol = duke_volume()
+    n_batches = math.ceil(N_SCANS / BATCH)
+    res = {"rank": rank, "coords": [mesh.data_rank, mesh.model_rank]}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        pred = load_predictor(DB, batch_size=BATCH, dtype=dtype, device="cuda", seed=SEED,
+                              mesh=mesh)
+        pred.predict_scans(vol[:BATCH])  # warm-up
+        torch.cuda.synchronize()
+        mesh.barrier(f"before the {name} volume", DP_TIMEOUT_S)
+        reset_counters()
+        pred.shard.stats.clear()
+        t0 = time.perf_counter()
+        seg = pred.predict_scans(vol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        want = expected_launches(pred.model, BATCH // WS_MESH[0],
+                                 get_geometry(DB).prep_hw, False)
+        want["metapool_block_shard"] = want.pop("metapool_block")
+        for k, c in counts.items():
+            if c != n_batches * want.get(k, 0):
+                fail(f"ws (b): rank {rank} {name}: kernel {k}: {c} launches over {n_batches} "
+                     f"batches, expected {n_batches * want.get(k, 0)}")
+        stats = dict(pred.shard.stats)
+        if stats.get("exchanges") != n_batches * ws_exchanges(pred.model):
+            fail(f"ws (b): rank {rank} {name}: {stats} exchanges over {n_batches} batches, "
+                 f"expected {n_batches * ws_exchanges(pred.model)}")
+        every = mesh.all_gather_rows(torch.from_numpy(seg).cuda()[None])
+        if not all(torch.equal(every[0], every[r]) for r in range(n)):
+            fail(f"ws (b): {name}: the ranks returned different class maps")
+        res[name] = {"counts": counts, "exchanges": stats, "wall_s": wall}
+        if rank == 0:
+            np.save(f"{out}.{name}.npy", seg)
+        del pred
+        torch.cuda.empty_cache()
+    mesh.barrier("end", DP_TIMEOUT_S)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def drive_width_sharded(report, card, sites, one_process_maps):
+    """The width-sharded predictor on the card (step 13 of the docstring):
+    (a) ``bench_site_shards``; (b) four processes sharing the card over gloo
+    as a (2, 2) ``('data', 'model')`` mesh (``--ws-worker``) serving the
+    duke volume, bf16 and f32, against the one-process predictor's maps of
+    step 3.  Claims no speed: ranks sharing one card show none."""
+    import shutil
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    bench_site_shards(report, card, sites)
+    shutil.rmtree(WS_DIR, ignore_errors=True)
+    os.makedirs(WS_DIR)
+    t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    n = WS_MESH[0] * WS_MESH[1]
+    outs = [os.path.join(WS_DIR, f"rank{r}.json") for r in range(n)]
+    _run_ranks([[sys.executable, me, "--ws-worker", str(r), f"{WS_DIR}/store", outs[r]]
+                for r in range(n)], [dict(os.environ)] * n, "ws (b)")
+    res = [json.load(open(o)) for o in outs]
+    for name, threshold in (("bf16", 0.999), ("f32", 0.999)):
+        seg = np.load(f"{outs[0]}.{name}.npy")
+        one = one_process_maps[name]
+        agree = held_agreement(f"ws (b) [{card}]: the {WS_MESH} width-sharded predictor's "
+                               f"{name} maps vs one process's", seg, one, threshold)
+        r0 = res[0][name]
+        ex = r0["exchanges"]
+        walls = ", ".join(f"{r[name]['wall_s']:.2f}" for r in res)
+        print(f"ws (b): {name}: maps bitwise one process's: {bool(np.array_equal(seg, one))} "
+              f"(agreement {agree:.6f}); launches a rank over {math.ceil(N_SCANS / BATCH)} "
+              f"batches {r0['counts']}; halo exchanges a batch "
+              f"{ex['exchanges'] // math.ceil(N_SCANS / BATCH)}, "
+              f"{ex['bytes'] // math.ceil(N_SCANS / BATCH)} bytes a rank sent; volume "
+              f"{walls} s by rank (four processes sharing one card over gloo: no speed is "
+              f"claimed)",
+              flush=True)
+    for e in report["kernels"]:
+        if e["name"] == "metapool_block_shard":
+            e["launches"] = res[0]["bf16"]["counts"]["metapool_block_shard"]
+            if e["launches"] == 0:
+                fail("ws (b): the shard site was not launched on the width-sharded path")
+    print(f"ws [{card}]: the width-sharded predictor in {time.perf_counter() - t_phase:.1f} s "
+          f"((b) {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4424,6 +4692,9 @@ def main() -> int:
         return 0
     if len(sys.argv) == 5 and sys.argv[1] == "--dp-worker":  # drive_distributed's ranks
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--ws-worker":  # drive_width_sharded's ranks
+        ws_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return 0
 
     card = card_identity()
@@ -4447,8 +4718,8 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1:
         fail(f"usage: chip_smoke.py [--against DIR [NAME ...] | --profile DIR | "
-             f"--serve-exported PROGRAM OUT | --dp-worker RANK STORE OUT], "
-             f"not {sys.argv[1:]}")
+             f"--serve-exported PROGRAM OUT | --dp-worker RANK STORE OUT | "
+             f"--ws-worker RANK STORE OUT], not {sys.argv[1:]}")
 
     from tcct_tpu_torch.data.geometry import get_geometry
     from tcct_tpu_torch.models.mpvit import MPViTConfig, mpvit_small_config
@@ -4473,6 +4744,7 @@ def main() -> int:
     bench_metapool_block(report, card, serve[0], serve_small[0])
     bench_fused_block(report, card)
     plain = drive_slice(report, card)
+    one_process_maps = {"bf16": plain["seg"], "f32": plain["seg32"]}
     drive_export(card, plain)
     drive_fused(report, card, plain)
     del plain
@@ -4488,6 +4760,7 @@ def main() -> int:
     drive_zoo_serving(card)
     drive_task2(report, card)
     drive_distributed(report, card, train)
+    drive_width_sharded(report, card, serve[0], one_process_maps)
 
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

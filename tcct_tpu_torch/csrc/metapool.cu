@@ -33,6 +33,10 @@
 // with w, b widened to f32.  Tokens outside [0, N) are the window's zero
 // padding in n (not LayerNorm1 of a zero row).
 //
+// The site on a width shard (tcct_metapool_block_shard): the same pass over
+// the tokens of a block of every row's columns, the tokens beside each row's
+// ends taken from two exchanged halo columns (see metapool_shard_kernel).
+//
 // Bound: bytes.  K1 and K1b read each element once and write it once and
 // cost about a dozen f32 operations each, far below the card's operations-
 // per-byte balance; the site reads x once and writes y and n2 (3 passes
@@ -300,6 +304,83 @@ __device__ __forceinline__ void row_sum(const T* S, int s, int c, int C, int n, 
   for (int j = 0; j < VEC; ++j) h[j] = (u[j] + u[j + 1]) + u[j + 2];
 }
 
+// Steps 2 and 3 of a tile of the site, shared by metapool_kernel and
+// metapool_shard_kernel, which differ only in what they stage and in the
+// token-axis count.  S holds the window's source, staged rows 0 .. rows + 1
+// for the tile's output rows 0 .. rows - 1 (one row down), X the raw tokens
+// in the same rows.  Writes the tile's outputs to yt + r * C and, with
+// NORMS, their LayerNorm2 to n2t + r * C.  count(r) is output row r's
+// token-axis count; the forward divides by count(r) times the channel
+// count.  BWD (K1b) divides each staged g by its own count first, for which
+// staged row s is token n_first + s of N.
+template <typename T, int VEC, bool BWD, bool NORMS, typename Count>
+__device__ __forceinline__ void site_tile(const T* S, const T* X, T* Y, T* __restrict__ yt,
+                                          T* __restrict__ n2t, int rows, int C, int bx, int R,
+                                          int residual, int n_first, int N,
+                                          const T* __restrict__ w2, const T* __restrict__ b2,
+                                          float eps, Count count) {
+  using V = typename Vec<T, VEC>::type;
+  const int cv = C / VEC;  // words a token
+  // thread (tx, ty) takes channel word tx and tokens ty*R .. ty*R + R - 1 of
+  // the tile (more where C / VEC > bx or the tile is taller than
+  // THREADS / bx runs: never at the launch's sizes)
+  const int by = THREADS / bx;
+  const int tx = threadIdx.x % bx, ty = threadIdx.x / bx;  // once a thread
+  if (ty < by) {
+    for (int w = tx; w < cv; w += bx) {
+      const int c = w * VEC;
+      float cc[VEC + 2];  // column counts of the channels c - 1 .. c + VEC
+#pragma unroll
+      for (int k = 0; k < VEC + 2; ++k) cc[k] = axis_count(c - 1 + k, C);
+      for (int r0 = ty * R; r0 < rows; r0 += by * R) {
+        const int r1 = min(r0 + R, rows);
+        float h0[VEC], h1[VEC];
+        row_sum<T, VEC, BWD>(S, r0, c, C, n_first + r0, N, cc, h0);
+        row_sum<T, VEC, BWD>(S, r0 + 1, c, C, n_first + r0 + 1, N, cc, h1);
+        for (int r = r0; r < r1; ++r) {
+          float h2[VEC];
+          row_sum<T, VEC, BWD>(S, r + 2, c, C, n_first + r + 2, N, cc, h2);
+          const size_t at = (size_t)(r + 1) * C + c;  // the centre word, staged
+          float ctr[VEC], out[VEC];
+          widen<T, VEC>(*reinterpret_cast<const V*>(S + at), ctr);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) out[j] = (h0[j] + h1[j]) + h2[j];
+          if constexpr (BWD) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) out[j] = out[j] - ctr[j];
+          } else {
+            const float cn = count(r);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) out[j] = out[j] / (cn * cc[j + 1]) - ctr[j];
+          }
+          V word = pack<T, VEC>(out);
+          if (!BWD && residual) {  // y = x + a: the rounded a, one f32 add, rounded
+            float a[VEC], xr[VEC];
+            widen<T, VEC>(word, a);
+            widen<T, VEC>(*reinterpret_cast<const V*>(X + at), xr);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) a[j] = xr[j] + a[j];
+            word = pack<T, VEC>(a);
+          }
+          *reinterpret_cast<V*>(yt + (size_t)r * C + c) = word;
+          if constexpr (NORMS) *reinterpret_cast<V*>(Y + (size_t)r * C + c) = word;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            h0[j] = h1[j];
+            h1[j] = h2[j];
+          }
+        }
+      }
+    }
+  }
+
+  // 3. n2 = LayerNorm2(y) of the tile's tokens, straight to global memory
+  if constexpr (NORMS) {
+    __syncthreads();
+    norm_rows<T, VEC>(Y, n2t, rows, C, 0, rows, w2, b2, eps);
+  }
+}
+
 __host__ __device__ inline int align16(int v) { return (v + 15) & ~15; }
 
 // X [tile + 2][C]: the staged tokens n0-1 .. n0+tile; with NORMS a second
@@ -326,7 +407,6 @@ metapool_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __re
                 const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ y,
                 T* __restrict__ n2, int N, int C, int bx, int R, int tile, int residual,
                 float eps) {
-  using V = typename Vec<T, VEC>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   int nrm;
   smem_layout<T, NORMS>(tile, C, &nrm);
@@ -335,7 +415,6 @@ metapool_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __re
   T* Y = X + C;                      // output row r, over the raw x it was made from
   const T* S = NORMS ? Nrm : X;      // the window's source
 
-  const int cv = C / VEC;  // words a token
   const int n0 = blockIdx.x * tile;
   const int rows = min(tile, N - n0);  // output tokens of the tile
   const size_t base = (size_t)blockIdx.y * N * C;
@@ -363,65 +442,83 @@ metapool_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __re
     __syncthreads();
   }
 
-  // 2. the window: thread (tx, ty) takes channel word tx and tokens
-  //    ty*R .. ty*R + R - 1 of the tile (more where C / VEC > bx or the
-  //    tile is taller than THREADS / bx runs: never at the launch's sizes)
-  const int by = THREADS / bx;
-  const int tx = threadIdx.x % bx, ty = threadIdx.x / bx;  // once a thread
-  if (ty < by) {
-    for (int w = tx; w < cv; w += bx) {
-      const int c = w * VEC;
-      float cc[VEC + 2];  // column counts of the channels c - 1 .. c + VEC
-#pragma unroll
-      for (int k = 0; k < VEC + 2; ++k) cc[k] = axis_count(c - 1 + k, C);
-      for (int r0 = ty * R; r0 < rows; r0 += by * R) {
-        const int r1 = min(r0 + R, rows);
-        float h0[VEC], h1[VEC];
-        row_sum<T, VEC, BWD>(S, r0, c, C, n0 - 1 + r0, N, cc, h0);
-        row_sum<T, VEC, BWD>(S, r0 + 1, c, C, n0 + r0, N, cc, h1);
-        for (int r = r0; r < r1; ++r) {
-          const int n = n0 + r;
-          float h2[VEC];
-          row_sum<T, VEC, BWD>(S, r + 2, c, C, n + 1, N, cc, h2);
-          const size_t at = (size_t)(r + 1) * C + c;  // the centre word, staged
-          float ctr[VEC], out[VEC];
-          widen<T, VEC>(*reinterpret_cast<const V*>(S + at), ctr);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) out[j] = (h0[j] + h1[j]) + h2[j];
-          if constexpr (BWD) {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) out[j] = out[j] - ctr[j];
-          } else {
-            const float cn = axis_count(n, N);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) out[j] = out[j] / (cn * cc[j + 1]) - ctr[j];
-          }
-          V word = pack<T, VEC>(out);
-          if (!BWD && residual) {  // y = x + a: the rounded a, one f32 add, rounded
-            float a[VEC], xr[VEC];
-            widen<T, VEC>(word, a);
-            widen<T, VEC>(*reinterpret_cast<const V*>(X + at), xr);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) a[j] = xr[j] + a[j];
-            word = pack<T, VEC>(a);
-          }
-          *reinterpret_cast<V*>(y + base + (size_t)n * C + c) = word;
-          if constexpr (NORMS) *reinterpret_cast<V*>(Y + (size_t)r * C + c) = word;
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            h0[j] = h1[j];
-            h1[j] = h2[j];
-          }
-        }
-      }
-    }
-  }
+  // 2-3. the window, the residual and LayerNorm2 (site_tile)
+  site_tile<T, VEC, BWD, NORMS>(S, X, Y, y + base + (size_t)n0 * C,
+                                NORMS ? n2 + base + (size_t)n0 * C : n2, rows, C, bx, R,
+                                residual, n0 - 1, N, w2, b2, eps,
+                                [=](int r) { return axis_count(n0 + r, N); });
+}
 
-  // 3. n2 = LayerNorm2(y) of the tile's tokens, straight to global memory
-  if constexpr (NORMS) {
-    __syncthreads();
-    norm_rows<T, VEC>(Y, n2 + base + (size_t)n0 * C, rows, C, 0, rows, w2, b2, eps);
+// The site on a width shard (forward: the two LayerNorms and the residual,
+// as the serving site always runs).  x holds the [B, H * w, C] tokens of w
+// consecutive columns of an H-row token grid whose other columns lie on
+// other ranks; left and right [B, H, C] hold, for each row h, the token just
+// before x's row h and the one just after it in the whole grid's flat order
+// (the exchanged columns: the rank before's last column, or on the first
+// rank the last rank's last column of row h - 1; symmetrically on the
+// right).  With `first` the shard holds the grid's first token, so row 0's
+// left token does not exist; with `last` likewise row H - 1's right token.
+// A missing token is the window's zero padding (after LayerNorm1, not
+// LayerNorm1 of a zero row), and the token-axis count is 2 beside it, 3
+// everywhere else: the counts of the whole grid.
+//
+// A block takes `tile` consecutive columns j0 .. of one row h of one batch
+// element (a row holds ceil(w / tile) tiles) and stages them with the column
+// before and the one after: x's own columns, or left[h] / right[h] at the
+// row's ends.  The rest is metapool_kernel's site_tile, so the shards'
+// outputs reassemble to the one-launch site's bit for bit.
+template <typename T, int SVEC, int VEC>
+__global__ void __launch_bounds__(THREADS, min_blocks())
+metapool_shard_kernel(const T* __restrict__ x, const T* __restrict__ left,
+                      const T* __restrict__ right, const T* __restrict__ w1,
+                      const T* __restrict__ b1, const T* __restrict__ w2,
+                      const T* __restrict__ b2, T* __restrict__ y, T* __restrict__ n2, int H,
+                      int w, int C, int tpr, int bx, int R, int tile, int first, int last,
+                      float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int nrm;
+  smem_layout<T, true>(tile, C, &nrm);
+  T* X = reinterpret_cast<T*>(smem);
+  T* Nrm = reinterpret_cast<T*>(smem + nrm);
+
+  const int h = blockIdx.x / tpr;
+  const int j0 = (blockIdx.x - h * tpr) * tile;
+  const int rows = min(tile, w - j0);  // output tokens of the tile
+  const bool lmiss = first && h == 0 && j0 == 0;
+  const bool rmiss = last && h == H - 1 && j0 + rows == w;
+  const int vlo = lmiss ? 1 : 0, vhi = rmiss ? rows + 1 : rows + 2;  // staged rows that exist
+  const size_t row0 = (size_t)blockIdx.y * H * w + (size_t)h * w;  // token (h, 0)
+  const T* xr = x + row0 * C;
+  const T* lrow = left + ((size_t)blockIdx.y * H + h) * C;
+  const T* rrow = right + ((size_t)blockIdx.y * H + h) * C;
+
+  // 1. stage columns j0 - 1 .. j0 + tile: staged row s is column j0 - 1 + s
+  {
+    using SV = typename Vec<T, SVEC>::type;
+    const int sv = C / SVEC;
+    SV* dst = reinterpret_cast<SV*>(X);
+    for (int q = threadIdx.x; q < (tile + 2) * sv; q += THREADS) {
+      const int s = q / sv, k = q - s * sv;
+      const T* src;
+      if (s == 0)
+        src = j0 == 0 ? lrow : xr + (size_t)(j0 - 1) * C;
+      else if (s == rows + 1)
+        src = j0 + rows == w ? rrow : xr + (size_t)(j0 + rows) * C;
+      else
+        src = xr + (size_t)(j0 + s - 1) * C;
+      const bool ok = s >= vlo && s < vhi;
+      stage_word<SV>(dst + q, reinterpret_cast<const SV*>(ok ? src + (size_t)k * SVEC : xr), ok);
+    }
+    if constexpr (sizeof(SV) >= 4) stage_wait_all();
   }
+  __syncthreads();
+  norm_rows<T, VEC>(X, Nrm, tile + 2, C, -vlo, vhi - vlo, w1, b1, eps);
+  __syncthreads();
+
+  // 2-3. as metapool_kernel's; the token-axis count is 2 beside a missing token
+  site_tile<T, VEC, false, true>(
+      Nrm, X, X + C, y + (row0 + j0) * C, n2 + (row0 + j0) * C, rows, C, bx, R, 1, 0, 1, w2, b2,
+      eps, [=](int r) { return 3.f - (float)(lmiss && r == 0) - (float)(rmiss && r == rows - 1); });
 }
 
 // The current device's SM count, read once a device (0 if it cannot be read).
@@ -513,7 +610,96 @@ int dispatch_flags(const void* x, const void* w1, const void* b1, const void* w2
   return dispatch<T, VEC16, false, false>(x, w1, b1, w2, b2, y, n2, B, N, C, residual, eps, s);
 }
 
+// The shard's tiles: R tokens a thread (at most 8), and the fewest tiles a
+// row that hold its w columns at that R, each tile as even as it can be;
+// R halves while the grid would give the card's SMs under 4 blocks each, or
+// the shared memory would not let min_blocks() blocks share an SM.
+template <typename T>
+void pick_shard_tiles(int B, int H, int w, int C, int by, int sms, int* tile, int* tpr, int* R) {
+  for (int r = 8;; r /= 2) {
+    *tpr = (w + by * r - 1) / (by * r);
+    *R = (w + by * *tpr - 1) / (by * *tpr);
+    *tile = by * *R;
+    if (r == 1) return;
+    if ((long long)B * H * *tpr >= 4LL * sms &&
+        smem_layout<T, true>(*tile, C) <= MAX_SMEM / min_blocks())
+      return;
+  }
+}
+
+template <typename T, int SVEC, int VEC>
+int launch_shard(const void* x, const void* left, const void* right, const void* w1,
+                 const void* b1, const void* w2, const void* b2, void* y, void* n2, int B,
+                 int H, int w, int C, int first, int last, float eps, cudaStream_t stream) {
+  const int cv = C / VEC;
+  const int bx = cv < THREADS ? cv : THREADS;
+  const int by = THREADS / bx;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  int tile, tpr, R;
+  pick_shard_tiles<T>(B, H, w, C, by, sms, &tile, &tpr, &R);
+  const int smem = smem_layout<T, true>(tile, C);
+  if (smem > MAX_SMEM || B > 65535 || (long long)H * tpr > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = metapool_shard_kernel<T, SVEC, VEC>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(H * tpr, B);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(left), static_cast<const T*>(right),
+      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
+      static_cast<const T*>(b2), static_cast<T*>(y), static_cast<T*>(n2), H, w, C, tpr, bx, R,
+      tile, first, last, eps);
+  return (int)cudaGetLastError();
+}
+
+// The shard's word, as dispatch() picks it (the halos' pointers too).
+template <typename T, int VEC16>
+int dispatch_shard(const void* x, const void* left, const void* right, const void* w1,
+                   const void* b1, const void* w2, const void* b2, void* y, void* n2, int B,
+                   int H, int w, int C, int flags, float eps, cudaStream_t s) {
+  const int first = (flags & 1) != 0, last = (flags & 2) != 0;
+  auto fits = [&](int vec) {
+    const int bytes = vec * (int)sizeof(T);
+    return C % vec == 0 && aligned(x, bytes) && aligned(left, bytes) && aligned(right, bytes) &&
+           aligned(y, bytes) && aligned(n2, bytes) && aligned(w1, bytes) && aligned(b1, bytes) &&
+           aligned(w2, bytes) && aligned(b2, bytes);
+  };
+  constexpr int VC = sizeof(T) == 2 ? BF16_VEC : VEC16;
+  if (fits(VEC16))
+    return launch_shard<T, VEC16, VC>(x, left, right, w1, b1, w2, b2, y, n2, B, H, w, C, first,
+                                      last, eps, s);
+  if (fits(VEC16 / 2))
+    return launch_shard<T, VEC16 / 2, VEC16 / 2>(x, left, right, w1, b1, w2, b2, y, n2, B, H, w,
+                                                 C, first, last, eps, s);
+  return launch_shard<T, 1, 1>(x, left, right, w1, b1, w2, b2, y, n2, B, H, w, C, first, last,
+                               eps, s);
+}
+
 }  // namespace
+
+// The site on a width shard (see metapool_shard_kernel): x [B, H * w, C],
+// left and right [B, H, C], w1, b1, w2, b2 [C], y and n2 as x; flags: 1 =
+// the shard holds the grid's first token, 2 = its last.  dtype: 0 =
+// float32, 1 = bfloat16.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what it does not take.
+extern "C" int tcct_metapool_block_shard(const void* x, const void* left, const void* right,
+                                         const void* w1, const void* b1, const void* w2,
+                                         const void* b2, void* y, void* n2, int B, int H, int w,
+                                         int C, int dtype, int flags, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || w <= 0 || C <= 0 || !w1 || !b1 || !w2 || !b2 || !n2)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dispatch_shard<float, 4>(x, left, right, w1, b1, w2, b2, y, n2, B, H, w, C, flags,
+                                    eps, s);
+  if (dtype == 1)
+    return dispatch_shard<__nv_bfloat16, 8>(x, left, right, w1, b1, w2, b2, y, n2, B, H, w, C,
+                                            flags, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // The site, forward: x [B, N, C]; flags: 1 = the two LayerNorms (w1, b1,
 // w2, b2 [C]; n2 [B, N, C]), 2 = residual (y = x + a); unused pointers may

@@ -14,8 +14,15 @@ predictor's ``'packed'`` is the TPU's lane layout and has no counterpart.
 
 ``mesh`` (a ``parallel.DataMesh``) serves data-parallel: every rank is
 given the whole volume, runs its rows of each bucket-sized batch (the
-batch size a multiple of the mesh's ranks) and gathers the uint8 class
-maps of the others, so every rank returns the whole volume's maps.
+batch size a multiple of the mesh's ``'data'`` ranks) and gathers the uint8
+class maps of the others, so every rank returns the whole volume's maps.
+On a ``('data', 'model')`` mesh of shape (D, M), M > 1, a rank also runs
+only its block of each scan's width, W / M columns at the input and the
+same share of every level (``parallel/spatial.py``: the halo exchanges
+inside its ``'model'`` group), and the maps are gathered over both axes.
+W must be a multiple of 16 M, so that every level splits evenly; JAX's
+GSPMD pads uneven shards where the port raises.  A width shard serves the
+FTC models with the MetaPool mixer on the plain CNN branch.
 """
 
 from __future__ import annotations
@@ -28,14 +35,18 @@ import torch
 from tcct_tpu_torch.data.eyeset import postprocess
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
 from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
-from tcct_tpu_torch.parallel.distributed import Rows
+from tcct_tpu_torch.parallel.mesh import shard_batch
+from tcct_tpu_torch.parallel.spatial import WIDTH_QUANTUM, check_servable, width_shard
 
 
 class VolumePredictor:
     """Static-shape bucketed predictor for one dataset geometry.
 
     ``model`` is moved to ``device`` and cast to ``dtype`` (parameters and
-    BN statistics alike, as the JAX predictor's ``cast_floating`` does)."""
+    BN statistics alike, as the JAX predictor's ``cast_floating`` does).
+    ``mesh``: see the module's docstring; ``shard`` is then this rank's
+    ``parallel.spatial.WidthShard`` (None without a ``'model'`` axis above
+    1), whose ``stats`` count the halo exchanges."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain",
@@ -52,11 +63,19 @@ class VolumePredictor:
         if mesh is not None:
             if mesh.rank < 0:
                 raise ValueError("VolumePredictor: this rank is not a member of the mesh")
-            if batch_size % mesh.size:
+            if batch_size % mesh.data_size:
                 raise ValueError(f"VolumePredictor: batch size {batch_size} does not split "
-                                 f"over the {mesh.size}-rank mesh")
+                                 f"over the mesh's {mesh.data_size} 'data' ranks")
+            if mesh.model_size > 1:
+                check_servable(model, cnn_impl)
+                W, q = geo.prep_hw[1], WIDTH_QUANTUM * mesh.model_size
+                if W % q:
+                    raise ValueError(f"VolumePredictor: the {geo.name!r} bucket's width {W} does "
+                                     f"not split over {mesh.model_size} 'model' ranks: it must be "
+                                     f"a multiple of {q} (16 x M: the deepest level is 1/16)")
             device = mesh.device
         self.mesh = mesh
+        self.shard = mesh.width_shard() if mesh is not None else None
         self.cnn_impl = cnn_impl
         self.device = torch.device(device)
         if self.device.type == "cuda" and dtype == torch.float32:
@@ -70,34 +89,39 @@ class VolumePredictor:
         self.dtype = dtype
 
     @torch.inference_mode()
-    def _forward(self, x_u8: torch.Tensor) -> torch.Tensor:
+    def logits(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """The main head's NHWC logits of a uint8 batch on the device (on a
+        width shard, of the rank's block of the columns)."""
         x = x_u8.to(self.dtype) / 255.0
         if self.cnn_impl == "fused":
             base = getattr(self.model, "base", self.model)
-            logits = self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
-        else:
-            logits = self.model(x)[0]
-        return torch.argmax(logits, dim=-1).to(torch.uint8)
+            return self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
+        with width_shard(self.model, self.shard):
+            return self.model(x)[0]
+
+    @torch.inference_mode()
+    def _forward(self, x_u8: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self.logits(x_u8), dim=-1).to(torch.uint8)
 
     def predict_scans(self, imgs_u8: np.ndarray) -> np.ndarray:
         """[N, H, W, 3] uint8 (already geometry-prepped) -> [N, H, W] uint8
         class maps.  N is arbitrary; the last batch is padded to the bucket
         size.  Every batch is queued on the device before the one copy of
-        the results back to the host.  On a mesh each rank runs its rows of
-        each batch and gathers the rest."""
+        the results back to the host.  On a mesh each rank runs its block of
+        each batch (rows; on a width shard also columns) and gathers the
+        rest."""
         n = imgs_u8.shape[0]
         bs = self.batch_size
-        rows = self.mesh.rows(bs) if self.mesh is not None else Rows(0, bs, bs)
         segs = []
         for i in range(0, n, bs):
             chunk = imgs_u8[i: i + bs]
             if chunk.shape[0] < bs:  # pad the tail to the static bucket shape
                 pad = np.zeros((bs - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
                 chunk = np.concatenate([chunk, pad], 0)
-            x = torch.from_numpy(np.ascontiguousarray(chunk[rows.start:rows.stop])).to(
+            x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk))).to(
                 self.device, non_blocking=True)
             seg = self._forward(x)
-            segs.append(seg if self.mesh is None else self.mesh.all_gather_rows(seg))
+            segs.append(seg if self.mesh is None else self.mesh.all_gather_blocks(seg))
         if not segs:
             return np.zeros(imgs_u8.shape[:3], np.uint8)
         return torch.cat(segs)[:n].cpu().numpy()
@@ -122,7 +146,8 @@ def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",
     (``models/registry.py``; ``relay`` ignores ``variant`` and ``mixer``,
     ``tcct32`` serves its own architecture with ``variant='t32'``);
     ``cnn_impl`` is ``'plain'`` or ``'fused'`` (an FTC model without MSCA);
-    ``mesh`` serves data-parallel (every rank builds the same weights)."""
+    ``mesh`` serves data-parallel, and on a ``'model'`` axis above 1 also
+    width-sharded (every rank builds the same weights)."""
     from tcct_tpu_torch.infer.importer import load_into, load_reference_pt
     from tcct_tpu_torch.models import RegNet, get_model
     from tcct_tpu_torch.models.layers import init_weights

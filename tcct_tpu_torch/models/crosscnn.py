@@ -77,7 +77,10 @@ class CrossResNet(nn.Module):
     gives channels (32,)*5, else (32, 64, 96, 128, 256); ``plain`` gives
     every block k = 3; ``msca`` adds an MSCA attention ``att.i`` after
     block i (the ``msca`` model).  Returns the 5 pre-pool feature maps
-    (NCHW)."""
+    (NCHW).  Under a width shard the 2x2 max-pools are local: the rank's
+    offset is even at every pooled level."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, tiny: bool = True, in_ch: int = 3, plain: bool = False,
                  msca: bool = False):
@@ -103,6 +106,8 @@ class CrossResNet(nn.Module):
                 x = self.att[i](x)
             xs.append(x)
             if i < len(self.path_estan) - 1:
+                if self.width_shard is not None:  # local at even offsets
+                    self.width_shard.require_even(x.shape[3], "a 2x2 max-pool")
                 x = max_pool_2d(x, 2)
         return xs
 

@@ -43,6 +43,12 @@ block (``msca``).
 ``forward(x, cnn_feats=...)`` takes the CNN pyramid from outside (five NHWC
 maps): the way the fused block kernel's branch
 (``models/crosscnn.py::cross_resnet_fused``) enters.
+
+Under a width shard (``parallel/spatial.py::width_shard``, the predictor's
+``'model'`` mesh axis) ``x`` is the rank's block of the image's columns; the
+convs, the MetaPool sites and the decoder's upsampling take the halo
+columns they need from the other ranks, and only the main head's logits
+come back (the aux heads are never read by the predictor).
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import torch.nn as nn
 from tcct_tpu_torch.models.crosscnn import CrossResNet
 from tcct_tpu_torch.models.layers import BatchNorm2d, _TrainPass, conv2d, leaky_relu
 from tcct_tpu_torch.models.mpvit import CRPE_MIXERS, MPViT, MPViTConfig
-from tcct_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
+from tcct_tpu_torch.ops.resize import resize_bicubic, resize_bilinear, upsample2x_aligned_shard
 from tcct_tpu_torch.parallel.distributed import Rows
 
 
@@ -87,7 +93,11 @@ def never_run(model: nn.Module) -> Tuple[str, ...]:
 
 class MPUpBlock(nn.Module):
     """conv3-BN-LReLU -> 2x bilinear up (align_corners=True) -> +skip ->
-    1x1 conv (reference tcct.py:887-914)."""
+    1x1 conv (reference tcct.py:887-914).  Under a width shard the
+    upsampling takes one halo column from each side and the whole image's
+    source coordinates (``ops/resize.py::upsample2x_aligned_shard``)."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, cin, cout):
         super().__init__()
@@ -96,7 +106,13 @@ class MPUpBlock(nn.Module):
 
     def forward(self, x1, x2=None):
         x1 = leaky_relu(self.prep(x1))
-        x1 = resize_bilinear(x1, (x1.shape[2] * 2, x1.shape[3] * 2), align_corners=True)
+        shard = self.width_shard
+        if shard is not None:
+            w = x1.shape[3]
+            x1 = upsample2x_aligned_shard(x1, *shard.halos(x1.permute(0, 2, 3, 1), 1, 1),
+                                          *shard.level(w))
+        else:
+            x1 = resize_bilinear(x1, (x1.shape[2] * 2, x1.shape[3] * 2), align_corners=True)
         if x2 is not None:
             x1 = x1 + x2
         return self.post(x1)
@@ -181,6 +197,7 @@ class FTC(nn.Module):
 
     VARIANTS = ("infer", "train", "t32")
     train_pass: Optional[_TrainPass] = None  # set by layers.train_pass()
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, vit_cfg: MPViTConfig = MPViTConfig(), cnn_tiny: bool = True,
                  out_channels: int = 5, filters: int = 32, variant: str = "infer",
@@ -262,6 +279,9 @@ class FTC(nn.Module):
         ``base_cnn``'s."""
         if with_feats and self.variant == "infer":
             raise ValueError("FTC: the polarization feats are formed by variant='train' only")
+        if with_feats and self.width_shard is not None:
+            raise NotImplementedError("FTC: a width shard serves the logits only, not the "
+                                      "polarization feats")
         x = x.permute(0, 3, 1, 2)
         if cnn_feats is not None:
             c1, c2, c3, c4, c5 = (c.permute(0, 3, 1, 2) for c in cnn_feats)
@@ -300,6 +320,10 @@ class FTC(nn.Module):
             y1 = self.t323(x2 + y1)
             y2 = self.t322(x3 + y2)
             y4 = self.t321(x4 + y4)
+        if self.width_shard is not None and not with_feats:
+            # the predictor reads the main head only: the aux heads' resizes
+            # to the input size (align_corners=False) are not formed on a shard
+            return [self.aux0(y0).permute(0, 2, 3, 1)]
         outs = [
             self.aux0(y0),
             resize_bilinear(self.aux1(y1), size, align_corners=False),

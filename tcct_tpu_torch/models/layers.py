@@ -43,6 +43,7 @@ from torch.autograd.function import once_differentiable
 from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_split
 from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3
 from tcct_tpu_torch.parallel.distributed import Rows
+from tcct_tpu_torch.parallel.spatial import pad_columns
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -117,7 +118,14 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose depthwise 3x3 (stride 1 or 2, pad 1) runs the
     hand-written depthwise kernel (``ops/kernels/dwconv.py``); every other
     geometry runs ``F.conv2d``.  Same predicate as the JAX package's
-    ``MaybePackedConv._dw_pallas_eligible``."""
+    ``MaybePackedConv._dw_pallas_eligible``.
+
+    Under a width shard (``parallel/spatial.py::width_shard``) a conv that
+    reads neighbouring columns takes them from the ranks beside it
+    (:meth:`halo_columns`) and computes the whole image's conv at the
+    rank's columns (:meth:`conv_with_halos`)."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def _depthwise3x3(self, x: torch.Tensor) -> bool:
         return (
@@ -137,7 +145,52 @@ class Conv2d(nn.Conv2d):
         and the input in its own launch, rounded as the separate adds."""
         return self._conv(x, residual=True)
 
+    def halo_columns(self, x: torch.Tensor) -> Tuple[int, int]:
+        """Columns beyond a width shard's own that this conv reads, on the
+        left and on the right: ``pw`` each side at stride 1 (a SAME conv of
+        width ``2 pw + 1``); a 3x3 pad-1 conv at stride 2 reads global
+        columns 2j-1 .. 2j+1, one on the left (the depthwise kernel, whose
+        own pad assumes column 0 is the image's edge, takes two and drops
+        its first output column)."""
+        (kw, sw, pw, dw) = (self.kernel_size[1], self.stride[1], self.padding[1],
+                            self.dilation[1])
+        if sw == 1 and dw == 1 and kw == 2 * pw + 1:
+            return pw, pw
+        if sw == 2 and dw == 1 and kw == 3 and pw == 1:
+            return (2 if self._depthwise3x3(x) else 1), 0
+        raise NotImplementedError(f"width shard: no halo rule for a conv of kernel "
+                                  f"{self.kernel_size}, stride {self.stride}, padding "
+                                  f"{self.padding}, dilation {self.dilation}")
+
+    def conv_with_halos(self, x: torch.Tensor, lh: torch.Tensor, rh: torch.Tensor,
+                        residual: bool = False) -> torch.Tensor:
+        """The conv of the whole image (``+ x`` with ``residual``) at a
+        width shard's columns, from its block ``x`` (NCHW) and the NHWC halo
+        columns :meth:`halo_columns` asks for.  The depthwise kernel runs
+        on the widened input, its extra output columns cropped; ``F.conv2d``
+        runs with no width padding."""
+        stride = self.stride[1]
+        if stride == 2:
+            self.width_shard.require_even(x.shape[3], "a stride-2 conv")
+        xe = pad_columns(x, lh, rh)
+        if self._depthwise3x3(x):
+            taps = self.weight[:, 0].permute(1, 2, 0).to(x.dtype)
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            y = dwconv3x3(xe.permute(0, 2, 3, 1), taps, stride, bias, residual)
+            y = y[:, :, 1:-1] if stride == 1 else y[:, :, 1:]
+            return y.contiguous().permute(0, 3, 1, 2)
+        w = promoted(self.weight, x)
+        args = (promoted(self.bias, x), self.stride, (self.padding[0], 0), self.dilation,
+                self.groups)
+        y = F.conv2d(xe, w, *args) if w is self.weight else _PromotedConv.apply(xe, w, *args)
+        return y + x if residual else y
+
     def _conv(self, x: torch.Tensor, residual: bool) -> torch.Tensor:
+        shard = self.width_shard
+        if shard is not None and self.kernel_size[1] * self.stride[1] > 1:
+            left, right = self.halo_columns(x)
+            return self.conv_with_halos(x, *shard.halos(x.permute(0, 2, 3, 1), left, right),
+                                        residual)
         if not self._depthwise3x3(x):
             w = promoted(self.weight, x)
             if w is self.weight:
@@ -208,6 +261,8 @@ def train_pass(model: nn.Module, generator: Optional[torch.Generator] = None, me
     batch: the BNs run the two-phase kernels, all-reduce their sums over
     the mesh and divide by the global count, and the draws are made for the
     whole batch, the rank keeping its rows."""
+    if mesh is not None:
+        mesh.require_data_only("train_pass")
     ctx = _TrainPass(generator, mesh, rows)
     mods = [m for m in model.modules() if hasattr(type(m), "train_pass")]
     for m in mods:

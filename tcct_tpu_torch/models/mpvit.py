@@ -48,7 +48,11 @@ from tcct_tpu_torch.models.layers import (
     conv2d,
     layer_norm,
 )
-from tcct_tpu_torch.ops.kernels.metapool import metapool_block, metapool_tokens
+from tcct_tpu_torch.ops.kernels.metapool import (
+    metapool_block,
+    metapool_block_shard,
+    metapool_tokens,
+)
 from tcct_tpu_torch.ops.pool import metapool_spatial
 
 MIXERS = ("metapool", "metapool_pallas", "metapool2d", "factor", "hydra")
@@ -223,7 +227,11 @@ class HydraAttention(nn.Module):
 class MHCABlock(nn.Module):
     """Pre-norm mixer + MLP block with the encoder's shared CPE/CRPE
     (reference tcct.py:417-469).  ``att`` exists for the attention mixers
-    only."""
+    only.  Under a width shard (serving, MetaPool mixer) the site runs on
+    the rank's columns with the wrapped halo tokens of the ranks beside it
+    (``ops/kernels/metapool.py::metapool_block_shard``)."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, dim, mlp_ratio, cpe, crpe, drop_path: float = 0.0,
                  mixer: str = "metapool", num_heads: int = 4):
@@ -245,8 +253,25 @@ class MHCABlock(nn.Module):
             return metapool_spatial(x, size)
         return self.att(x, size, self.crpe)
 
+    def _site_shard(self, x, size):
+        """The serving site on a width shard: (y, n2) of the rank's tokens."""
+        shard = self.width_shard
+        if self.mixer not in _METAPOOL or self.training or torch.is_grad_enabled():
+            raise NotImplementedError("a width shard serves the MetaPool mixer, in eval mode "
+                                      f"without a gradient; this block: {self.mixer!r}, "
+                                      f"training={self.training}")
+        B, _, C = x.shape
+        lh, rh = shard.halos(x.reshape(B, size[0], size[1], C), 1, 1, wrap=True)
+        return metapool_block_shard(x, lh[:, :, 0], rh[:, :, 0], shard.rank == 0,
+                                    shard.rank == shard.size - 1, self.norm1.weight,
+                                    self.norm1.bias, self.norm2.weight, self.norm2.bias,
+                                    self.norm1.eps)
+
     def forward(self, x, size):
         x = self.cpe(x, size)
+        if self.width_shard is not None:
+            x, n2 = self._site_shard(x, size)
+            return x + self.drop_path(self.mlp(n2))
         if self.mixer in _METAPOOL and not self.training and not torch.is_grad_enabled():
             # serving: one launch
             x, n2 = metapool_block(x, self.norm1.weight, self.norm1.bias, self.norm2.weight,

@@ -18,6 +18,9 @@ and the plain backward.
 whole token pass around the mixer (``norm1``, the mixer, the residual add,
 ``norm2``) as one launch of the same forward kernel with flags; it has no
 backward.
+:func:`metapool_block_shard` (``tcct::metapool_block_shard``) is the same
+site on a width shard of the token grid, its row ends' neighbours taken
+from two exchanged halo columns.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from tcct_tpu_torch.ops.kernels import build, library
-from tcct_tpu_torch.ops.pool import metapool_tokens_backward_reference, metapool_tokens_reference
+from tcct_tpu_torch.ops.pool import (
+    _axis_counts,
+    metapool_tokens_backward_reference,
+    metapool_tokens_reference,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # flags of tcct_metapool_block
@@ -47,6 +54,8 @@ def _fn(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "tcct_metapool_block":
         fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, p]
+    elif name == "tcct_metapool_block_shard":
+        fn.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, p]
     else:
         fn.argtypes = [p, p, i, i, i, i, p]
     fn.restype = ctypes.c_int
@@ -249,7 +258,137 @@ def metapool_block_flops(shape) -> int:
     return 30 * math.prod(shape)
 
 
-# launches of the forward / backward kernel and of the site
+# --- the site on a width shard ---------------------------------------------------------
+
+# flags of tcct_metapool_block_shard
+_FIRST, _LAST = 1, 2
+
+
+def _check_shard(x, left, right, affine) -> int:
+    """The rows H of the token grid of a shard's [B, H*w, C] tokens, from
+    its [B, H, C] halos; raises for halos or LayerNorm weights that do not
+    fit the tokens."""
+    what = "metapool_block_shard"
+    if x.dim() != 3 or left.dim() != 3 or left.shape != right.shape:
+        raise ValueError(f"{what}: want x [B, H*w, C] and halos [B, H, C], got "
+                         f"{tuple(x.shape)}, {tuple(left.shape)}, {tuple(right.shape)}")
+    B, N, C = x.shape
+    H = left.shape[1]
+    if left.shape[0] != B or left.shape[2] != C or H == 0 or N % H or N == 0:
+        raise ValueError(f"{what}: halos {tuple(left.shape)} do not fit tokens {tuple(x.shape)}")
+    for t in (left, right):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: halos must be {x.dtype} on {x.device}, got "
+                             f"{t.dtype} on {t.device}")
+    for t in affine:
+        if t.shape != (C,) or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: LayerNorm weights must be [{C}] {x.dtype} on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return H
+
+
+def metapool_block_shard_reference(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                                   has_first: bool, has_last: bool, w1: torch.Tensor,
+                                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                                   eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`metapool_block_shard`: LayerNorm1 of the
+    tokens and of the halos, each row's columns between its two halo tokens
+    (a missing one zero after the norm), the window sums in
+    :func:`metapool_tokens_reference`'s order (token axis, then channels),
+    the whole grid's counts, the residual add and LayerNorm2, each rounded
+    to x's dtype as :func:`metapool_block_reference` rounds it.  The shards'
+    outputs reassemble to that function's on the whole grid bit for bit."""
+    H = _check_shard(x, left, right, (w1, b1, w2, b2))
+    B, N, C = x.shape
+    w = N // H
+    nl = F.layer_norm(left, (C,), w1, b1, eps).clone()
+    nr = F.layer_norm(right, (C,), w1, b1, eps).clone()
+    if has_first:
+        nl[:, 0] = 0
+    if has_last:
+        nr[:, H - 1] = 0
+    n = F.layer_norm(x, (C,), w1, b1, eps).reshape(B, H, w, C)
+    ext = torch.cat([nl[:, :, None], n, nr[:, :, None]], dim=2).float()
+    rows = ext[:, :, :-2] + ext[:, :, 1:-1] + ext[:, :, 2:]  # the token axis
+    p = F.pad(rows, (1, 1))
+    win = p[..., :-2] + p[..., 1:-1] + p[..., 2:]  # the channel axis
+    cn = torch.full((H, w), 3.0, device=x.device)
+    if has_first:
+        cn[0, 0] -= 1
+    if has_last:
+        cn[H - 1, w - 1] -= 1
+    count = cn[:, :, None] * _axis_counts(C, x.device)
+    y = x + (win / count - n.float()).to(x.dtype).reshape(B, N, C)
+    return y, F.layer_norm(y, (C,), w2, b2, eps)
+
+
+def _block_shard_cuda(x, left, right, has_first: bool, has_last: bool, w1, b1, w2, b2,
+                      eps: float):
+    what = "metapool_block_shard"
+    _check_tokens(x, what)
+    H = _check_shard(x, left, right, (w1, b1, w2, b2))
+    B, N, C = x.shape
+    x, left, right, w1, b1, w2, b2 = (t.contiguous() for t in (x, left, right, w1, b1, w2, b2))
+    y, n2 = torch.empty_like(x), torch.empty_like(x)
+    flags = (_FIRST if has_first else 0) | (_LAST if has_last else 0)
+    err = _fn("tcct_metapool_block_shard")(
+        x.data_ptr(), left.data_ptr(), right.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), n2.data_ptr(), B, H, N // H, C,
+        _DTYPES[x.dtype], flags, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"{what} {tuple(x.shape)} H {H} {x.dtype} flags {flags}")
+    metapool_block_shard.launches += 1
+    return y, n2
+
+
+def _block_shard_cpu(x, left, right, has_first: bool, has_last: bool, w1, b1, w2, b2,
+                     eps: float):
+    y, n2 = metapool_block_shard_reference(x, left, right, has_first, has_last, w1, b1, w2, b2,
+                                           eps)
+    return y.contiguous(), n2.contiguous()
+
+
+def _block_shard_fake(x, left, right, has_first: bool, has_last: bool, w1, b1, w2, b2,
+                      eps: float):
+    return _like(x), _like(x)
+
+
+_block_shard_op = library.define(
+    "metapool_block_shard(Tensor x, Tensor left, Tensor right, bool has_first, bool has_last, "
+    "Tensor w1, Tensor b1, Tensor w2, Tensor b2, float eps) -> (Tensor, Tensor)",
+    cpu=_block_shard_cpu, cuda=_block_shard_cuda, fake=_block_shard_fake)
+library.no_backward(_block_shard_op, "metapool_block_shard")
+
+
+def metapool_block_shard(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                         has_first: bool, has_last: bool, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-6
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`metapool_block` with the norms and the residual (the serving
+    site) on a width shard of an H-row token grid, in one launch (the op
+    ``tcct::metapool_block_shard``).
+
+    ``x`` [B, H*w, C] holds w consecutive columns of every row, row-major.
+    The window runs over the whole grid's flat token order, so a row's first
+    token neighbours the token before it in that order and its last token
+    the one after: ``left`` and ``right`` [B, H, C] hold those tokens, raw
+    (before LayerNorm1), one per row (``parallel/spatial.py``'s exchange
+    with the row wrap).  ``has_first``: the shard holds the grid's first
+    token, whose left neighbour does not exist (``left[:, 0]`` is not read);
+    ``has_last`` likewise for ``right[:, H-1]``.  A missing neighbour is
+    the window's zero padding after the norm, and the counts are the whole
+    grid's.  Returns ``(y, n2)`` of the shard's tokens: the shards'
+    results, concatenated by columns, are the whole grid's site bit for bit.
+
+    Inference only.  A CPU tensor takes the plain version
+    (:func:`metapool_block_shard_reference`); a CUDA tensor launches the
+    kernel, or the call raises."""
+    library.check_device(x, "metapool_block_shard")
+    return _block_shard_op(x, left, right, bool(has_first), bool(has_last), w1, b1, w2, b2,
+                           float(eps))
+
+
+# launches of the forward / backward kernel, of the site and of its shard entry
 metapool_tokens.launches = 0
 metapool_tokens_backward.launches = 0
 metapool_block.launches = 0
+metapool_block_shard.launches = 0

@@ -3,7 +3,8 @@ counterpart ``tcct_tpu/ops/resize.py``).
 
 The models use three flavours (reference task1/nets/tcct.py:890, 941, 926):
 
-- bilinear ``align_corners=True``  — decoder 2x upsampling (``MPUpBlock``);
+- bilinear ``align_corners=True``  — decoder 2x upsampling (``MPUpBlock``;
+  on a width shard :func:`upsample2x_aligned_shard`);
 - bilinear ``align_corners=False`` — aux-head upsampling to the input size;
 - bicubic ``align_corners=False`` — the gated fusion's random alpha map
   (:func:`resize_bicubic`, forward only: the map carries no gradient).
@@ -113,6 +114,49 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``size=(H, W)``."""
     return _ResizeBilinear.apply(x, tuple(int(s) for s in size), bool(align_corners))
+
+
+@functools.lru_cache(maxsize=None)
+def _aligned_taps(in_size: int, out_size: int, start: int, count: int, device: torch.device):
+    """ATen's ``upsample_bilinear2d`` source taps of outputs ``start`` ..
+    ``start + count - 1`` with ``align_corners=True``, in its float32
+    arithmetic: ``scale = (in - 1) / (out - 1)``, ``src = scale * dst``,
+    ``i0 = floor(src)``, ``i1 = i0 + 1`` inside the axis, ``l1 = src - i0``,
+    ``l0 = 1 - l1``.  Tensors ``(i0, i1, l0, l1)`` on ``device``, cached."""
+    f32 = np.float32
+    scale = f32(in_size - 1) / f32(out_size - 1) if out_size > 1 else f32(0)
+    src = scale * np.arange(start, start + count).astype(f32)
+    i0 = np.minimum(src.astype(np.int64), in_size - 1)
+    l1 = src - i0.astype(f32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (i0, i0 + (i0 < in_size - 1), f32(1) - l1, l1))
+
+
+def upsample2x_aligned_shard(x: torch.Tensor, lh: torch.Tensor, rh: torch.Tensor,
+                             offset: int, width: int) -> torch.Tensor:
+    """``resize_bilinear(whole, (2H, 2W), align_corners=True)`` at a width
+    shard's output columns ``2 offset .. 2 (offset + w) - 1``: NCHW ``x``
+    [B, C, H, w] holds the whole input's columns ``offset ..`` of ``width``,
+    ``lh`` and ``rh`` (NHWC [B, H, 1, C]) the column on each side.
+
+    The source coordinate ``dst (W - 1) / (2W - 1)`` is global and not
+    shift-invariant, so a local resize of the shard would move every shard
+    boundary.  The taps and weights are ATen's in float32
+    (:func:`_aligned_taps`), blended as its CUDA kernel writes it,
+    ``l0h (l0w a + l1w b) + l1h (l0w c + l1w d)`` in f32, rounded once to
+    x's dtype; the card's kernel may contract a product into an add (an
+    FMA), so the two agree to about an f32 rounding, not bit for bit."""
+    B, C, H, w = x.shape
+    xe = torch.cat([lh, x.permute(0, 2, 3, 1), rh], dim=2).float()  # [B, H, w + 2, C]
+    hi0, hi1, h0, h1 = _aligned_taps(H, 2 * H, 0, 2 * H, x.device)
+    wi0, wi1, w0, w1 = _aligned_taps(width, 2 * width, 2 * offset, 2 * w, x.device)
+    c0, c1 = wi0 - (offset - 1), wi1 - (offset - 1)  # xe's column 0 is global offset - 1
+    r0, r1 = xe[:, hi0], xe[:, hi1]  # [B, 2H, w + 2, C]
+    w0, w1 = w0[:, None], w1[:, None]
+    a = w0 * r0[:, :, c0] + w1 * r0[:, :, c1]
+    b = w0 * r1[:, :, c0] + w1 * r1[:, :, c1]
+    y = h0[:, None, None] * a + h1[:, None, None] * b
+    return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:

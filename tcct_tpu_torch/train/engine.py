@@ -96,6 +96,7 @@ class Trainer:
         if mesh is not None:
             if mesh.rank < 0:
                 raise ValueError("Trainer: this rank is not a member of the mesh")
+            mesh.require_data_only("Trainer")
             if bs % mesh.size != 0:
                 raise ValueError(
                     f"batch size {bs} must be divisible by the {mesh.size}-device "

@@ -172,6 +172,8 @@ def build_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: TrainConfig,
     (see the module's docstring)."""
     if cfg.augment and generator is None:
         raise ValueError("augment=True draws from the step's generator; none was given")
+    if mesh is not None:
+        mesh.require_data_only("build_train_step")
     device = torch.device(device)
     model.to(device=device, memory_format=torch.channels_last).train()
     loss_fn = build_loss_fn(model, cfg)
@@ -282,6 +284,8 @@ def build_eval_step(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: bo
     With ``mesh``, every rank is given the whole batch and runs the model
     on its rows, and the argmax maps are gathered; a batch that does not
     split over the mesh runs replicated (the JAX package's rule)."""
+    if mesh is not None:
+        mesh.require_data_only("build_eval_step")
     device = torch.device(device)
 
     @torch.no_grad()
@@ -308,6 +312,8 @@ def build_eval_epoch(model: torch.nn.Module, cfg: TrainConfig, stochastic_val: b
     back as device tensors, for one host read at the end.  A batch of one
     splits over no mesh of two or more ranks, so under ``mesh`` every rank
     runs the whole split (replicated, as the JAX package's rule gives)."""
+    if mesh is not None:
+        mesh.require_data_only("build_eval_epoch")
     device = torch.device(device)
 
     @torch.no_grad()

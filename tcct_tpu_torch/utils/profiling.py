@@ -42,6 +42,8 @@ register_flop_formula(_OPS.metapool_tokens)(lambda x, out_shape=None: metapool_f
 register_flop_formula(_OPS.metapool_tokens_backward)(lambda g, out_shape=None: metapool_flops(g))
 register_flop_formula(_OPS.metapool_block)(
     lambda x, *args, out_shape=None: metapool_block_flops(x))
+register_flop_formula(_OPS.metapool_block_shard)(
+    lambda x, *args, out_shape=None: metapool_block_flops(x))
 register_flop_formula(_OPS.dwconv3x3)(
     lambda x, w, bias, stride, *args, out_shape=None: dwconv3x3_flops(x, stride))
 register_flop_formula(_OPS.dwconv3x3_backward)(

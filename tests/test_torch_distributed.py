@@ -396,11 +396,21 @@ def test_shard_batch_rows_are_jax_p_data_layout():
 
 
 def test_model_axis_refused():
-    """A 'model' axis of 1 is a data mesh; a larger one (width sharding) is
-    not ported and says where it is queued."""
-    assert make_mesh(1, ("data", "model"), shape=(1, 1)).shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="width-sharded predictor"):
+    """A 'model' axis of 1 is a data mesh; a larger one (width sharding)
+    needs a rank a device like any mesh, and shards the width for serving
+    only: the train step refuses it."""
+    from tcct_tpu_torch.parallel.mesh import DataMesh
+
+    mesh = make_mesh(1, ("data", "model"), shape=(1, 1))
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.width_shard() is None
+    with pytest.raises(RuntimeError, match="need 8 devices, only 1 visible"):
         make_mesh(8, ("data", "model"), shape=(2, 4))
+    wide = DataMesh(("data", "model"), {"data": 2, "model": 4}, 8, 5, None,
+                    torch.device("cpu"), "gloo", 4)
+    assert (wide.data_rank, wide.model_rank, wide.rows(8)) == (1, 1, (4, 8, 8))
+    with pytest.raises(NotImplementedError, match="serving only"):
+        build_train_step(relay_model(), AdamW(LR), step_cfg(augment=False), device="cpu",
+                         mesh=wide)
 
 
 def test_init_distributed_refuses_before_starting(monkeypatch):

@@ -312,6 +312,85 @@ def test_metapool_block_refuses(cuda):
         metapool_block(x, w1.requires_grad_(), b1, w2, b2)
 
 
+# --- the site on a width shard (tcct::metapool_block_shard) -----------------------------
+
+# (B, H, W, C) token grids split 2 and 4 ways: duke's four site shapes at 4
+# rows a rank, then odd ones (C taking the 16-byte, 8-byte and one-element
+# words, one row, one column a rank, a row wider than a tile)
+SHARD_GRIDS = [(4, 128, 288, 64), (4, 64, 144, 96), (4, 32, 72, 128), (4, 16, 36, 160),
+               (2, 5, 16, 24), (1, 1, 8, 5), (2, 3, 4, 2), (1, 2, 1200, 8), (3, 7, 12, 216)]
+
+
+def _shard_site(x, M, m, affine, fn=None):
+    """Rank m's site on its columns of the whole [B, H, W, C] grid ``x``."""
+    from tcct_tpu_torch.parallel.spatial import cut_halos
+
+    from tcct_tpu_torch.ops.kernels.metapool import metapool_block_shard
+
+    B, H, _, C = x.shape
+    xs, lh, rh = cut_halos(x, m, M, 1, 1, wrap=True)
+    return (fn or metapool_block_shard)(xs.reshape(B, -1, C), lh[:, :, 0], rh[:, :, 0], m == 0,
+                                        m == M - 1, *affine)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("grid", SHARD_GRIDS)
+def test_metapool_block_shard_matches_plain_and_reassembles(cuda, grid, M, dtype):
+    """The shard entry point against its plain version on the same CUDA
+    tensors (f32 within 1e-5 |ref| + 1e-5 rms, bf16 no further from the f64
+    chain than 1.5x the plain passes, as the site's test), one launch a
+    rank; the ranks' outputs reassembled are the one-launch site's on the
+    whole grid bit for bit."""
+    from tcct_tpu_torch.ops.kernels.metapool import (
+        metapool_block_shard,
+        metapool_block_shard_reference,
+    )
+
+    B, H, W, C = grid
+    if W % M:
+        pytest.skip("the grid's width does not split")
+    x, w1, b1, w2, b2 = _site_inputs(cuda, (B, H * W, C), dtype, 27)
+    x = x.reshape(B, H, W, C)
+    affine = (w1, b1, w2, b2)
+    with torch.inference_mode():
+        n = metapool_block_shard.launches
+        parts = [_shard_site(x, M, m, affine) for m in range(M)]
+        assert metapool_block_shard.launches == n + M
+        for m, got in enumerate(parts):
+            want = _shard_site(x, M, m, affine, fn=metapool_block_shard_reference)
+            if dtype == torch.float32:
+                for a, c in zip(got, want):
+                    rms = float(c.double().square().mean().sqrt())
+                    assert bool(((a - c).abs() <= 1e-5 * c.abs() + 1e-5 * rms).all())
+        whole = metapool_block(x.reshape(B, -1, C), *affine)
+        for i in (0, 1):
+            got = torch.cat([p[i].reshape(B, H, -1, C) for p in parts], 2).reshape(B, -1, C)
+            assert torch.equal(got, whole[i])
+    if dtype == torch.bfloat16:
+        truth = _site_f64(x.reshape(B, -1, C), *affine)
+        want = metapool_block_reference(x.reshape(B, -1, C), *affine)
+        for i in (0, 1):
+            e_k, e_p = (whole[i].double() - truth[i]).abs(), (want[i].double() - truth[i]).abs()
+            assert float(e_k.max()) <= 1.5 * float(e_p.max())
+
+
+def test_metapool_block_shard_refuses(cuda):
+    from tcct_tpu_torch.ops.kernels.metapool import metapool_block_shard
+
+    x, w1, b1, w2, b2 = _site_inputs(cuda, (2, 12, 24), torch.float32, 28)
+    h = x[:, :3]
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="do not fit"):
+            metapool_block_shard(x, x[:, :5], x[:, :5], True, True, w1, b1, w2, b2)
+        with pytest.raises(ValueError, match="halos must be"):
+            metapool_block_shard(x, h.bfloat16(), h, True, True, w1, b1, w2, b2)
+        with pytest.raises(ValueError, match="LayerNorm weights"):
+            metapool_block_shard(x, h, h, True, True, w1.bfloat16(), b1, w2, b2)
+    with pytest.raises(ValueError, match="no backward"):
+        metapool_block_shard(x.requires_grad_(), h, h, True, True, w1, b1, w2, b2)
+
+
 def _dw_bwd_close(x, w, gy, stride, dtype, **flags):
     """dx as the forward's tolerance; dw within 1e-5 of sum|x*g| per tap
     (f32 summation order) plus, in bf16, one rounding of dw (2^-7 |dw|),
@@ -941,7 +1020,9 @@ def _op_cases(dev, dtype):
     cases = [(ops.metapool_tokens.default, (rand(2, 5, 8, grad=True),)),
              (ops.metapool_tokens_backward.default, (rand(2, 5, 8),)),
              (ops.metapool_block.default, (rand(2, 5, 8), w1, rand(8), w1, rand(8), 1e-6, True)),
-             (ops.metapool_block.default, (rand(2, 5, 8), None, None, None, None, 1e-6, False))]
+             (ops.metapool_block.default, (rand(2, 5, 8), None, None, None, None, 1e-6, False)),
+             (ops.metapool_block_shard.default, (rand(2, 6, 8), rand(2, 3, 8), rand(2, 3, 8),
+                                                 True, False, w1, rand(8), w1, rand(8), 1e-6))]
     for s in (1, 2):
         x, w, b = rand(2, 5, 7, 8, grad=True), rand(3, 3, 8, grad=True), rand(8, grad=True)
         gy = rand(2, (5 - 1) // s + 1, (7 - 1) // s + 1, 8)
