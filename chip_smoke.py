@@ -124,13 +124,25 @@ toolkit (``nvcc``):
    split 2 and 4 ways, bf16 and f32, against its plain version, the
    ranks' outputs reassembled bit for bit the one-launch site, timed
    against the plain version and the one-launch site on as many tokens,
-   and the decoder's sharded upsampling against ``F.interpolate``; (b)
-   four processes sharing the card over gloo (``--ws-worker``) as a
+   and the decoder's sharded upsampling against ``F.interpolate``; (c)
+   the fused CrossCNN block (K4) on a rank's haloed blocks at duke's five
+   levels, bf16 and f32: the cropped maps of 2 and 4 ranks bit for bit the
+   one-launch K4 on the whole map, rank 0's launch against its plain
+   version and timed against it and one K4 on as many columns, with its
+   bound;
+   (b) four processes sharing the card over gloo (``--ws-worker``) as a
    (2, 2) ``('data', 'model')`` mesh serving the duke volume through
    ``load_predictor(mesh=)`` in bf16 and f32: the launch counts a rank
    (the shard site 4 a batch, K2 s1 9, K2 s2 3, the one-launch site 0),
    the halo exchanges a batch with their bytes, every rank's maps equal,
-   and on at least 99.9 % of pixels the one-process maps of step 3;
+   and on at least 99.9 % of pixels the one-process maps of step 3; then
+   one duke batch of ``stc_tt`` with the ``factor``, ``hydra`` and
+   ``metapool2d`` mixers, ``relay``, ``msca`` and ``stc_tt`` with the fused
+   CNN branch, and one heg batch (672 columns: blocks 176, 176, 160, 160)
+   of ``stc_tt`` both ways on a (1, 4) mesh, bf16 and f32, each with its
+   launches (K4 5 a rank a batch on the fused branch), exchanges and
+   all-reduces held to the config's and its maps against one process's
+   (bf16 at least 99.9 % of pixels, f32 99.999 %, f32 bitwise printed);
    the phase's seconds.  No speed is claimed;
 14. prints one JSON line of the kernels, then, as its last line,
    ``{"ok": true, "device": {...}}``.
@@ -4432,19 +4444,32 @@ WS_MESH = (2, 2)  # (data, model) ranks of the phase's four processes
 WS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ws")
 
 
-def ws_exchanges(model) -> int:
-    """Halo exchanges of one width-sharded forward of an FTC model with the
-    MetaPool mixer: the CNN branch's stem conv and five blocks of five
-    exchanged convs (3x3, 3x3; 1xk, 3x3; 3x3; MSCA adds its 5x5 and three
-    1xk), the MPViT stem's two convs, each patch embed, each block's
-    ConvPosEnc and MetaPool site, each stage's ResBlock depthwise conv, the
-    head and four decoder blocks' 3x3 conv and upsampling."""
+def ws_exchanges(model, fused: bool = False):
+    """(halo exchanges, all-reduces) of one width-sharded forward of a
+    registry model, from its config.  ReLayNet: its seven 7x3 convs.  An FTC
+    model: the CNN branch's stem conv and five blocks, each one exchange
+    with ``fused`` (K4 on a haloed block), else five exchanged convs (3x3,
+    3x3; 1xk, 3x3; 3x3; MSCA adds its 5x5 and three 1xk); the MPViT stem's
+    two convs, each patch embed, each block's ConvPosEnc and mixer (the
+    MetaPool site, metapool2d's window, or the CRPE's convs, one a window
+    of the refit head split) and each stage's ResBlock depthwise conv; the
+    head and four decoder blocks' 3x3 conv and upsampling.  All-reduces:
+    factor 3 a block (its softmax's max and sum, ``k^T v``), hydra 1."""
+    from tcct_tpu_torch.models.mpvit import CRPE_MIXERS, _fit_crpe_window
+
     base = model.base
-    n = 1 + 5 * (5 + (4 if base.base_cnn.msca else 0)) + 1 + 8
+    if not hasattr(base, "vit_cfg"):
+        return 7, 0
+    n = 1 + 5 * (1 if fused else 5 + (4 if base.base_cnn.msca else 0)) + 1 + 8
+    reduces = 0
     if base.flag_vit:
         cfg = base.vit_cfg
-        n += 2 + sum(p + 2 * p * l + 1 for p, l in zip(cfg.num_path, cfg.num_layers))
-    return n
+        n += 2
+        for p, l, h in zip(cfg.num_path, cfg.num_layers, cfg.num_heads):
+            mix = len(_fit_crpe_window(cfg.crpe_window, h)) if cfg.mixer in CRPE_MIXERS else 1
+            n += p + p * l * (1 + mix) + 1
+            reduces += p * l * {"factor": 3, "hydra": 1}.get(cfg.mixer, 0)
+    return n, reduces
 
 
 def bench_site_shards(report, card, sites):
@@ -4495,7 +4520,7 @@ def bench_site_shards(report, card, sites):
                 calls, err = [], 0.0
                 with torch.inference_mode():
                     for m in range(M):
-                        xs, lh, rh = cut_halos(xg, m, M, 1, 1, wrap=True)
+                        xs, lh, rh = cut_halos(xg, m, (ww // M,) * M, 1, 1, wrap=True)
                         calls.append((xs.reshape(B, -1, C).contiguous(),
                                       lh[:, :, 0].contiguous(), rh[:, :, 0].contiguous(),
                                       m == 0, m == M - 1) + affine)
@@ -4551,7 +4576,7 @@ def bench_site_shards(report, card, sites):
         M = WS_MESH[1]
         outs = []
         for m in range(M):
-            xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, M, 1, 1)
+            xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, (W // 2 // M,) * M, 1, 1)
             xs = xs.permute(0, 3, 1, 2)
             outs.append(upsample2x_aligned_shard(xs, lh, rh, m * xs.shape[3], W // 2))
         d = (torch.cat(outs, 3).float() - want.float()).abs()
@@ -4565,14 +4590,177 @@ def bench_site_shards(report, card, sites):
                  "rounding (f32) or one bf16 step (bf16)")
 
 
+def bench_k4_shards(report, card):
+    """(c) K4 on a rank's haloed blocks at duke's five ``stc_tt`` levels, 4 rows
+    a rank (a (2, M) mesh's), bf16 and f32: each block widened by ``k // 2 + 2``
+    columns on every side that is not the image's edge (``cut_halos(...,
+    clip=True)``), one launch, cropped (``fused_cross_block_shard``); the
+    ranks' cropped maps reassembled bit for bit the one-launch K4 on the whole
+    map, split 2 and 4 ways; rank 0's haloed launch of the 2-way split (the
+    (2, 2) mesh's) against its plain version (``check_fused_block``'s
+    bounds) and timed against the plain version and one K4 launch on as
+    many columns without a halo, with its bound (x read, y written, the weights once over the
+    memory rate; the haloed launch's operations over the type's peak)."""
+    import torch
+
+    from tcct_tpu_torch.models.crosscnn import (
+        cross_block_halo,
+        fused_cross_block_shard,
+        seeded_cross_block,
+    )
+    from tcct_tpu_torch.ops.kernels.crosscnn_fused import (
+        fused_cross_block,
+        fused_cross_block_flops,
+        fused_cross_block_reference,
+    )
+    from tcct_tpu_torch.parallel.spatial import cut_halos
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    rows = BATCH // WS_MESH[0]
+    print(f"ws (c) [{card}]: K4 on a rank's haloed blocks (fused_cross_block_shard) vs the "
+          f"one-launch K4 on the whole map:", flush=True)
+    tot, max_err = Counter(), 0.0
+    with torch.inference_mode():
+        for i, (what, shape, cout, k, _, _) in enumerate(K4_SHAPES[:5]):
+            _, Hh, W, cin = shape
+            h = cross_block_halo(k)
+            macs = 9 * cin * cout + 3 * 9 * cout * cout + k * cin * cout + k * cout * cout
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                blk = seeded_cross_block(cin, cout, k, SEED + 30 + i).to("cuda", dtype)
+                x = torch.randn((rows, Hh, W, cin), generator=gen, device="cuda").to(dtype)
+                whole = fused_cross_block(x, blk)
+                for M in (2, 4):
+                    calls = [cut_halos(x, m, (W // M,) * M, h, h, clip=True) for m in range(M)]
+                    outs = [fused_cross_block_shard(xs, blk, lh, rh) for xs, lh, rh in calls]
+                    torch.cuda.synchronize()
+                    if not torch.equal(torch.cat(outs, 2), whole):
+                        d = float((torch.cat(outs, 2).float() - whole.float()).abs().max())
+                        fail(f"ws (c): {what} {dn}: K4 on {M} haloed blocks differs from the "
+                             f"one-launch K4 on the whole map (max diff {d:.3e})")
+                    if M == 2:
+                        xs, lh, rh = calls[0]
+                        xe = torch.cat([lh, xs, rh], 2).contiguous()
+                del calls, outs, whole
+                label = f"K4 shard {list(xe.shape)} (rank 0 of 2: {xs.shape[2]} + {rh.shape[2]} " \
+                        f"columns) -> {cout} k {k} {dn}"
+                got = fused_cross_block(xe, blk)
+                torch.cuda.synchronize()
+                want = fused_cross_block_reference(xe, blk)
+                truth = fused_cross_block_reference(xe[:1], blk, acc=torch.float64)
+                err = check_fused_block(label, got, want, truth, dn)[0]
+                max_err = max(max_err, err)
+                del got, want, truth
+                copies_e = [(xe.clone(),) for _ in range(n_copies(xe.numel() * xe.element_size()))]
+                copies_s = [(c[0][:, :, :xs.shape[2]].contiguous(),) for c in copies_e]
+                t_k = device_ms(lambda t: fused_cross_block(t, blk), copies_e, K4_ITERS)
+                t_1 = device_ms(lambda t: fused_cross_block(t, blk), copies_s, K4_ITERS)
+                t_p = device_ms(lambda t: fused_cross_block_reference(t, blk), copies_e,
+                                K4_ITERS)
+                nbytes = (xe.numel() + rows * Hh * xe.shape[2] * cout + macs) * xe.element_size()
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+                b_ops = fused_cross_block_flops(xe.shape, cin, cout, k) / rate * 1e3
+                bound = max(b_bytes, b_ops)
+                print(f"  {what}: {label}: the 2- and 4-way splits bitwise the whole map's K4; "
+                      f"plain max_abs_err {err:.3e}; one rank {t_k * 1e3:.1f} us, plain "
+                      f"{t_p:.3f} ms, one K4 on {xs.shape[2]} columns without a halo "
+                      f"{t_1 * 1e3:.1f} us, bound "
+                      f"{bound * 1e3:.1f} us ({'bytes' if b_bytes >= b_ops else 'operations'})"
+                      f", {bound / t_k * 100:.1f}% of it", flush=True)
+                if dtype == torch.bfloat16:
+                    tot["ms"] += t_k
+                    tot["plain_ms"] += t_p
+                    tot["same_columns_ms"] += t_1
+                    tot["bound_ms"] += bound
+                del copies_e, copies_s, x, xe, blk
+    for e in report["kernels"]:
+        if e["name"] == "fused_cross_block":
+            e.update({"ws_ms": tot["ms"], "ws_plain_ms": tot["plain_ms"],
+                      "ws_same_columns_ms": tot["same_columns_ms"],
+                      "ws_bound_ms": tot["bound_ms"], "ws_max_abs_err": max_err,
+                      "ws_launches": 0})
+    print(f"  a rank's bf16 batch on the {WS_MESH} mesh: 5 K4 launches on haloed blocks "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, one launch each on as many columns "
+          f"{tot['same_columns_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms", flush=True)
+
+
+# the paths a width shard serves beyond the MetaPool FTC family (key, net, mixer, cnn_impl),
+# one duke batch each on WS_MESH; then heg's 672 columns on WS_HEG_MESH (blocks 176, 176, 160,
+# 160)
+WS_ZOO = (("factor", "stc_tt", "factor", "plain"), ("hydra", "stc_tt", "hydra", "plain"),
+          ("metapool2d", "stc_tt", "metapool2d", "plain"), ("relay", "relay", "metapool", "plain"),
+          ("msca", "msca", "metapool", "plain"), ("fused", "stc_tt", "metapool", "fused"))
+WS_HEG = (("heg plain", "stc_tt", "metapool", "plain"),
+          ("heg fused", "stc_tt", "metapool", "fused"))
+WS_HEG_MESH = (1, 4)
+
+
+def ws_serve_zoo(rank: int, mesh, db: str, cases, res) -> None:
+    """(b), continued in one rank: one seeded batch of ``db`` through
+    ``load_predictor(mesh=)`` for each case, bf16 and f32, the launch counts,
+    exchanges and all-reduces set to 0 just before and read just after and
+    held to the config's, every rank's maps equal; rank 0 then serves the
+    batch in one process and records the agreement (the others wait)."""
+    import numpy as np
+    import torch
+
+    from tcct_tpu_torch.data.geometry import get_geometry
+    from tcct_tpu_torch.infer.predictor import load_predictor
+
+    H, W = get_geometry(db).prep_hw
+    vol = np.random.default_rng(SEED + 16).integers(0, 256, (BATCH, H, W, 3), dtype=np.uint8)
+    for key, net, mixer, impl in cases:
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            kw = dict(net=net, mixer=mixer, cnn_impl=impl, batch_size=BATCH, dtype=dtype,
+                      device="cuda", seed=SEED)
+            what = f"ws (b): rank {rank} {key} {db} {name}"
+            pred = load_predictor(db, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            mesh.barrier(f"before {key} {name}", DP_TIMEOUT_S)
+            reset_counters()
+            pred.shard.stats.clear()
+            t0 = time.perf_counter()
+            seg = pred.predict_scans(vol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counters()
+            want = expected_launches(pred.model, BATCH // mesh.data_size, (H, W), impl == "fused")
+            want["metapool_block_shard"] = want.pop("metapool_block")
+            for k, c in counts.items():
+                if c != want.get(k, 0):
+                    fail(f"{what}: kernel {k}: {c} launches, expected {want.get(k, 0)}")
+            stats = dict(pred.shard.stats)
+            got = (stats.get("exchanges", 0), stats.get("reduces", 0))
+            if got != ws_exchanges(pred.model, impl == "fused"):
+                fail(f"{what}: (exchanges, all-reduces) {got}, expected "
+                     f"{ws_exchanges(pred.model, impl == 'fused')}")
+            every = mesh.all_gather_rows(torch.from_numpy(seg).cuda()[None])
+            if not all(torch.equal(every[0], every[r]) for r in range(mesh.size)):
+                fail(f"{what}: the ranks returned different class maps")
+            entry = {"counts": {k: c for k, c in counts.items() if c}, "stats": stats,
+                     "blocks": list(pred.shard.blocks), "wall_s": wall}
+            del pred
+            if rank == 0:
+                one = load_predictor(db, **kw).predict_scans(vol)
+                entry.update(agree=float((seg == one).mean()),
+                             bitwise=bool(np.array_equal(seg, one)),
+                             classes=int(len(np.unique(one))))
+            torch.cuda.empty_cache()
+            mesh.barrier(f"after {key} {name}", DP_TIMEOUT_S)
+            res["zoo"][f"{key} {name}"] = entry
+
+
 def ws_worker(rank: int, store: str, out: str) -> None:
     """(b), one of four ranks sharing cuda:0 over gloo as a (2, 2) mesh: the
     duke volume through ``load_predictor(mesh=)`` in bf16 and in f32 (TF32
     off), a warm-up batch first, then the volume with the launch counts and
     the exchanges set to 0 just before and read just after, the counts held
     to the config's (per rank a batch: the shard site 4, K2 s1 9, K2 s2 3,
-    the one-launch site 0), the ranks' maps equal.  Writes its numbers to
-    ``out`` and its maps beside it."""
+    the one-launch site 0), the ranks' maps equal; then one duke batch of each
+    path of ``WS_ZOO`` on that mesh and one heg batch of each of ``WS_HEG`` on
+    a (1, 4) mesh of the same ranks (``ws_serve_zoo``).  Writes its numbers
+    to ``out`` and its maps beside it."""
     import numpy as np
     import torch
 
@@ -4609,9 +4797,9 @@ def ws_worker(rank: int, store: str, out: str) -> None:
                 fail(f"ws (b): rank {rank} {name}: kernel {k}: {c} launches over {n_batches} "
                      f"batches, expected {n_batches * want.get(k, 0)}")
         stats = dict(pred.shard.stats)
-        if stats.get("exchanges") != n_batches * ws_exchanges(pred.model):
+        if stats.get("exchanges") != n_batches * ws_exchanges(pred.model)[0]:
             fail(f"ws (b): rank {rank} {name}: {stats} exchanges over {n_batches} batches, "
-                 f"expected {n_batches * ws_exchanges(pred.model)}")
+                 f"expected {n_batches * ws_exchanges(pred.model)[0]}")
         every = mesh.all_gather_rows(torch.from_numpy(seg).cuda()[None])
         if not all(torch.equal(every[0], every[r]) for r in range(n)):
             fail(f"ws (b): {name}: the ranks returned different class maps")
@@ -4620,6 +4808,10 @@ def ws_worker(rank: int, store: str, out: str) -> None:
             np.save(f"{out}.{name}.npy", seg)
         del pred
         torch.cuda.empty_cache()
+    res["zoo"] = {}
+    ws_serve_zoo(rank, mesh, DB, WS_ZOO, res)
+    heg = make_mesh(n, ("data", "model"), shape=WS_HEG_MESH)
+    ws_serve_zoo(rank, heg, "heg", WS_HEG, res)
     mesh.barrier("end", DP_TIMEOUT_S)
     with open(out, "w") as f:
         json.dump(res, f)
@@ -4628,16 +4820,21 @@ def ws_worker(rank: int, store: str, out: str) -> None:
 
 def drive_width_sharded(report, card, sites, one_process_maps):
     """The width-sharded predictor on the card (step 13 of the docstring):
-    (a) ``bench_site_shards``; (b) four processes sharing the card over gloo
-    as a (2, 2) ``('data', 'model')`` mesh (``--ws-worker``) serving the
-    duke volume, bf16 and f32, against the one-process predictor's maps of
-    step 3.  Claims no speed: ranks sharing one card show none."""
+    (a) ``bench_site_shards``; (c) ``bench_k4_shards``; (b) four processes
+    sharing the card over gloo as a (2, 2) ``('data', 'model')`` mesh
+    (``--ws-worker``) serving the duke volume, bf16 and f32, against the
+    one-process predictor's maps of step 3; then one batch of each path of
+    ``WS_ZOO`` (duke, (2, 2)) and ``WS_HEG`` (heg, (1, 4)) against one
+    process's maps of it (bf16 at least 99.9 % of pixels, f32 99.999 %; the
+    fused branch's f32 maps bit for bit).  Claims no speed: ranks sharing one
+    card show none."""
     import shutil
 
     import numpy as np
 
     t_phase = time.perf_counter()
     bench_site_shards(report, card, sites)
+    bench_k4_shards(report, card)
     shutil.rmtree(WS_DIR, ignore_errors=True)
     os.makedirs(WS_DIR)
     t0 = time.perf_counter()
@@ -4663,11 +4860,42 @@ def drive_width_sharded(report, card, sites, one_process_maps):
               f"{walls} s by rank (four processes sharing one card over gloo: no speed is "
               f"claimed)",
               flush=True)
+    zoo = res[0]["zoo"]
+    for key, _, _, impl in WS_ZOO + WS_HEG:
+        for name, threshold in (("bf16", 0.999), ("f32", 0.99999)):
+            e = zoo[f"{key} {name}"]
+            db = "heg" if key.startswith("heg") else DB
+            mesh = WS_HEG_MESH if db == "heg" else WS_MESH
+            if any(res[r]["zoo"][f"{key} {name}"]["stats"] != e["stats"] for r in range(n)):
+                fail(f"ws (b): {key} {name}: the ranks counted different exchanges or "
+                     f"all-reduces: {[res[r]['zoo'][f'{key} {name}']['stats'] for r in range(n)]}")
+            if e["classes"] < 2:
+                fail(f"ws (b): {key} {name}: the one-process maps hold {e['classes']} class")
+            st = e["stats"]
+            print(f"ws (b) [{card}]: {key} ({impl} CNN branch) {db} {name} batch {BATCH} on the "
+                  f"{mesh} mesh, blocks {e['blocks']}: maps vs one process agree on "
+                  f"{e['agree']:.6f} of pixels (threshold {threshold}), bitwise "
+                  f"{e['bitwise']}; launches a rank {e['counts']}; halo exchanges "
+                  f"{st.get('exchanges', 0)} ({st.get('bytes', 0)} bytes a rank sent), "
+                  f"all-reduces {st.get('reduces', 0)} ({st.get('reduce_bytes', 0)} bytes); "
+                  f"{e['wall_s']:.2f} s (four processes sharing one card: no speed is claimed)",
+                  flush=True)
+            if e["agree"] < threshold:
+                fail(f"ws (b): {key} {name}: maps agree with one process's on {e['agree']}, "
+                     f"below {threshold}")
+            if impl == "fused" and name == "f32" and not e["bitwise"]:
+                fail(f"ws (b): {key} f32: the fused shard's maps are not bitwise one "
+                     f"process's (agreement {e['agree']})")
     for e in report["kernels"]:
         if e["name"] == "metapool_block_shard":
             e["launches"] = res[0]["bf16"]["counts"]["metapool_block_shard"]
             if e["launches"] == 0:
                 fail("ws (b): the shard site was not launched on the width-sharded path")
+        if e["name"] == "fused_cross_block":
+            e["ws_launches"] = zoo["fused bf16"]["counts"].get("fused_cross_block", 0)
+            if e["ws_launches"] != 5:
+                fail(f"ws (b): K4 launched {e['ws_launches']} times a rank on the fused "
+                     f"width-sharded batch, expected 5")
     print(f"ws [{card}]: the width-sharded predictor in {time.perf_counter() - t_phase:.1f} s "
           f"((b) {time.perf_counter() - t0:.1f} s)", flush=True)
 

@@ -17,12 +17,14 @@ given the whole volume, runs its rows of each bucket-sized batch (the
 batch size a multiple of the mesh's ``'data'`` ranks) and gathers the uint8
 class maps of the others, so every rank returns the whole volume's maps.
 On a ``('data', 'model')`` mesh of shape (D, M), M > 1, a rank also runs
-only its block of each scan's width, W / M columns at the input and the
-same share of every level (``parallel/spatial.py``: the halo exchanges
-inside its ``'model'`` group), and the maps are gathered over both axes.
-W must be a multiple of 16 M, so that every level splits evenly; JAX's
-GSPMD pads uneven shards where the port raises.  A width shard serves the
-FTC models with the MetaPool mixer on the plain CNN branch.
+only its block of each scan's width and the same share of every level
+(``parallel/spatial.py``: the halo exchanges and the attention mixers'
+all-reduces inside its ``'model'`` group), and the maps are gathered over
+both axes.  The columns split in whole 16-column units, the first ranks
+one unit more where W / 16 is not a multiple of M
+(``parallel/spatial.py::width_blocks``); W must be a multiple of M, as in
+JAX, and hold at least M units.  A width shard serves every model of the
+registry, with every mixer and both CNN branches.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from tcct_tpu_torch.data.eyeset import postprocess
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
 from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
 from tcct_tpu_torch.parallel.mesh import shard_batch
-from tcct_tpu_torch.parallel.spatial import WIDTH_QUANTUM, check_servable, width_shard
+from tcct_tpu_torch.parallel.spatial import width_shard
 
 
 class VolumePredictor:
@@ -46,7 +48,7 @@ class VolumePredictor:
     BN statistics alike, as the JAX predictor's ``cast_floating`` does).
     ``mesh``: see the module's docstring; ``shard`` is then this rank's
     ``parallel.spatial.WidthShard`` (None without a ``'model'`` axis above
-    1), whose ``stats`` count the halo exchanges."""
+    1), whose ``stats`` count the halo exchanges and the all-reduces."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain",
@@ -66,16 +68,9 @@ class VolumePredictor:
             if batch_size % mesh.data_size:
                 raise ValueError(f"VolumePredictor: batch size {batch_size} does not split "
                                  f"over the mesh's {mesh.data_size} 'data' ranks")
-            if mesh.model_size > 1:
-                check_servable(model, cnn_impl)
-                W, q = geo.prep_hw[1], WIDTH_QUANTUM * mesh.model_size
-                if W % q:
-                    raise ValueError(f"VolumePredictor: the {geo.name!r} bucket's width {W} does "
-                                     f"not split over {mesh.model_size} 'model' ranks: it must be "
-                                     f"a multiple of {q} (16 x M: the deepest level is 1/16)")
             device = mesh.device
         self.mesh = mesh
-        self.shard = mesh.width_shard() if mesh is not None else None
+        self.shard = mesh.width_shard(geo.prep_hw[1]) if mesh is not None else None
         self.cnn_impl = cnn_impl
         self.device = torch.device(device)
         if self.device.type == "cuda" and dtype == torch.float32:
@@ -93,10 +88,10 @@ class VolumePredictor:
         """The main head's NHWC logits of a uint8 batch on the device (on a
         width shard, of the rank's block of the columns)."""
         x = x_u8.to(self.dtype) / 255.0
-        if self.cnn_impl == "fused":
-            base = getattr(self.model, "base", self.model)
-            return self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
         with width_shard(self.model, self.shard):
+            if self.cnn_impl == "fused":
+                base = getattr(self.model, "base", self.model)
+                return self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
             return self.model(x)[0]
 
     @torch.inference_mode()
@@ -121,7 +116,9 @@ class VolumePredictor:
             x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk))).to(
                 self.device, non_blocking=True)
             seg = self._forward(x)
-            segs.append(seg if self.mesh is None else self.mesh.all_gather_blocks(seg))
+            if self.mesh is not None:
+                seg = self.mesh.all_gather_blocks(seg, self.geo.prep_hw[1])
+            segs.append(seg)
         if not segs:
             return np.zeros(imgs_u8.shape[:3], np.uint8)
         return torch.cat(segs)[:n].cpu().numpy()

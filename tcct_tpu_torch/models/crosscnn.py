@@ -18,7 +18,7 @@ an exact rewrite of this plain form; it is not reproduced.
 :func:`cross_resnet_fused` (eval mode only) is the same pyramid with every
 block as one launch of the fused block kernel
 (``ops/kernels/crosscnn_fused.py``); the FTC models take its maps through
-``cnn_feats=``.
+``cnn_feats=``, on a width shard too (:func:`fused_cross_block_shard`).
 """
 
 from __future__ import annotations
@@ -112,17 +112,46 @@ class CrossResNet(nn.Module):
         return xs
 
 
+def cross_block_halo(k: int) -> int:
+    """Columns a ``CrossCNNBlock`` of kernel size ``k`` reads beyond each
+    side of an output column (its receptive radius in width): block34's
+    1xk, kx1 and 3x3 read ``k // 2 + 1``, block12's two 3x3s 2, and block5's
+    3x3 adds 1 to the larger (``attic/crosscnn_fused.py::_halo``)."""
+    return k // 2 + 2
+
+
+def fused_cross_block_shard(x: torch.Tensor, block, lh: torch.Tensor,
+                            rh: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_cross_block` at a width shard's columns: NHWC ``x``
+    [B, H, w, Cin] widened by the halo columns ``lh`` and ``rh`` (up to
+    :func:`cross_block_halo` each, none on a side that is the image's
+    edge), one launch on [B, H, hl + w + hr, Cin], the output cropped to the
+    shard's ``w`` columns.  An interior side's cropped columns are those
+    whose receptive field the widened input cuts; at the image's edge the
+    kernel's own zero padding of each conv's input is the whole image's."""
+    hl, w = lh.shape[2], x.shape[2]
+    y = fused_cross_block(torch.cat([lh, x, rh], dim=2), block)
+    return y[:, :, hl:hl + w].contiguous()
+
+
 def cross_resnet_fused(x: torch.Tensor, base_cnn: CrossResNet) -> List[torch.Tensor]:
     """The eval ``CrossResNet`` forward with every block through
     :func:`fused_cross_block` (JAX counterpart
     ``attic/crosscnn_fused.py::cross_resnet_fused``): NHWC image ``x``
     [B,H,W,3] -> the five pre-pool NHWC feature maps.  The stem conv stays
     ``F.conv2d``, its BatchNorm folded to an f32 ``(scale, shift)``; 2x2
-    max-pooling runs between the blocks."""
+    max-pooling runs between the blocks.
+
+    Under a width shard (``base_cnn.width_shard``) ``x`` is the rank's
+    block of the columns: the stem conv exchanges its one-column halos,
+    each block one exchange of :func:`cross_block_halo` columns a side,
+    clipped at the image's edges (:func:`fused_cross_block_shard`), and the
+    pools are local."""
     if base_cnn.training:
         raise ValueError("cross_resnet_fused: inference only; the CNN branch is in train mode")
     if getattr(base_cnn, "msca", False):
         raise ValueError("cross_resnet_fused: the MSCA option is not part of the fused block")
+    shard = base_cnn.width_shard
     stem, bn = base_cnn.cnn
     y = stem(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     s, t = fold_bn(bn)
@@ -130,9 +159,15 @@ def cross_resnet_fused(x: torch.Tensor, base_cnn: CrossResNet) -> List[torch.Ten
     xs = []
     last = len(base_cnn.path_estan) - 1
     for i, block in enumerate(base_cnn.path_estan):
-        y = fused_cross_block(y, block)
+        if shard is None:
+            y = fused_cross_block(y, block)
+        else:
+            h = cross_block_halo(block.block34[0].kernel_size[1])
+            y = fused_cross_block_shard(y, block, *shard.halos(y, h, h, clip=True))
         xs.append(y)
         if i < last:
+            if shard is not None:  # local at even offsets
+                shard.require_even(y.shape[2], "a 2x2 max-pool")
             y = max_pool_2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
     return xs
 

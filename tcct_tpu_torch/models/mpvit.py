@@ -53,7 +53,7 @@ from tcct_tpu_torch.ops.kernels.metapool import (
     metapool_block_shard,
     metapool_tokens,
 )
-from tcct_tpu_torch.ops.pool import metapool_spatial
+from tcct_tpu_torch.ops.pool import metapool_spatial, metapool_spatial_shard
 
 MIXERS = ("metapool", "metapool_pallas", "metapool2d", "factor", "hydra")
 CRPE_MIXERS = ("factor", "hydra")  # the mixers that run the CRPE
@@ -186,9 +186,29 @@ def _merge_heads(att: torch.Tensor) -> torch.Tensor:
     return att.transpose(1, 2).reshape(B, N, h * ch)
 
 
+def _factor_kv_shard(k: torch.Tensor, v: torch.Tensor, shard) -> torch.Tensor:
+    """Factor's ``softmax(K)^T V`` over all tokens of a width shard's
+    [B, heads, n, ch] ``k`` and ``v``: the softmax's per-(B, head, channel)
+    max and sum of exponentials, then the partial ``k^T v`` [B, heads, ch,
+    ch], each all-reduced over the ``'model'`` group (three reductions).
+    The partials are f32; the softmax output and ``kv`` are rounded to k's
+    dtype, where the one-process path rounds them."""
+    m = torch.amax(k.float(), dim=2, keepdim=True)
+    shard.all_reduce_(m, "max")
+    e = torch.exp(k.float() - m)
+    s = shard.all_reduce_(e.sum(dim=2, keepdim=True))
+    p = (e / s).to(k.dtype)
+    kv = shard.all_reduce_(torch.einsum("bhnk,bhnv->bhkv", p.float(), v.float()))
+    return kv.to(k.dtype)
+
+
 class FactorAttention(nn.Module):
     """Factorized attention: softmax over tokens of K, ``kv = K^T V``,
-    ``Q kv`` scaled, plus the CRPE (reference tcct.py:289-341)."""
+    ``Q kv`` scaled, plus the CRPE (reference tcct.py:289-341).  Under a
+    width shard the reductions over the tokens are all-reduces
+    (:func:`_factor_kv_shard`)."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -198,7 +218,10 @@ class FactorAttention(nn.Module):
 
     def forward(self, x, size, crpe: ConvRelPosEnc):
         q, k, v = _heads(self.qkv(x), self.num_heads)
-        kv = torch.einsum("bhnk,bhnv->bhkv", torch.softmax(k, dim=2), v)
+        if self.width_shard is not None:
+            kv = _factor_kv_shard(k, v, self.width_shard)
+        else:
+            kv = torch.einsum("bhnk,bhnv->bhkv", torch.softmax(k, dim=2), v)
         att = torch.einsum("bhnk,bhkv->bhnv", q, kv)
         att = q.shape[-1] ** -0.5 * att + crpe(q, v, size)
         return self.proj(_merge_heads(att))
@@ -207,7 +230,10 @@ class FactorAttention(nn.Module):
 class HydraAttention(nn.Module):
     """Hydra attention: Q and K normalised to unit rows, ``kv = sum_n k *
     v``, ``q * kv`` scaled, plus the CRPE on the normalised Q (reference
-    tcct.py:343-403)."""
+    tcct.py:343-403).  Under a width shard the f32 partial sum of ``k * v``
+    is all-reduced over the ``'model'`` group and rounded to x's dtype."""
+
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -219,17 +245,24 @@ class HydraAttention(nn.Module):
         q, k, v = _heads(self.qkv(x), self.num_heads)
         q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
         k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
-        att = q * torch.sum(k * v, dim=-2, keepdim=True)
-        att = q.shape[-1] ** -0.5 * att + crpe(q, v, size)
+        if self.width_shard is not None:
+            kv = self.width_shard.all_reduce_((k * v).float().sum(dim=-2, keepdim=True))
+            kv = kv.to(k.dtype)
+        else:
+            kv = torch.sum(k * v, dim=-2, keepdim=True)
+        att = q.shape[-1] ** -0.5 * (q * kv) + crpe(q, v, size)
         return self.proj(_merge_heads(att))
 
 
 class MHCABlock(nn.Module):
     """Pre-norm mixer + MLP block with the encoder's shared CPE/CRPE
     (reference tcct.py:417-469).  ``att`` exists for the attention mixers
-    only.  Under a width shard (serving, MetaPool mixer) the site runs on
-    the rank's columns with the wrapped halo tokens of the ranks beside it
-    (``ops/kernels/metapool.py::metapool_block_shard``)."""
+    only.  Under a width shard (serving) the MetaPool site runs on the
+    rank's columns with the wrapped halo tokens of the ranks beside it
+    (``ops/kernels/metapool.py::metapool_block_shard``); ``metapool2d``
+    takes a one-column halo of the ``norm1`` tokens a side
+    (``ops/pool.py::metapool_spatial_shard``), and the attention mixers
+    all-reduce over the tokens."""
 
     width_shard = None  # set by parallel.spatial.width_shard()
 
@@ -250,16 +283,20 @@ class MHCABlock(nn.Module):
         if self.mixer in _METAPOOL:
             return metapool_tokens(x)
         if self.mixer == "metapool2d":
-            return metapool_spatial(x, size)
+            shard = self.width_shard
+            if shard is None:
+                return metapool_spatial(x, size)
+            B, _, C = x.shape
+            lh, rh = shard.halos(x.reshape(B, size[0], size[1], C), 1, 1)
+            return metapool_spatial_shard(x, size, lh, rh, *shard.level(size[1]))
         return self.att(x, size, self.crpe)
 
     def _site_shard(self, x, size):
         """The serving site on a width shard: (y, n2) of the rank's tokens."""
         shard = self.width_shard
-        if self.mixer not in _METAPOOL or self.training or torch.is_grad_enabled():
-            raise NotImplementedError("a width shard serves the MetaPool mixer, in eval mode "
-                                      f"without a gradient; this block: {self.mixer!r}, "
-                                      f"training={self.training}")
+        if self.training or torch.is_grad_enabled():
+            raise NotImplementedError("a width shard serves the MetaPool mixer in eval mode "
+                                      f"without a gradient; training={self.training}")
         B, _, C = x.shape
         lh, rh = shard.halos(x.reshape(B, size[0], size[1], C), 1, 1, wrap=True)
         return metapool_block_shard(x, lh[:, :, 0], rh[:, :, 0], shard.rank == 0,
@@ -269,7 +306,7 @@ class MHCABlock(nn.Module):
 
     def forward(self, x, size):
         x = self.cpe(x, size)
-        if self.width_shard is not None:
+        if self.mixer in _METAPOOL and self.width_shard is not None:
             x, n2 = self._site_shard(x, size)
             return x + self.drop_path(self.mlp(n2))
         if self.mixer in _METAPOOL and not self.training and not torch.is_grad_enabled():

@@ -12,6 +12,11 @@ As in the JAX package the pooling mask is f32 whatever the compute dtype,
 so the unpooled maps, and the decoder after them, are f32 in a bf16 step
 (the decoder's convs promote their bf16 weights, ``layers.promoted``) and
 the logits are f32.  Input sides must be multiples of 8.
+
+Under a width shard (``parallel/spatial.py::width_shard``) the 7x3 convs
+take a one-column halo a side (``layers.Conv2d``), the pooling with masks
+and the unpooling are local at the even offsets of every level, and so are
+the skip concatenations, BN and PReLU; the logits come back, not the feats.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ class ReLayNet(nn.Module):
     NHWC map); ``forward(x, with_feats=True)`` -> ``([logits], [feat])``."""
 
     feats_prefixes = ("eran", "dran")  # modules that only form the feats
+    width_shard = None  # set by parallel.spatial.width_shard()
 
     def __init__(self, out_channels: int = 8, filters: int = 64, in_ch: int = 3):
         super().__init__()
@@ -86,14 +92,22 @@ class ReLayNet(nn.Module):
         for name in ("eran1", "eran2", "eran3", "dran1", "dran2", "dran3"):
             setattr(self, name, conv2d(f, 32, 1, 1, 0))
 
+    def _pool(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.width_shard is not None:  # local at even offsets
+            self.width_shard.require_even(x.shape[3], "a 2x2 max-pool")
+        return max_pool_with_mask(x)
+
     def forward(self, x: torch.Tensor, with_feats: bool = False):
+        if with_feats and self.width_shard is not None:
+            raise NotImplementedError("ReLayNet: a width shard serves the logits only, not the "
+                                      "polarization feats")
         x = x.permute(0, 3, 1, 2)
         out1 = self.encode1(x)
-        e1, m1 = max_pool_with_mask(out1)
+        e1, m1 = self._pool(out1)
         out2 = self.encode2(e1)
-        e2, m2 = max_pool_with_mask(out2)
+        e2, m2 = self._pool(out2)
         out3 = self.encode3(e2)
-        e3, m3 = max_pool_with_mask(out3)
+        e3, m3 = self._pool(out3)
         bn = self.bottleneck(e3)
         d3 = self.decode1(torch.cat([out3, max_unpool(bn, m3)], 1))
         d2 = self.decode2(torch.cat([out2, max_unpool(d3, m2)], 1))

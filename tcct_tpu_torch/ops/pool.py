@@ -8,7 +8,8 @@ The shipped checkpoints were trained with exactly this op, and
 :func:`metapool_tokens_reference` keeps it.  :func:`metapool_spatial` is
 the PoolFormer mixer the reference meant (the ``metapool2d`` mixer): a 3x3
 average over the tokens' (H, W) grid, per channel; not checkpoint
-compatible.
+compatible.  :func:`metapool_spatial_shard` is the same at a width shard's
+columns (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -91,4 +92,27 @@ def metapool_spatial(x: torch.Tensor, size) -> torch.Tensor:
     img = x.reshape(B, H, W, C).permute(0, 3, 1, 2).reshape(B * C, H, W).float()
     inv = 1.0 / (_axis_counts(H, x.device)[:, None] * _axis_counts(W, x.device)[None, :])
     pooled = (_window_sum3x3(img) * inv).to(x.dtype)
+    return pooled.reshape(B, C, N).transpose(1, 2) - x
+
+
+def metapool_spatial_shard(x: torch.Tensor, size, lh: torch.Tensor, rh: torch.Tensor,
+                           offset: int, width: int) -> torch.Tensor:
+    """:func:`metapool_spatial` at a width shard's columns: ``x`` [B, H*w, C]
+    holds the tokens of columns ``offset .. offset + w - 1`` of an (H,
+    ``width``) grid (``size`` is the shard's (H, w)), ``lh`` and ``rh``
+    (NHWC [B, H, 1, C]) the column on each side, zeros past the grid's
+    edges.  The window sum runs over the widened columns in the whole
+    grid's order (rows, then columns), the counts are the whole grid's at
+    these columns, and the roundings are :func:`metapool_spatial`'s, so the
+    shards' tokens are the whole grid's bit for bit."""
+    B, N, C = x.shape
+    H, w = size
+    xe = torch.cat([lh, x.reshape(B, H, w, C), rh], dim=2)  # [B, H, w + 2, C]
+    img = xe.permute(0, 3, 1, 2).reshape(B * C, H, w + 2).float()
+    p = F.pad(img, (0, 0, 1, 1))  # zero rows above and below
+    rows = p[:, :-2] + p[:, 1:-1] + p[:, 2:]
+    window = rows[..., :-2] + rows[..., 1:-1] + rows[..., 2:]
+    cols = _axis_counts(width, x.device)[offset:offset + w]
+    inv = 1.0 / (_axis_counts(H, x.device)[:, None] * cols[None, :])
+    pooled = (window * inv).to(x.dtype)
     return pooled.reshape(B, C, N).transpose(1, 2) - x

@@ -11,9 +11,9 @@ port's code calls the collectives itself, through ``torch.distributed``:
   ``RANK`` / ``WORLD_SIZE``.  It picks NCCL when every rank of the host has
   a CUDA device of its own and gloo otherwise (the CPU, or ranks sharing a
   card: NCCL refuses two ranks on one device).
-- :func:`all_reduce_`, :func:`all_gather_rows` and :func:`broadcast_` are
-  the only collectives the port uses (gloo has no ``reduce_scatter``).
-  Under gloo a CUDA tensor goes through the host: its copy on the CPU is
+- :func:`all_reduce_` (a sum or a max), :func:`all_gather_rows` and
+  :func:`broadcast_` are the only collectives the port uses (gloo has no
+  ``reduce_scatter``).  Under gloo a CUDA tensor goes through the host: its copy on the CPU is
   reduced, gathered or broadcast and copied back.
 - :func:`gather_rows` is the differentiable gather of a row-sharded
   tensor: the forward concatenates every rank's rows, the backward hands
@@ -161,14 +161,19 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over the ranks of ``group``, in place; returns ``t``."""
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """Sum (``op='sum'``) or maximise (``'max'``) ``t`` over the ranks of
+    ``group``, in place; returns ``t``."""
+    how = _REDUCE_OPS[op]
     if _staged(t, group):
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=how, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=how, group=group)
     return t
 
 

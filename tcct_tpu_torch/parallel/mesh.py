@@ -73,23 +73,34 @@ class DataMesh:
         that does not runs replicated, every rank on all of it."""
         return batch % self.data_size == 0
 
-    def width_shard(self):
-        """This rank's ``parallel.spatial.WidthShard`` (None without a
-        ``'model'`` axis above 1)."""
+    def width_shard(self, width: int):
+        """This rank's ``parallel.spatial.WidthShard`` for inputs ``width``
+        columns wide (None without a ``'model'`` axis above 1).  Raises for
+        a width that does not split (``parallel.spatial.width_blocks``)."""
         if self.model_size == 1:
             return None
-        from tcct_tpu_torch.parallel.spatial import WidthShard
+        from tcct_tpu_torch.parallel.spatial import WidthShard, width_blocks
 
-        return WidthShard(self.model_rank, self.model_size, self.model_group)
+        return WidthShard(self.model_rank, width_blocks(width, self.model_size),
+                          self.model_group)
 
-    def all_gather_blocks(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's block ``t`` [b, H, w, ...] of a batch (its rows and
-        its columns) gathered into the whole [D * b, H, M * w, ...] on every
-        rank; at ``'model'`` 1, :meth:`all_gather_rows`."""
+    def all_gather_blocks(self, t: torch.Tensor, width: int) -> torch.Tensor:
+        """Every rank's block ``t`` [b, H, w, ...] of a batch ``width``
+        columns wide (its rows and its columns, as :func:`shard_batch` cuts
+        them) gathered into the whole [D * b, H, width, ...] on every rank;
+        at ``'model'`` 1, :meth:`all_gather_rows`.  A narrower block travels
+        padded to the widest and is cropped."""
         if self.model_size == 1:
             return self.all_gather_rows(t)
-        parts = self.all_gather_rows(t[None])  # [D * M, b, H, w, ...] in rank order
-        rows = [torch.cat(list(parts[d * self.model_size:(d + 1) * self.model_size]), dim=2)
+        from tcct_tpu_torch.parallel.spatial import width_blocks
+
+        M = self.model_size
+        widths = width_blocks(width, M)
+        pad = max(widths) - t.shape[2]
+        if pad:
+            t = torch.cat([t, t.new_zeros(t.shape[:2] + (pad,) + t.shape[3:])], dim=2)
+        parts = self.all_gather_rows(t[None])  # [D * M, b, H, max(widths), ...] in rank order
+        rows = [torch.cat([parts[d * M + m][:, :, :widths[m]] for m in range(M)], dim=2)
                 for d in range(self.data_size)]
         return torch.cat(rows)
 
@@ -184,8 +195,11 @@ def shard_batch(mesh: Optional[DataMesh], batch):
     array) of ``batch`` (one, or a tuple or list of them), as JAX's
     ``P('data')`` lays them out; on a ``'model'`` axis above 1 a 4-D
     (NHWC) one also its block of the width (axis 2), as JAX's
-    ``data_sharding``.  A batch whose rows do not split over the mesh, or
-    no mesh, comes back whole."""
+    ``data_sharding``, in whole 16-column units
+    (``parallel.spatial.width_blocks``: where W / 16 is not a multiple of M
+    the first ranks hold one unit more, where JAX splits W / M evenly).  A
+    batch whose rows do not split over the mesh, or no mesh, comes back
+    whole."""
     if isinstance(batch, (tuple, list)):
         return type(batch)(shard_batch(mesh, b) for b in batch)
     if mesh is None or not mesh.shards(batch.shape[0]):
@@ -193,11 +207,11 @@ def shard_batch(mesh: Optional[DataMesh], batch):
     rows = mesh.rows(batch.shape[0])
     batch = batch[rows.start:rows.stop]
     if mesh.model_size > 1 and batch.ndim == 4:
-        w = batch.shape[2] // mesh.model_size
-        if batch.shape[2] % mesh.model_size:
-            raise ValueError(f"shard_batch: a width of {batch.shape[2]} does not split over "
-                             f"{mesh.model_size} 'model' ranks")
-        batch = batch[:, :, mesh.model_rank * w:(mesh.model_rank + 1) * w]
+        from tcct_tpu_torch.parallel.spatial import width_blocks
+
+        blocks = width_blocks(batch.shape[2], mesh.model_size)
+        start = sum(blocks[:mesh.model_rank])
+        batch = batch[:, :, start:start + blocks[mesh.model_rank]]
     return batch
 
 

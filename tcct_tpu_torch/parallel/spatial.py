@@ -4,9 +4,11 @@ shards an NHWC tensor's width over a ``'model'`` mesh axis, and XLA inserts
 each conv's halo exchange), written out.
 
 Each rank of a ``'model'`` group holds a contiguous block of every B-scan's
-columns at every level of the network: ``w`` columns of a level ``size * w``
-wide, from column ``rank * w`` on (the widths split evenly at every level,
-see ``infer/predictor.py``).  What couples columns needs the neighbours':
+columns at every level of the network: the input's columns split in whole
+16-column units (:func:`width_blocks`; 96 over 4 ranks: 32, 32, 16, 16), so
+that a rank holding ``b`` input columns holds ``b / s`` of a level ``1/s`` of
+the input's width, from the sum of the ranks before it on
+(:meth:`WidthShard.level`).  What couples columns needs the neighbours':
 
 - a stride-1 conv with padding ``(ph, pw)`` takes ``pw`` halo columns from
   each side and runs with padding ``(ph, 0)``; a stride-2 3x3 conv (the
@@ -16,13 +18,26 @@ see ``infer/predictor.py``).  What couples columns needs the neighbours':
 - the MetaPool site's window runs over the flat token order, in which a
   row's first token follows the row before's last: its halos wrap
   (:meth:`WidthShard.halos` with ``wrap=True``;
-  ``ops/kernels/metapool.py::metapool_block_shard``);
+  ``ops/kernels/metapool.py::metapool_block_shard``); the ``metapool2d``
+  mixer's spatial window takes one column a side without the wrap
+  (``ops/pool.py::metapool_spatial_shard``);
+- the fused CrossCNN block (K4) runs on its input widened by ``k // 2 + 2``
+  columns a side, its receptive radius, and is cropped; on a side that is
+  the image's edge it takes no halo (``clip=True``), so that the kernel's
+  own zero padding of each conv's input stands at the edge
+  (``models/crosscnn.py::cross_resnet_fused``);
 - the decoder's 2x bilinear upsampling with ``align_corners=True`` takes its
   source coordinates from the global width
-  (``ops/resize.py::upsample2x_aligned_shard``).
+  (``ops/resize.py::upsample2x_aligned_shard``);
+- factorized and hydra attention reduce over all tokens: their partial sums
+  (and factor's softmax max and sum) are all-reduced in the group
+  (:meth:`WidthShard.all_reduce_`, ``models/mpvit.py``).
 
-1x1 convs, eval BatchNorm, LayerNorm, the MLPs, 2x2 max-pooling (at even
-offsets) and the argmax are local.
+A halo may be wider than a neighbour's block (``msca``'s 1x21 strip conv
+needs 10 columns where duke's deepest level has 9 a rank at M = 4): it is
+cut from as many ranks as it reaches.  1x1 convs, eval BatchNorm,
+LayerNorm, the MLPs, 2x2 max-pooling and ReLayNet's pooling with masks and
+unpooling (at even offsets) and the argmax are local.
 
 :class:`WidthShard` is one rank's place; :func:`width_shard` makes the
 modules of a model see it for the length of a forward, in the idiom of
@@ -49,26 +64,48 @@ import torch.nn as nn
 from tcct_tpu_torch.parallel import distributed as D
 
 # the deepest level of an FTC model is 1/16 of the input's width (the MPViT
-# stem, three pooling stages; the CNN branch's four pools): a width splits
-# over M ranks when it is a multiple of WIDTH_QUANTUM * M
+# stem, three pooling stages; the CNN branch's four pools): the input's
+# columns split over the ranks in whole units of WIDTH_QUANTUM columns
 WIDTH_QUANTUM = 16
 
-# mixers whose token pass is local but for the MetaPool window
-SHARDED_MIXERS = ("metapool", "metapool_pallas")
-# what a width shard does not serve yet, and the ROADMAP item that ports it
-NOT_SHARDED = {
-    "factor": "A.11.1 (attention over all tokens: an all-reduce over the 'model' group)",
-    "hydra": "A.11.1 (attention over all tokens: an all-reduce over the 'model' group)",
-    "metapool2d": "A.11.2 (the spatial pool's halo)",
-    "relay": "A.11.3 (ReLayNet's pooling indices and unpooling)",
-    "fused": "A.11.4 (K4, the fused CrossCNN block, on a six-conv halo)",
-}
+
+def width_blocks(width: int, size: int) -> Tuple[int, ...]:
+    """Each rank's columns of an input ``width`` columns wide over ``size``
+    ``'model'`` ranks: the ``width / 16`` whole 16-column units split as
+    evenly as possible, the first ``(width / 16) mod size`` ranks one unit
+    more (672 over 4: 176, 176, 160, 160).  Every level's offsets then stay
+    whole and even before each 2x2 pool and stride-2 conv.
+
+    Raises where ``width`` is not a multiple of ``size`` (JAX's rule: its
+    ``NamedSharding`` wants a sharded dimension divisible by the mesh
+    axis), where it is not a multiple of 16 (the deepest level is 1/16),
+    and where a rank would hold no columns."""
+    if width % size:
+        raise ValueError(f"width shard: a width of {width} does not split over {size} 'model' "
+                         "ranks: as in JAX, whose NamedSharding wants a sharded dimension "
+                         "divisible by the size of its mesh axis")
+    if width % WIDTH_QUANTUM:
+        raise ValueError(f"width shard: a width of {width} is not a multiple of "
+                         f"{WIDTH_QUANTUM} (the deepest level is 1/{WIDTH_QUANTUM})")
+    units = width // WIDTH_QUANTUM
+    if units < size:
+        raise ValueError(f"width shard: a width of {width} has {units} {WIDTH_QUANTUM}-column "
+                         f"units for {size} 'model' ranks: a rank would hold no columns")
+    base, extra = divmod(units, size)
+    return tuple(WIDTH_QUANTUM * (base + (r < extra)) for r in range(size))
 
 
 def _edges(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     """What a rank sends: its first ``right`` and last ``left`` columns of
-    NHWC ``x`` [B, H, w, C], in one [B, H, right + left, C] tensor."""
-    return torch.cat([x[:, :, :right], x[:, :, x.shape[2] - left:]], dim=2).contiguous()
+    NHWC ``x`` [B, H, w, C], in one [B, H, right + left, C] tensor.  A rank
+    narrower than a halo sends all its columns, the first ones at the start
+    of their slot and the last ones at its end, zeros between: every rank
+    sends one shape."""
+    w = x.shape[2]
+    r, l = min(w, right), min(w, left)
+    parts = [x[:, :, :r], x.new_zeros(x.shape[:2] + (right - r + left - l,) + x.shape[3:]),
+             x[:, :, w - l:]]
+    return torch.cat(parts, dim=2).contiguous()
 
 
 def _row_shift(t: torch.Tensor, down: bool) -> torch.Tensor:
@@ -78,43 +115,62 @@ def _row_shift(t: torch.Tensor, down: bool) -> torch.Tensor:
     return torch.cat([z, t[:, :-1]], 1) if down else torch.cat([t[:, 1:], z], 1)
 
 
-def assemble_halos(edges: Sequence[torch.Tensor], rank: int, size: int, left: int, right: int,
-                   wrap: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rank ``rank``'s halos from every rank's :func:`_edges`: ``left``
-    columns of the rank before (its last) and ``right`` of the rank after
-    (its first), NHWC [B, H, k, C].  At the global edges they are zeros;
-    with ``wrap`` (the MetaPool window's flat token order) the first rank's
-    left halo is the last rank's last columns one row up (row h takes row
-    h - 1, row 0 zeros) and the last rank's right halo the first rank's
-    first columns one row down."""
-    lh = edges[(rank - 1) % size][:, :, right:]
-    rh = edges[(rank + 1) % size][:, :, :right]
-    if rank == 0:
-        lh = _row_shift(lh, down=True) if wrap else torch.zeros_like(lh)
-    if rank == size - 1:
-        rh = _row_shift(rh, down=False) if wrap else torch.zeros_like(rh)
+def assemble_halos(edges: Sequence[torch.Tensor], rank: int, widths: Sequence[int], left: int,
+                   right: int, wrap: bool = False,
+                   clip: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank ``rank``'s halos from every rank's :func:`_edges`: the ``left``
+    columns before its block and the ``right`` after it, NHWC [B, H, k, C],
+    cut from as many ranks on each side as they take (``widths``: every
+    rank's columns at this level).  Past the global edges they are zeros,
+    or with ``clip`` absent (a halo then stops at the image's edge).  With
+    ``wrap`` (the MetaPool window's flat token order; one column a side)
+    the first rank's left halo is the last rank's last column one row up
+    (row h takes row h - 1, row 0 zeros) and the last rank's right halo the
+    first rank's first column one row down."""
+    size, e = len(widths), edges[rank]
+
+    def zeros(n):
+        return e.new_zeros(e.shape[:2] + (n,) + e.shape[3:])
+
+    lpieces, need, j = [], left, rank - 1
+    while need and j >= 0:
+        k = min(need, widths[j])
+        lpieces.insert(0, edges[j][:, :, right + left - k:])
+        need, j = need - k, j - 1
+    if need and not clip:
+        lpieces.insert(0, zeros(need))
+    rpieces, need, j = [], right, rank + 1
+    while need and j < size:
+        k = min(need, widths[j])
+        rpieces.append(edges[j][:, :, :k])
+        need, j = need - k, j + 1
+    if need and not clip:
+        rpieces.append(zeros(need))
+    lh = torch.cat(lpieces, 2) if lpieces else zeros(0)
+    rh = torch.cat(rpieces, 2) if rpieces else zeros(0)
+    if wrap:
+        if (left, right) != (1, 1):
+            raise ValueError(f"width shard: a wrapped halo is one column a side, not "
+                             f"({left}, {right})")
+        if rank == 0:
+            lh = _row_shift(edges[size - 1][:, :, right:], down=True)
+        if rank == size - 1:
+            rh = _row_shift(edges[0][:, :, :right], down=False)
     return lh, rh
 
 
-def check_halo(left: int, right: int, width: int) -> None:
-    """A halo comes from the neighbouring rank only: no wider than its
-    ``width`` columns."""
-    if max(left, right) > width:
-        raise ValueError(f"width shard: a halo of {max(left, right)} columns is wider than a "
-                         f"rank's {width} at this level; use fewer 'model' ranks or a wider "
-                         "input")
-
-
-def cut_halos(whole: torch.Tensor, rank: int, size: int, left: int, right: int,
-              wrap: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def cut_halos(whole: torch.Tensor, rank: int, widths: Sequence[int], left: int, right: int,
+              wrap: bool = False,
+              clip: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(shard, left halo, right halo)`` of rank ``rank`` cut from the whole
-    NHWC tensor in one process: what an exchange gives that rank."""
-    if whole.shape[2] % size:
-        raise ValueError(f"width shard: {whole.shape[2]} columns do not split over {size} ranks")
-    parts = torch.chunk(whole, size, 2)
-    check_halo(left, right, parts[0].shape[2])
+    NHWC tensor in one process: what an exchange gives that rank.  The
+    ranks hold ``widths`` columns each."""
+    if sum(widths) != whole.shape[2]:
+        raise ValueError(f"width shard: blocks {tuple(widths)} are not "
+                         f"{whole.shape[2]} columns")
+    parts = torch.split(whole, list(widths), 2)
     edges = [_edges(p, left, right) for p in parts]
-    return (parts[rank],) + assemble_halos(edges, rank, size, left, right, wrap)
+    return (parts[rank],) + assemble_halos(edges, rank, widths, left, right, wrap, clip)
 
 
 def pad_columns(x: torch.Tensor, lh: torch.Tensor, rh: torch.Tensor) -> torch.Tensor:
@@ -125,41 +181,66 @@ def pad_columns(x: torch.Tensor, lh: torch.Tensor, rh: torch.Tensor) -> torch.Te
 
 @dataclasses.dataclass
 class WidthShard:
-    """One rank's place in a ``'model'`` group: ``rank`` of ``size`` ranks,
-    each holding a contiguous block of every level's columns, and the
-    group's process ``group`` (None: the default group).  ``stats`` counts
-    the exchanges and the bytes each rank sends."""
+    """One rank's place in a ``'model'`` group: rank ``rank`` of the ranks
+    whose columns at the input are ``blocks`` (:func:`width_blocks`), each
+    holding a contiguous block of every level's columns, and the group's
+    process ``group`` (None: the default group).  ``stats`` counts the halo
+    exchanges and the bytes each rank sends in them (``exchanges``,
+    ``bytes``), and the all-reduces of the attention mixers with theirs
+    (``reduces``, ``reduce_bytes``)."""
 
     rank: int
-    size: int
+    blocks: Tuple[int, ...]
     group: Optional[object] = None
     stats: Counter = dataclasses.field(default_factory=Counter)
+
+    @property
+    def size(self) -> int:
+        return len(self.blocks)
+
+    def widths(self, w: int) -> Tuple[int, ...]:
+        """Every rank's columns at the level at which this rank holds
+        ``w``."""
+        scale, rem = divmod(self.blocks[self.rank], w)
+        if rem or scale & (scale - 1) or any(b % scale for b in self.blocks):
+            raise ValueError(f"width shard: {w} columns are no level of the blocks "
+                             f"{self.blocks} (rank {self.rank})")
+        return tuple(b // scale for b in self.blocks)
 
     def level(self, w: int) -> Tuple[int, int]:
         """(offset, global width) of a level at which this rank holds ``w``
         columns."""
-        return self.rank * w, self.size * w
+        ws = self.widths(w)
+        return sum(ws[:self.rank]), sum(ws)
 
     def require_even(self, w: int, what: str) -> None:
         """A stride-2 operation keeps its output grid on the global one only
-        where the shard's offset is even."""
-        if w % 2:
-            raise ValueError(f"width shard: {what} at an odd offset ({w} columns a rank): the "
-                             "input's width must be a multiple of "
-                             f"{WIDTH_QUANTUM} x {self.size}")
+        where the shard's offset and width are even."""
+        off = self.level(w)[0]
+        if off % 2 or w % 2:
+            raise ValueError(f"width shard: {what} at an odd offset or width ({w} columns from "
+                             f"column {off}): the input's columns must split in whole "
+                             f"{WIDTH_QUANTUM}-column units (parallel/spatial.py::width_blocks)")
 
-    def halos(self, x: torch.Tensor, left: int, right: int,
-              wrap: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def halos(self, x: torch.Tensor, left: int, right: int, wrap: bool = False,
+              clip: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """The halos of NHWC ``x`` [B, H, w, C]: ``left`` columns from the
-        rank before and ``right`` from the rank after (see
-        :func:`assemble_halos`), by one all-gather of every rank's edge
-        columns inside the group."""
-        check_halo(left, right, x.shape[2])
+        ranks before and ``right`` from the ranks after, as many ranks as
+        they reach (see :func:`assemble_halos`), by one all-gather of every
+        rank's edge columns inside the group."""
+        widths = self.widths(x.shape[2])
         edges = _edges(x, left, right)
         self.stats["exchanges"] += 1
         self.stats["bytes"] += edges.numel() * edges.element_size()
         parts = D.all_gather_rows(edges[None], self.group).unbind(0)
-        return assemble_halos(parts, self.rank, self.size, left, right, wrap)
+        return assemble_halos(parts, self.rank, widths, left, right, wrap, clip)
+
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (``op='sum'``) or maximised (``'max'``) over the
+        group, in place: the attention mixers' reductions over all tokens."""
+        self.stats["reduces"] += 1
+        self.stats["reduce_bytes"] += t.numel() * t.element_size()
+        return D.all_reduce_(t, self.group, op)
 
 
 @contextlib.contextmanager
@@ -180,20 +261,3 @@ def width_shard(model: nn.Module, shard: Optional[WidthShard]):
         for m in mods:
             m.width_shard = None
 
-
-def check_servable(model: nn.Module, cnn_impl: str = "plain") -> None:
-    """Raise ``NotImplementedError`` for what a width shard does not serve:
-    the attention and spatial-pool mixers, ReLayNet and the fused CNN
-    branch, each naming the ROADMAP item that ports it."""
-    base = getattr(model, "base", model)
-    cfg = getattr(base, "vit_cfg", None)
-    if cfg is None:
-        what = "relay"
-    elif cnn_impl == "fused":
-        what = "fused"
-    elif getattr(base, "flag_vit", True) and cfg.mixer not in SHARDED_MIXERS:
-        what = cfg.mixer
-    else:
-        return
-    raise NotImplementedError(f"width sharding does not serve {what!r} yet: ROADMAP "
-                              f"{NOT_SHARDED[what]}")

@@ -402,7 +402,7 @@ def test_model_axis_refused():
     from tcct_tpu_torch.parallel.mesh import DataMesh
 
     mesh = make_mesh(1, ("data", "model"), shape=(1, 1))
-    assert mesh.shape == {"data": 1, "model": 1} and mesh.width_shard() is None
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.width_shard(96) is None
     with pytest.raises(RuntimeError, match="need 8 devices, only 1 visible"):
         make_mesh(8, ("data", "model"), shape=(2, 4))
     wide = DataMesh(("data", "model"), {"data": 2, "model": 4}, 8, 5, None,

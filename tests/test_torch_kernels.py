@@ -328,7 +328,7 @@ def _shard_site(x, M, m, affine, fn=None):
     from tcct_tpu_torch.ops.kernels.metapool import metapool_block_shard
 
     B, H, _, C = x.shape
-    xs, lh, rh = cut_halos(x, m, M, 1, 1, wrap=True)
+    xs, lh, rh = cut_halos(x, m, (x.shape[2] // M,) * M, 1, 1, wrap=True)
     return (fn or metapool_block_shard)(xs.reshape(B, -1, C), lh[:, :, 0], rh[:, :, 0], m == 0,
                                         m == M - 1, *affine)
 

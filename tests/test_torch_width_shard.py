@@ -37,10 +37,16 @@ from tcct_tpu_torch.ops.kernels.metapool import (
     metapool_block_shard,
     metapool_block_shard_reference,
 )
-from tcct_tpu_torch.ops.pool import max_pool_2d
+from tcct_tpu_torch.models.crosscnn import (
+    cross_block_halo,
+    fused_cross_block_shard,
+    seeded_cross_block,
+)
+from tcct_tpu_torch.ops.kernels.crosscnn_fused import fused_cross_block
+from tcct_tpu_torch.ops.pool import max_pool_2d, metapool_spatial, metapool_spatial_shard
 from tcct_tpu_torch.ops.resize import upsample2x_aligned_shard
 from tcct_tpu_torch.parallel.mesh import DataMesh, shard_batch
-from tcct_tpu_torch.parallel.spatial import WidthShard, assemble_halos, cut_halos
+from tcct_tpu_torch.parallel.spatial import WidthShard, assemble_halos, cut_halos, width_blocks
 
 RANKS = (2, 4)
 
@@ -60,13 +66,22 @@ def seeded_conv(cin, cout, k, stride, pad, groups, seed=1):
     return c
 
 
-def sharded_conv(conv, x, M, residual=False, zero_halos=False):
-    """The conv's shards, each from its halos, concatenated by columns."""
+def even(W, M):
+    """M equal blocks of W columns."""
+    return (W // M,) * M
+
+
+def sharded_conv(conv, x, M, residual=False, zero_halos=False, blocks=None):
+    """The conv's shards, each from its halos, concatenated by columns;
+    ``blocks``: the ranks' input columns of which ``x`` is a level (default:
+    M equal blocks of ``x``'s)."""
+    blocks = blocks or even(x.shape[3], M)
     outs = []
     for m in range(M):
-        conv.width_shard = WidthShard(m, M)
+        conv.width_shard = WidthShard(m, blocks)
         left, right = conv.halo_columns(x)
-        xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, M, left, right)
+        widths = conv.width_shard.widths(blocks[m] * x.shape[3] // sum(blocks))
+        xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, widths, left, right)
         if zero_halos:
             lh, rh = torch.zeros_like(lh), torch.zeros_like(rh)
         outs.append(conv.conv_with_halos(xs.permute(0, 3, 1, 2), lh, rh, residual))
@@ -102,6 +117,20 @@ def test_conv_shards_reassemble(case, M):
         assert float((bad - want).abs().max()) > 1e-2
 
 
+@pytest.mark.parametrize("width", [96, 12])
+@pytest.mark.parametrize("case", CONVS, ids=[c[0] for c in CONVS])
+@torch.no_grad()
+def test_conv_shards_reassemble_at_uneven_blocks(case, width):
+    """The same convs on the blocks of a 96-column input over 4 ranks (32,
+    32, 16, 16), at the input and at its 1/8 level (4, 4, 2, 2 columns: the
+    1x13's and 1x21's halos reach past two and three ranks)."""
+    _, cin, cout, k, s, p, g = case
+    conv = seeded_conv(cin, cout, k, s, p, g)
+    x = image(2, cin, 6, width, seed=12)
+    got = sharded_conv(conv, x, 4, blocks=width_blocks(96, 4))
+    torch.testing.assert_close(got, conv(x), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("M", RANKS)
 @torch.no_grad()
 def test_convposenc_epilogue_shards_reassemble(M):
@@ -125,27 +154,26 @@ def test_k2_s2_keeps_the_global_output_grid(M):
     want = dwconv3x3_reference(xn, w, 2)
     outs, odd = [], []
     for m in range(M):
-        xs, lh, _ = cut_halos(xn, m, M, 2, 0)
+        xs, lh, _ = cut_halos(xn, m, even(32, M), 2, 0)
         outs.append(dwconv3x3_reference(torch.cat([lh, xs], 2), w, 2)[:, :, 1:])
         odd.append(dwconv3x3_reference(torch.cat([lh[:, :, 1:], xs], 2), w, 2)[:, :, :-1])
     assert torch.equal(torch.cat(outs, 2), want)
     assert float((torch.cat(odd, 2) - want).abs().max()) > 1e-2
 
 
-def test_msca_strip_halo_wider_than_a_rank_raises():
-    """``msca``'s 1x21 strip conv needs 10 columns from each neighbour: on 9
-    columns a rank (duke's deepest CNN level over 4 ranks) the exchange
-    refuses before any collective."""
+def test_msca_strip_halo_reaches_past_a_rank():
+    """``msca``'s 1x21 strip conv needs 10 columns from each side: on 9
+    columns a rank (duke's deepest CNN level over 4 ranks) each halo is cut
+    from two ranks, and the shards reassemble the whole conv."""
     conv = seeded_conv(8, 8, (1, 21), 1, (0, 10), 8)
-    conv.width_shard = WidthShard(1, 4)
-    with pytest.raises(ValueError, match="halo of 10 columns is wider than a rank's 9"):
-        conv(image(1, 8, 4, 9))
-    assert conv.width_shard.stats["exchanges"] == 0
+    x = image(1, 8, 4, 36, seed=11)
+    with torch.no_grad():
+        torch.testing.assert_close(sharded_conv(conv, x, 4), conv(x), atol=1e-5, rtol=0)
 
 
 def test_stride2_refuses_an_odd_offset():
     conv = seeded_conv(3, 8, 3, 2, 1, 1)
-    conv.width_shard = WidthShard(1, 2)
+    conv.width_shard = WidthShard(1, (7, 7))
     x = image(1, 3, 4, 7)
     with pytest.raises(ValueError, match="odd offset"):
         conv.conv_with_halos(x, x.permute(0, 2, 3, 1)[:, :, :1], x.permute(0, 2, 3, 1)[:, :, :0])
@@ -161,7 +189,7 @@ def test_max_pool_is_local_at_even_offsets(M):
 def _resize_shards(x, M, local=False):
     outs = []
     for m in range(M):
-        xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, M, 1, 1)
+        xs, lh, rh = cut_halos(x.permute(0, 2, 3, 1), m, even(x.shape[3], M), 1, 1)
         xs = xs.permute(0, 3, 1, 2)
         if local:
             outs.append(F.interpolate(xs, scale_factor=2, mode="bilinear", align_corners=True))
@@ -208,7 +236,7 @@ def sharded_site(x, M, affine, wrap=True, norm_of_zero=False):
     B, H, _, C = x.shape
     ys, ns = [], []
     for m in range(M):
-        xs, lh, rh = cut_halos(x, m, M, 1, 1, wrap=wrap)
+        xs, lh, rh = cut_halos(x, m, even(x.shape[2], M), 1, 1, wrap=wrap)
         first, last = m == 0, m == M - 1
         if norm_of_zero:  # the missing tokens passed as zero rows, normalised as tokens
             first = last = False
@@ -282,22 +310,29 @@ def test_site_shard_refuses_bad_halos_and_opchecks():
 
 def test_halos_wrap_rows_and_refuse_to_reach_past_a_neighbour():
     """The wrapped halos are the whole grid's flat-order neighbours of each
-    row's ends; a halo wider than a rank's columns raises."""
+    row's ends and refuse to reach past the neighbour's one column; an
+    unwrapped halo wider than a rank's columns takes the ranks beyond it."""
     B, H, W, C, M = 1, 3, 8, 2, 4
     x = torch.arange(B * H * W * C, dtype=torch.float32).reshape(B, H, W, C)
     flat = x.reshape(B, H * W, C)
     w = W // M
     for m in range(M):
-        _, lh, rh = cut_halos(x, m, M, 1, 1, wrap=True)
+        _, lh, rh = cut_halos(x, m, even(W, M), 1, 1, wrap=True)
         for h in range(H):
             i0, i1 = h * W + m * w, h * W + m * w + w - 1  # the row's ends, flat
             want_l = flat[:, i0 - 1] if i0 > 0 else torch.zeros(B, C)
             want_r = flat[:, i1 + 1] if i1 + 1 < H * W else torch.zeros(B, C)
             assert torch.equal(lh[:, h, 0], want_l) and torch.equal(rh[:, h, 0], want_r)
-    with pytest.raises(ValueError, match="wider than a rank's 2"):
-        cut_halos(x, 0, M, 3, 3)
+    # a halo wider than a rank's 2 columns reaches the rank beyond; a wrapped one refuses
+    xp = torch.nn.functional.pad(x, (0, 0, 3, 3))  # 3 zero columns beyond each edge
+    for m in range(M):
+        _, lh, rh = cut_halos(x, m, even(W, M), 3, 3)
+        assert torch.equal(lh, xp[:, :, m * w:m * w + 3])
+        assert torch.equal(rh, xp[:, :, m * w + w + 3:m * w + w + 6])
+    with pytest.raises(ValueError, match="one column a side"):
+        cut_halos(x, 0, even(W, M), 3, 3, wrap=True)
     edges = [torch.zeros(1, 2, 2, 1)] * 2
-    lh, rh = assemble_halos(edges, 0, 2, 1, 1)
+    lh, rh = assemble_halos(edges, 0, (1, 1), 1, 1)
     assert lh.shape == rh.shape == (1, 2, 1, 1)
 
 
@@ -320,3 +355,120 @@ def test_mesh_layout_is_jax_data_major_and_shards_the_width():
         assert (mesh.data_rank, mesh.model_rank) == (r // 4, r % 4)
         assert torch.equal(shard_batch(mesh, x), x[idx[0], :, idx[2]])
         assert torch.equal(shard_batch(mesh, x[:, 0, 0]), x[idx[0], 0, 0])  # 2-D: rows only
+
+
+# --- the uneven layout and halos across ranks ------------------------------------------
+
+
+def test_width_blocks_split_whole_units():
+    """Whole 16-column units, the first ranks one more; JAX's divisibility
+    rule, a width not of whole units and a rank with no columns raise."""
+    assert width_blocks(96, 4) == (32, 32, 16, 16)
+    assert width_blocks(672, 4) == (176, 176, 160, 160)
+    assert width_blocks(576, 8) == (80,) * 4 + (64,) * 4
+    assert width_blocks(256, 4) == (64,) * 4
+    with pytest.raises(ValueError, match="divisible by the size of its mesh axis"):
+        width_blocks(512, 3)
+    with pytest.raises(ValueError, match="a rank would hold no columns"):
+        width_blocks(48, 4)
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        width_blocks(100, 4)
+
+
+@pytest.mark.parametrize("W,M", [(96, 4), (672, 4), (576, 8), (576, 4), (144, 6)])
+def test_uneven_layout_offsets_at_every_level(W, M):
+    """At every level 1/s of the input (s = 1 .. 16) each rank's offset and
+    the global width are the whole image's: the blocks tile the level, and
+    before each 2x2 pool or stride-2 conv (s <= 8) every offset and width is
+    even; a 2x2 pool of the blocks is the whole level's pool."""
+    blocks = width_blocks(W, M)
+    for s in (1, 2, 4, 8, 16):
+        ends = 0
+        for r in range(M):
+            shard = WidthShard(r, blocks)
+            w = blocks[r] // s
+            assert shard.level(w) == (ends, W // s)
+            assert shard.widths(w) == tuple(b // s for b in blocks)
+            if s <= 8:
+                shard.require_even(w, "a 2x2 max-pool")
+            ends += w
+        assert ends == W // s
+    with pytest.raises(ValueError, match="no level of the blocks"):
+        WidthShard(0, blocks).level(blocks[0] // 3)
+    x = image(1, 2, 4, W // 8, seed=13)
+    parts = torch.split(x, [b // 8 for b in blocks], 3)
+    got = torch.cat([max_pool_2d(t, 2) for t in parts], 3)
+    assert torch.equal(got, max_pool_2d(x, 2))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_halos_reach_two_and_three_ranks(clip):
+    """Blocks of 2, 1, 1, 2 columns and 4-column halos: each halo is the
+    whole tensor's columns beside the block, from as many ranks as it
+    reaches, zeros past the edges (or, clipped, only the columns there)."""
+    widths = (2, 1, 1, 2)
+    x = torch.arange(1 * 2 * 6 * 3, dtype=torch.float32).reshape(1, 2, 6, 3)
+    xp = torch.nn.functional.pad(x, (0, 0, 4, 4))
+    start = 0
+    for m, w in enumerate(widths):
+        xs, lh, rh = cut_halos(x, m, widths, 4, 4, clip=clip)
+        assert torch.equal(xs, x[:, :, start:start + w])
+        lo, hi = start + 4 - 4, start + w + 4  # in xp's columns
+        want_l, want_r = xp[:, :, lo:start + 4], xp[:, :, start + w + 4:hi + 4]
+        if clip:
+            want_l, want_r = want_l[:, :, 4 - min(4, start):], want_r[:, :, :min(4, 6 - start - w)]
+        assert torch.equal(lh, want_l) and torch.equal(rh, want_r), m
+        start += w
+
+
+@pytest.mark.parametrize("widths", [(32, 32, 16, 16), (4, 4, 2, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_metapool2d_shards_reassemble_bitwise(dtype, widths):
+    """The spatial MetaPool on a shard (one halo column a side, zeros at the
+    edges, the whole grid's counts at the shard's columns): the whole grid's
+    ``metapool_spatial`` bit for bit, f32 and bf16, at even and uneven
+    blocks (a 96-column grid's, and its 1/8 level's); teeth: the shard's own
+    counts (2 at its ends) miss."""
+    B, Hh, C, W = 2, 5, 6, sum(widths)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal((B, Hh, W, C))
+                         .astype(np.float32)).to(dtype)
+    want = metapool_spatial(x.reshape(B, -1, C), (Hh, W))
+    outs, bad, off = [], [], 0
+    for m, w in enumerate(widths):
+        xs, lh, rh = cut_halos(x, m, widths, 1, 1)
+        t = xs.reshape(B, -1, C)
+        outs.append(metapool_spatial_shard(t, (Hh, w), lh, rh, off, W).reshape(B, Hh, w, C))
+        bad.append(metapool_spatial_shard(t, (Hh, w), lh, rh, 0, w).reshape(B, Hh, w, C))
+        off += w
+    assert torch.equal(torch.cat(outs, 2).reshape(B, -1, C), want)
+    assert float((torch.cat(bad, 2).reshape(B, -1, C) - want).float().abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("widths", [(16, 16, 8, 8), (4, 4, 2, 2)])
+@torch.no_grad()
+def test_k4_on_haloed_shards_matches_the_whole_map(widths):
+    """K4's plain version (the CPU op) on each block widened by ``k // 2 + 2``
+    halo columns a side, none past the image's edges (``clip``), cropped:
+    the whole map's columns (within 1e-5: another width may sum in another
+    order).  At (4, 4, 2, 2) the 4-column halos reach past two ranks and the
+    third rank's right halo stops at the edge.  Teeth: zero halo columns at
+    the edges, as an input, carry bias, BN shift and GELU values into the
+    edge columns and miss by far."""
+    k = 5
+    h = cross_block_halo(k)
+    blk = seeded_cross_block(8, 16, k, seed=15)
+    x = image(2, 8, 6, sum(widths), seed=16).permute(0, 2, 3, 1).contiguous()
+    want = fused_cross_block(x, blk)
+    for clip in (True, False):
+        outs = []
+        for m in range(4):
+            xs, lh, rh = cut_halos(x, m, widths, h, h, clip=clip)
+            outs.append(fused_cross_block_shard(xs, blk, lh, rh))
+        got = torch.cat(outs, 2)
+        assert got.shape == want.shape
+        if clip:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        else:
+            err = (got - want).abs().amax(dim=(0, 1, 3))
+            assert float(err[0]) > 1e-2 and float(err[-1]) > 1e-2
+            assert float(err[h:-h].max()) <= 1e-5  # only the edge columns' fields

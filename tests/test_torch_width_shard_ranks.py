@@ -2,12 +2,11 @@
 one thread each, as ``('data', 'model')`` meshes of shape (1, 4) and (2, 2),
 against one process and against the JAX package's unsharded predictor.
 
-The children run :func:`_child` (``python -c``, this file imported from
-``tests/``), meet through a ``FileStore`` in ``tmp_path``, run every case in
-one go and write their results with ``torch.save``; every ``communicate``
-has a timeout and a child still running after it is killed, and the
-process group's own timeout bounds each collective.  The references run in
-this process while the children run.
+The children run :func:`child` through ``tests/torch_ws_harness.py::run_ranks``
+(``python -c``, this file imported from ``tests/``), meet through a
+``FileStore`` in ``tmp_path``, run every case in one go and write their
+results with ``torch.save``; the references run in this process while the
+children run.
 
 What is held (the JAX test ``tests/test_sharding.py::
 test_spatial_sharded_predictor_matches`` is the model): ``stc_tt``
@@ -25,36 +24,34 @@ the same weights in every rank, in the one-process port and in JAX
   (1, 4), likewise against the one-process port;
 - the halo exchanges a batch, counted on every rank;
 - the errors: ``make_mesh`` for a shape that does not match the ranks, the
-  predictor for a width that does not split and for the models a width
-  shard does not serve.
+  predictor for a width that does not split.
+
+The rest of the zoo on a width shard is ``tests/test_torch_width_shard_zoo.py``'s.
 """
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
+import torch_ws_harness as H
 from tcct_tpu_torch.data.geometry import DatasetGeometry
 from tcct_tpu_torch.infer.predictor import VolumePredictor
 from tcct_tpu_torch.models import RegNet, get_model
 from tcct_tpu_torch.models.layers import init_weights
 from tcct_tpu_torch.models.mpvit import MPViTConfig
 from tcct_tpu_torch.models.ftc import FTC
-from tcct_tpu_torch.parallel.mesh import DataMesh, shard_batch
+from tcct_tpu_torch.parallel.mesh import DataMesh
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, NC, BATCH = 4, 5, 4
 GEO = DatasetGeometry("wide", NC, 0, 64, "resize", (64, 256))
 MESHES = ((1, 4), (2, 2))
-CHILD_TIMEOUT_S = 240
 
 
 def volume() -> np.ndarray:
     """The JAX test's volume: 4 uint8 scans, 64x256, seed 5."""
-    return np.random.default_rng(5).integers(0, 255, (BATCH, 64, 256, 3), dtype=np.uint8)
+    return H.volume(BATCH, (64, 256))
 
 
 def stc_tt() -> RegNet:
@@ -78,15 +75,11 @@ STC_TT_EXCHANGES = (1 + 5 * 5) + (2 + 4 * 4) + (1 + 4 * 2)
 
 
 def _serve(model, mesh):
-    """The predictor's maps of the volume, and the main head's logits of
-    this rank's block (rows and columns) of its one batch."""
-    pred = VolumePredictor(model, GEO, batch_size=BATCH, dtype=torch.float32, device="cpu",
-                           mesh=mesh)
-    vol = volume()
-    maps = pred.predict_scans(vol)
-    stats = dict(pred.shard.stats) if pred.shard is not None else {}
-    block = torch.from_numpy(np.ascontiguousarray(shard_batch(mesh, vol)))
-    return {"maps": maps, "logits": pred.logits(block), "exchanges": stats}
+    """The predictor's maps of the volume, the main head's logits of this
+    rank's block (rows and columns) of its one batch, the exchanges."""
+    got = H.serve(model, GEO, BATCH, mesh, "plain", volume())
+    got["exchanges"] = got.pop("stats")
+    return got
 
 
 def _load(name: str, weights: str) -> RegNet:
@@ -95,12 +88,10 @@ def _load(name: str, weights: str) -> RegNet:
     return model
 
 
-def _child(rank: int, world: int, store: str, out: str, weights: str) -> None:
-    torch.set_num_threads(1)
-    from tcct_tpu_torch.parallel import init_distributed, make_mesh
+def child(rank: int, world: int, store: str, out: str, weights: str) -> None:
+    from tcct_tpu_torch.parallel import make_mesh
 
-    init_distributed(f"file://{store}", world, rank, backend="gloo", device="cpu",
-                     timeout_s=CHILD_TIMEOUT_S // 2)
+    H.init_child(rank, world, store)
     res = {}
     try:
         make_mesh(world, ("data", "model"), shape=(2, 3))
@@ -149,33 +140,8 @@ def ranks(tmp_path_factory, weights, one_thread):
     """Every child's results (a list by rank), and the references computed
     here while they ran: the one-process port's logits and maps, stc_tb's,
     and the JAX predictor's maps and logits on the same weights."""
-    tmp = tmp_path_factory.mktemp("ws_ranks")
-    out = str(tmp / "res")
-    code = (f"import sys; sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'tests')!r}]\n"
-            "from test_torch_width_shard_ranks import _child\n"
-            "_child(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])\n")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("TCCT_NUM_PROCESSES", "TCCT_PROCESS_ID", "TCCT_COORDINATOR",
-                        "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(WORLD),
-                               str(tmp / "store"), out, weights[1]],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
-    logs = []
-    try:
-        refs = _references(weights[0])
-        for p in procs:
-            logs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
-    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(WORLD)], refs
+    return H.run_ranks("test_torch_width_shard_ranks", WORLD, tmp_path_factory.mktemp("ws_ranks"),
+                       weights[1], lambda: _references(weights[0]))
 
 
 def _references(models):
@@ -208,13 +174,6 @@ def _references(models):
     return refs
 
 
-def _block(t: torch.Tensor, coords, shape) -> torch.Tensor:
-    """Rank (d, m)'s rows and columns of a whole [B, H, W, ...] tensor."""
-    (d, m), (D, M) = coords, shape
-    b, w = t.shape[0] // D, t.shape[2] // M
-    return t[d * b:(d + 1) * b, :, m * w:(m + 1) * w]
-
-
 @pytest.mark.parametrize("shape", MESHES)
 def test_width_sharded_stc_tt_matches_one_process(ranks, shape):
     """Logits within 1e-4 of one process at each rank's block, maps on
@@ -224,7 +183,7 @@ def test_width_sharded_stc_tt_matches_one_process(ranks, shape):
         got = res[r][shape]
         assert got["maps"].shape == (BATCH, 64, 256) and got["maps"].dtype == np.uint8
         np.testing.assert_array_equal(got["maps"], res[0][shape]["maps"])
-        want = _block(refs["stc_tt"]["logits"], got["coords"], shape)
+        want = H.block_of(refs["stc_tt"]["logits"], got["coords"], shape)
         torch.testing.assert_close(got["logits"], want, atol=1e-4, rtol=0)
     assert len(np.unique(refs["stc_tt"]["maps"])) > 1
     assert (res[0][shape]["maps"] == refs["stc_tt"]["maps"]).mean() > 0.999
@@ -238,7 +197,7 @@ def test_width_sharded_stc_tt_matches_jax(ranks, shape):
     assert (res[0][shape]["maps"] == refs["jax_maps"]).mean() > 0.999
     for r in range(WORLD):
         got = res[r][shape]
-        want = _block(refs["jax_logits"], got["coords"], shape)
+        want = H.block_of(refs["jax_logits"], got["coords"], shape)
         torch.testing.assert_close(got["logits"], want, atol=1e-3, rtol=0)
 
 
@@ -248,7 +207,7 @@ def test_width_sharded_stc_tb_matches_one_process(ranks):
     for r in range(WORLD):
         got = res[r]["stc_tb"]
         np.testing.assert_array_equal(got["maps"], res[0]["stc_tb"]["maps"])
-        want = _block(refs["stc_tb"]["logits"], (0, r), (1, 4))
+        want = H.block_of(refs["stc_tb"]["logits"], (0, r), (1, 4))
         torch.testing.assert_close(got["logits"], want, atol=1e-4, rtol=0)
     assert len(np.unique(refs["stc_tb"]["maps"])) > 1
     assert (res[0]["stc_tb"]["maps"] == refs["stc_tb"]["maps"]).mean() > 0.999
@@ -278,23 +237,35 @@ def _mesh(shape, rank: int = 0) -> DataMesh:
 
 
 def test_predictor_refuses_a_width_that_does_not_split():
+    """A width that is not a multiple of M raises naming JAX's rule (96
+    columns over 5 ranks); so does one whose 16-column units are fewer than
+    the ranks (48 over 4: a rank would hold none).  96 over 4 serves
+    (blocks 32, 32, 16, 16; ``tests/test_torch_width_shard_zoo.py``)."""
     geo = DatasetGeometry("odd", NC, 0, 64, "resize", (64, 96))  # 96 = 16 x 6
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="NamedSharding wants a sharded dimension divisible"):
         VolumePredictor(stc_tt(), geo, batch_size=4, dtype=torch.float32, device="cpu",
+                        mesh=_mesh((1, 5)))
+    narrow = DatasetGeometry("narrow", NC, 0, 64, "resize", (64, 48))
+    with pytest.raises(ValueError, match="a rank would hold no columns"):
+        VolumePredictor(stc_tt(), narrow, batch_size=4, dtype=torch.float32, device="cpu",
                         mesh=_mesh((1, 4)))
-    VolumePredictor(stc_tt(), geo, batch_size=4, dtype=torch.float32, device="cpu",
-                    mesh=_mesh((2, 2)))  # 96 = 32 x 3: splits over 2
+    pred = VolumePredictor(stc_tt(), geo, batch_size=4, dtype=torch.float32, device="cpu",
+                           mesh=_mesh((1, 4), rank=2))
+    assert pred.shard.blocks == (32, 32, 16, 16) and pred.shard.level(16) == (64, 96)
 
 
-@pytest.mark.parametrize("net,mixer,cnn_impl,item", [
-    ("stc_tt", "factor", "plain", "A.11.1"), ("stc_tt", "hydra", "plain", "A.11.1"),
-    ("stc_tt", "metapool2d", "plain", "A.11.2"), ("relay", "metapool", "plain", "A.11.3"),
-    ("stc_tt", "metapool", "fused", "A.11.4")])
-def test_predictor_refuses_what_a_shard_does_not_serve(net, mixer, cnn_impl, item):
+@pytest.mark.parametrize("net,mixer,cnn_impl", [
+    ("stc_tt", "factor", "plain"), ("stc_tt", "hydra", "plain"),
+    ("stc_tt", "metapool2d", "plain"), ("relay", "metapool", "plain"),
+    ("stc_tt", "metapool", "fused")])
+def test_predictor_builds_what_a_shard_once_refused(net, mixer, cnn_impl):
+    """The attention and spatial-pool mixers, ReLayNet and the fused CNN
+    branch build on a (2, 2) mesh (they are served on four ranks in
+    ``tests/test_torch_width_shard_zoo.py``)."""
     model = RegNet(get_model(net, NC, mixer=mixer), out_channels=NC)
-    with pytest.raises(NotImplementedError, match=item):
-        VolumePredictor(model, GEO, batch_size=4, dtype=torch.float32, device="cpu",
-                        cnn_impl=cnn_impl, mesh=_mesh((2, 2)))
+    pred = VolumePredictor(model, GEO, batch_size=4, dtype=torch.float32, device="cpu",
+                           cnn_impl=cnn_impl, mesh=_mesh((2, 2)))
+    assert pred.shard.blocks == (128, 128)
 
 
 def test_width_shard_does_not_train():
