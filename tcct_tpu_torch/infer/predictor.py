@@ -39,6 +39,7 @@ from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
 from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
 from tcct_tpu_torch.parallel.mesh import shard_batch
 from tcct_tpu_torch.parallel.spatial import width_shard
+from tcct_tpu_torch.utils.tracing import span
 
 
 class VolumePredictor:
@@ -91,7 +92,9 @@ class VolumePredictor:
         with width_shard(self.model, self.shard):
             if self.cnn_impl == "fused":
                 base = getattr(self.model, "base", self.model)
-                return self.model(x, cnn_feats=cross_resnet_fused(x, base.base_cnn))[0]
+                with span("model.cnn"):
+                    feats = cross_resnet_fused(x, base.base_cnn)
+                return self.model(x, cnn_feats=feats)[0]
             return self.model(x)[0]
 
     @torch.inference_mode()
@@ -109,28 +112,37 @@ class VolumePredictor:
         bs = self.batch_size
         segs = []
         for i in range(0, n, bs):
-            chunk = imgs_u8[i: i + bs]
-            if chunk.shape[0] < bs:  # pad the tail to the static bucket shape
-                pad = np.zeros((bs - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
-                chunk = np.concatenate([chunk, pad], 0)
-            x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk))).to(
-                self.device, non_blocking=True)
-            seg = self._forward(x)
-            if self.mesh is not None:
-                seg = self.mesh.all_gather_blocks(seg, self.geo.prep_hw[1])
-            segs.append(seg)
+            with span("serve.batch", rows=min(bs, n - i)):
+                with span("serve.copy_in"):
+                    chunk = imgs_u8[i: i + bs]
+                    if chunk.shape[0] < bs:  # pad the tail to the static bucket shape
+                        pad = np.zeros((bs - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
+                        chunk = np.concatenate([chunk, pad], 0)
+                    x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk))).to(
+                        self.device, non_blocking=True)
+                with span("serve.dispatch"):
+                    seg = self._forward(x)
+                if self.mesh is not None:
+                    with span("serve.gather"):
+                        seg = self.mesh.all_gather_blocks(seg, self.geo.prep_hw[1])
+                segs.append(seg)
         if not segs:
             return np.zeros(imgs_u8.shape[:3], np.uint8)
-        return torch.cat(segs)[:n].cpu().numpy()
+        with span("serve.maps_back"):
+            return torch.cat(segs)[:n].cpu().numpy()
 
     def predict_volume(self, volume_u8: np.ndarray,
                        native_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
         """Full volume: batch the prepped B-scans through the bucket and,
-        given ``native_hw``, postprocess each map to native resolution."""
-        segs = self.predict_scans(volume_u8)
-        if native_hw is not None:
-            return np.stack([postprocess(self.geo, s, native_hw) for s in segs])
-        return segs
+        given ``native_hw``, postprocess each map to native resolution.
+        With tracing on (``utils/tracing.py``) the volume is one request:
+        a ``serve.volume`` span over its batches' spans."""
+        with span("serve.volume", scans=volume_u8.shape[0]):
+            segs = self.predict_scans(volume_u8)
+            if native_hw is not None:
+                with span("serve.postprocess"):
+                    return np.stack([postprocess(self.geo, s, native_hw) for s in segs])
+            return segs
 
 
 def load_predictor(db: str, pt_path: Optional[str] = None, net: str = "stc_tt",

@@ -65,6 +65,7 @@ from tcct_tpu_torch.models.layers import BatchNorm2d, _TrainPass, conv2d, leaky_
 from tcct_tpu_torch.models.mpvit import CRPE_MIXERS, MPViT, MPViTConfig
 from tcct_tpu_torch.ops.resize import resize_bicubic, resize_bilinear, upsample2x_aligned_shard
 from tcct_tpu_torch.parallel.distributed import Rows
+from tcct_tpu_torch.utils.tracing import span
 
 
 def unused_prefixes(model: nn.Module, serving: bool = False) -> Tuple[str, ...]:
@@ -286,23 +287,34 @@ class FTC(nn.Module):
         if cnn_feats is not None:
             c1, c2, c3, c4, c5 = (c.permute(0, 3, 1, 2) for c in cnn_feats)
         else:
-            c1, c2, c3, c4, c5 = self.base_cnn(x)
+            with span("model.cnn"):
+                c1, c2, c3, c4, c5 = self.base_cnn(x)
         if self.flag_vit:
             gated = self.flag_gate and self.flag_cnn
             # the gate's draws come before the ViT branch's DropPath masks
             alphas = self._alphas((c2, c3, c4, c5)) if gated and self.training else [0.5] * 4
-            vs = [getattr(self, f"tran_vit{i}")(v)
-                  for i, v in enumerate(self.base_vit.forward_features(x))]
+            with span("model.vit"):
+                vs = [getattr(self, f"tran_vit{i}")(v)
+                      for i, v in enumerate(self.base_vit.forward_features(x))]
             if self.flag_cnn:
-                cs = [getattr(self, f"tran_cnn{i}")(c) for i, c in enumerate((c2, c3, c4, c5))]
-                if gated:
-                    x2, x3, x4, x5 = (gate_fusion(v, c, a) for v, c, a in zip(vs, cs, alphas))
-                else:
-                    x2, x3, x4, x5 = (simple_fusion(v, c) for v, c in zip(vs, cs))
+                with span("model.fusion"):
+                    cs = [getattr(self, f"tran_cnn{i}")(c)
+                          for i, c in enumerate((c2, c3, c4, c5))]
+                    if gated:
+                        x2, x3, x4, x5 = (gate_fusion(v, c, a)
+                                          for v, c, a in zip(vs, cs, alphas))
+                    else:
+                        x2, x3, x4, x5 = (simple_fusion(v, c) for v, c in zip(vs, cs))
             else:
                 x2, x3, x4, x5 = vs
         else:
             x2, x3, x4, x5 = c2, c3, c4, c5
+        with span("model.decoder"):
+            return self._decode(x, c1, x2, x3, x4, x5, with_feats)
+
+    def _decode(self, x, c1, x2, x3, x4, x5, with_feats: bool):
+        """The head, the up-blocks and the aux heads on the NCHW input ``x``,
+        the CNN's level 0 ``c1`` and the fused levels ``x2``-``x5``."""
         y8 = leaky_relu(self.head(x5))
         if self.variant == "t32":
             s2, s3 = self.skip2(x3), self.skip3(x2)

@@ -10,7 +10,6 @@ the reference has wall-clock prints and a commented-out fvcore FLOP count).
   dispatches.
 - :func:`debug_nans` - raise at the first op whose floating output holds a
   NaN (``jax_debug_nans``).
-- :class:`StepTimer` - wall-clock time a step, warm-up steps dropped.
 
 JAX's ``measured_traffic`` also gives HBM bytes from each op's measured
 bandwidth; the torch profiler records no bandwidth, so this one has none.
@@ -23,7 +22,7 @@ import glob
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -168,37 +167,3 @@ def debug_nans(enable: bool = True):
         return
     with _NaNCheck():
         yield
-
-
-class StepTimer:
-    """Per-step wall-clock stats; discards the first ``warmup`` steps
-    (compile)."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self.times.append(dt)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {"steps": 0}
-        ts = sorted(self.times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "min_s": ts[0],
-            "max_s": ts[-1],
-        }

@@ -1,16 +1,12 @@
 """The port's tracing and profiling utilities
 (``tcct_tpu_torch/utils/profiling.py``) on the CPU: the operation counts of
-the ``tcct::`` ops, a trace that names them, NaN detection inside a port
-function, and ``StepTimer`` against the JAX package's."""
-
-import itertools
-import time
+the ``tcct::`` ops, a trace that names them, and NaN detection inside a
+port function."""
 
 import numpy as np
 import pytest
 import torch
 
-from tcct_tpu.utils.profiling import StepTimer as JaxStepTimer
 from tcct_tpu_torch.ops.kernels.bnstats import bn_act_train, bn_act_train_flops
 from tcct_tpu_torch.ops.kernels.dwconv import dwconv3x3, dwconv3x3_flops
 from tcct_tpu_torch.ops.kernels.metapool import (
@@ -19,7 +15,7 @@ from tcct_tpu_torch.ops.kernels.metapool import (
     metapool_flops,
     metapool_tokens,
 )
-from tcct_tpu_torch.utils import StepTimer, cost_analysis, debug_nans, measured_traffic, trace
+from tcct_tpu_torch.utils import cost_analysis, debug_nans, measured_traffic, trace
 
 
 def _rand(shape, seed):
@@ -88,20 +84,3 @@ def test_debug_nans_raises_inside_a_port_function_only():
     assert bool(dwconv3x3(x, w).isnan().any())
     with debug_nans(False):
         assert bool(dwconv3x3(x, w).isnan().any())
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The same sequence of clock readings gives the same summary."""
-    ticks = [0.0, 0.5, 1.0, 1.2, 2.0, 2.25, 3.0, 3.7, 4.0, 4.1, 5.0, 5.3]
-    summaries = []
-    for cls in (StepTimer, JaxStepTimer):
-        clock = itertools.chain(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = cls(warmup=2)
-        assert timer.summary() == {"steps": 0}
-        for _ in range(len(ticks) // 2):
-            with timer:
-                pass
-        summaries.append(timer.summary())
-    assert summaries[0] == summaries[1]
-    assert summaries[0]["steps"] == 4 and summaries[0]["max_s"] == pytest.approx(0.7)
