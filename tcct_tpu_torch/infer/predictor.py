@@ -25,6 +25,15 @@ one unit more where W / 16 is not a multiple of M
 (``parallel/spatial.py::width_blocks``); W must be a multiple of M, as in
 JAX, and hold at least M units.  A width shard serves every model of the
 registry, with every mixer and both CNN branches.
+
+On a CUDA card without a mesh, each bucket (a batch's shape) is served from
+CUDA graphs after its first batch (``infer/graphs.py``): the first batch
+runs the forward eagerly and captures it, split at the ``tcct::`` calls and
+the ``model.*`` spans, and every later batch copies its uint8 input into the
+tape's static input and replays it, bit for bit the eager maps.  A mesh
+predictor (collectives and halo exchanges inside the forward) and the CPU
+serve every batch eagerly.  ``stats`` counts the captures, each bucket's
+tape and the batches replayed and served eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from tcct_tpu_torch.data.eyeset import postprocess
 from tcct_tpu_torch.data.geometry import DatasetGeometry, get_geometry
+from tcct_tpu_torch.infer import graphs
 from tcct_tpu_torch.models.crosscnn import cross_resnet_fused
 from tcct_tpu_torch.parallel.mesh import shard_batch
 from tcct_tpu_torch.parallel.spatial import width_shard
@@ -49,7 +59,11 @@ class VolumePredictor:
     BN statistics alike, as the JAX predictor's ``cast_floating`` does).
     ``mesh``: see the module's docstring; ``shard`` is then this rank's
     ``parallel.spatial.WidthShard`` (None without a ``'model'`` axis above
-    1), whose ``stats`` count the halo exchanges and the all-reduces."""
+    1), whose ``stats`` count the halo exchanges and the all-reduces.
+
+    ``stats``: ``captures`` (tapes captured), ``tapes`` (for each bucket,
+    the batch's shape, its tape's ``segments`` and ``tcct_calls``), and the
+    batches ``replayed`` from a tape and served ``eager``."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain",
@@ -83,6 +97,8 @@ class VolumePredictor:
         self.geo = geo
         self.batch_size = batch_size
         self.dtype = dtype
+        self._tapes = {}  # bucket (the batch's shape) -> its graphs.Tape
+        self.stats = {"captures": 0, "tapes": {}, "replayed": 0, "eager": 0}
 
     @torch.inference_mode()
     def logits(self, x_u8: torch.Tensor) -> torch.Tensor:
@@ -99,18 +115,35 @@ class VolumePredictor:
 
     @torch.inference_mode()
     def _forward(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """The eager forward: the uint8 maps of a uint8 batch on the device."""
         return torch.argmax(self.logits(x_u8), dim=-1).to(torch.uint8)
+
+    def _eager(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """A batch of a bucket that has no tape: on a card without a mesh,
+        the bucket's first, which also captures its tape."""
+        self.stats["eager"] += 1
+        if self.mesh is not None or self.device.type != "cuda":
+            return self._forward(x_u8)
+        maps, tape = graphs.capture(self._forward, x_u8)
+        self._tapes[tuple(x_u8.shape)] = tape
+        self.stats["tapes"][tuple(x_u8.shape)] = {"segments": tape.segments,
+                                                  "tcct_calls": tape.tcct_calls}
+        self.stats["captures"] += 1
+        return maps
 
     def predict_scans(self, imgs_u8: np.ndarray) -> np.ndarray:
         """[N, H, W, 3] uint8 (already geometry-prepped) -> [N, H, W] uint8
         class maps.  N is arbitrary; the last batch is padded to the bucket
-        size.  Every batch is queued on the device before the one copy of
-        the results back to the host.  On a mesh each rank runs its block of
-        each batch (rows; on a width shard also columns) and gathers the
-        rest."""
+        size.  Every batch is queued on the device, its maps copied into the
+        volume's, before the one copy of the results back to the host.  On a
+        mesh each rank runs its block of each batch (rows; on a width shard
+        also columns) and gathers the rest."""
         n = imgs_u8.shape[0]
         bs = self.batch_size
-        segs = []
+        if n == 0:
+            return np.zeros(imgs_u8.shape[:3], np.uint8)
+        maps = torch.empty((-(-n // bs) * bs,) + imgs_u8.shape[1:3], dtype=torch.uint8,
+                           device=self.device)
         for i in range(0, n, bs):
             with span("serve.batch", rows=min(bs, n - i)):
                 with span("serve.copy_in"):
@@ -118,18 +151,24 @@ class VolumePredictor:
                     if chunk.shape[0] < bs:  # pad the tail to the static bucket shape
                         pad = np.zeros((bs - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)
                         chunk = np.concatenate([chunk, pad], 0)
-                    x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk))).to(
-                        self.device, non_blocking=True)
-                with span("serve.dispatch"):
-                    seg = self._forward(x)
+                    x = torch.from_numpy(np.ascontiguousarray(shard_batch(self.mesh, chunk)))
+                    tape = self._tapes.get(tuple(x.shape))
+                    if tape is not None:
+                        tape.x.copy_(x, non_blocking=True)
+                    else:
+                        x = x.to(self.device, non_blocking=True)
+                with span("serve.dispatch", replayed=tape is not None):
+                    if tape is not None:
+                        self.stats["replayed"] += 1
+                        seg = tape.replay()
+                    else:
+                        seg = self._eager(x)
                 if self.mesh is not None:
                     with span("serve.gather"):
                         seg = self.mesh.all_gather_blocks(seg, self.geo.prep_hw[1])
-                segs.append(seg)
-        if not segs:
-            return np.zeros(imgs_u8.shape[:3], np.uint8)
+                maps[i: i + bs].copy_(seg)
         with span("serve.maps_back"):
-            return torch.cat(segs)[:n].cpu().numpy()
+            return maps[:n].cpu().numpy()
 
     def predict_volume(self, volume_u8: np.ndarray,
                        native_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:

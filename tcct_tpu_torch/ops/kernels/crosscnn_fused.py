@@ -20,7 +20,9 @@ after every op and uses the tanh GELU, so the two differ there by bf16
 roundings; in f32 they differ by summation order only.
 
 Inference only: there is no backward.  :func:`fused_cross_block` raises on
-a block in train mode and on inputs that would need a gradient.
+a block in train mode and on inputs that would need a gradient.  The op's
+``out`` overload (``tcct::fused_cross_block.out``, the arguments then
+``y``) launches the same kernel into a given output.
 """
 
 from __future__ import annotations
@@ -211,7 +213,9 @@ def fused_plan(B: int, H: int, W: int, cin: int, cout: int, k: int,
     return FusedPlan(*plan[:4], int(smem), plan[4])
 
 
-def _fused_cuda(x, w, vec, wf, cin: int, cout: int, k: int):
+def _fused_cuda(x, w, vec, wf, cin: int, cout: int, k: int, y=None):
+    """The block's launch, into ``y`` where it is given (the ``out``
+    overload)."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"fused_cross_block: want NHWC float32/bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -228,7 +232,10 @@ def _fused_cuda(x, w, vec, wf, cin: int, cout: int, k: int):
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
-    y = x.new_empty((B, H, W, cout))
+    if y is None:
+        y = x.new_empty((B, H, W, cout))
+    else:
+        library.check_out("fused_cross_block", y, (B, H, W, cout), x)
     if y.numel() == 0:
         return y
     w = (w if wf is None else wf).contiguous()
@@ -241,6 +248,10 @@ def _fused_cuda(x, w, vec, wf, cin: int, cout: int, k: int):
     return y
 
 
+def _fused_fake(x, w, vec, wf, cin: int, cout: int, k: int):
+    return x.new_empty(tuple(x.shape[:3]) + (cout,))
+
+
 # the block's pack as tensors (w tap-major, vec, wf fragment-major or None)
 # and its geometry as ints, so that a traced graph carries the pack
 _fused_op = library.define(
@@ -248,9 +259,9 @@ _fused_op = library.define(
     "-> Tensor",
     cpu=lambda x, w, vec, wf, cin, cout, k: fused_cross_block_reference(
         x, CrossBlockPack(w, vec, cin, cout, k, wf)),
-    cuda=_fused_cuda,
-    fake=lambda x, w, vec, wf, cin, cout, k: x.new_empty(tuple(x.shape[:3]) + (cout,)))
+    cuda=_fused_cuda, fake=_fused_fake)
 library.no_backward(_fused_op, "fused_cross_block")
+library.define_out(_fused_op, "Tensor(a!) y", cuda=_fused_cuda, outputs=_fused_fake)
 
 
 def fused_cross_block(x: torch.Tensor, block) -> torch.Tensor:

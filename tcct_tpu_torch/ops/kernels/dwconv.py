@@ -15,7 +15,9 @@ backward kernel, one launch that reads ``x`` and ``g`` once and gives
 bias gradient.  The forward can add a bias and the input itself
 (``conv(x) + bias + x``, the ConvPosEnc site) in the same launch, rounded
 as the three separate passes round.  On a CPU tensor the same function
-runs the plain forward and the plain backward.
+runs the plain forward and the plain backward.  The forward op's ``out``
+overload (``tcct::dwconv3x3.out``, the arguments then ``y``) launches the
+same kernel into a given output.
 """
 
 from __future__ import annotations
@@ -133,13 +135,18 @@ def _forward_cpu(x, w, bias, stride: int, residual: bool, rows: int):
     return (y + x if residual else y).contiguous()
 
 
-def _forward_cuda(x, w, bias, stride: int, residual: bool, rows: int):
+def _forward_cuda(x, w, bias, stride: int, residual: bool, rows: int, y=None):
+    """The forward's launch, into ``y`` where it is given (the ``out``
+    overload)."""
     _check_forward(x, w, stride, bias, residual, rows)
     _check(x, w, stride, "dwconv3x3")
     B, H, W, C = x.shape
     x = x.contiguous()
     w = w.contiguous()
-    y = x.new_empty(_out_shape(x, stride))
+    if y is None:
+        y = x.new_empty(_out_shape(x, stride))
+    else:
+        library.check_out("dwconv3x3", y, _out_shape(x, stride), x)
     if y.numel() == 0:
         return y
     bias_ptr = None if bias is None else bias.contiguous().data_ptr()
@@ -152,10 +159,14 @@ def _forward_cuda(x, w, bias, stride: int, residual: bool, rows: int):
     return y
 
 
+def _forward_fake(x, w, bias, stride: int, residual: bool, rows: int):
+    return x.new_empty(_out_shape(x, stride))
+
+
 _forward_op = library.define(
     "dwconv3x3(Tensor x, Tensor w, Tensor? bias, int stride, bool residual, int rows) -> Tensor",
-    cpu=_forward_cpu, cuda=_forward_cuda,
-    fake=lambda x, w, bias, stride, residual, rows: x.new_empty(_out_shape(x, stride)))
+    cpu=_forward_cpu, cuda=_forward_cuda, fake=_forward_fake)
+library.define_out(_forward_op, "Tensor(a!) y", cuda=_forward_cuda, outputs=_forward_fake)
 
 
 def dwconv3x3_forward(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

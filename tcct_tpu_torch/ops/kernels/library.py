@@ -13,6 +13,12 @@ autograd and whose backward calls the backward op.  An op without a
 backward refuses, at the op, any call that autograd would want a gradient
 from (:func:`no_backward`).
 
+The serving ops (the MetaPool site, the depthwise forward and the fused
+CrossCNN block) also have an ``out`` overload (:func:`define_out`): the
+same arguments, then the output tensors it writes, the same launch into
+them.  A replayed serving tape (``infer/graphs.py``) calls it, so that the
+kernel writes where the next captured graph reads.
+
 The wrapper modules (``metapool.py``, ``dwconv.py``, ``bnstats.py``,
 ``crosscnn_fused.py``) define their ops through :func:`define` when they
 are imported; their public functions are thin calls of ``torch.ops.tcct``.
@@ -26,23 +32,74 @@ re-reads the schema each call) add Python work per call on top of it.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
 _LIB = torch.library.Library("tcct", "FRAGMENT")
 
+# an op with an ``out`` overload -> (that overload, a function of the op's
+# arguments that makes its outputs, empty): see :func:`define_out`
+OUT: Dict[torch._ops.OpOverload, Tuple[torch._ops.OpOverload, Callable]] = {}
+
+
+def _name(op: torch._ops.OpOverload) -> str:
+    """``op``'s name as ``Library.impl`` takes it: ``name`` or ``name.overload``."""
+    overload = op._schema.overload_name
+    return f"{op._opname}.{overload}" if overload else op._opname
+
 
 def define(schema: str, *, cpu: Callable, cuda: Callable,
            fake: Callable) -> torch._ops.OpOverload:
     """Define ``tcct::<schema>`` with its CPU, CUDA and fake
-    implementations; returns the op's default overload."""
+    implementations; returns the overload it names (``name.out(...)``:
+    ``out``; else the default)."""
     name = schema.split("(", 1)[0]
     _LIB.define(schema)
     _LIB.impl(name, cpu, "CPU")
     _LIB.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"tcct::{name}", fake, lib=_LIB)
-    return getattr(torch.ops.tcct, name).default
+    op, _, overload = name.partition(".")
+    return getattr(getattr(torch.ops.tcct, op), overload or "default")
+
+
+def define_out(op: torch._ops.OpOverload, outs: str, *, cuda: Callable,
+               outputs: Callable) -> torch._ops.OpOverload:
+    """Define ``op``'s ``out`` overload: ``op``'s arguments, then ``outs``
+    (the schema of the output tensors it writes, in ``op``'s order), and
+    no return; returns it.  ``cuda`` is ``op``'s CUDA implementation,
+    called with the outputs after the arguments: the same launch, into
+    them.  On the CPU the overload writes ``op``'s plain result into them.
+    ``outputs``, called with ``op``'s arguments, makes the outputs a call
+    would return, empty (``op``'s fake implementation does: it allocates
+    on the device of its arguments).  The profiler records either overload
+    under ``op``'s name, with the arguments at the same positions."""
+    n = len(op._schema.arguments)
+    args = str(op._schema).split("(", 1)[1].rsplit(") ->", 1)[0]
+
+    def cpu(*a):
+        got = op(*a[:n])
+        for o, t in zip(a[n:], got if isinstance(got, tuple) else (got,)):
+            check_out(f"{op._opname}.out", o, t.shape, t)
+            o.copy_(t)
+
+    def launch(*a):
+        cuda(*a)
+
+    out = define(f"{op._opname}.out({args}, {outs}) -> ()", cpu=cpu, cuda=launch,
+                 fake=lambda *a: None)
+    no_backward(out, f"{op._opname}.out")
+    OUT[op] = (out, outputs)
+    return out
+
+
+def check_out(what: str, out: torch.Tensor, shape: Sequence[int], like: torch.Tensor) -> None:
+    """Raise unless ``out`` can take a kernel's output: contiguous,
+    ``shape``, of ``like``'s type and on its device."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous {tuple(shape)} {like.dtype} on "
+                         f"{like.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
 
 
 def check_device(x: torch.Tensor, what: str) -> None:
@@ -69,7 +126,7 @@ def autograd(op: torch._ops.OpOverload, function: type) -> None:
             return function.apply(*args)
         return below_autograd(op, *args)
 
-    _LIB.impl(op._opname, kernel, "Autograd")
+    _LIB.impl(_name(op), kernel, "Autograd")
 
 
 def no_backward(op: torch._ops.OpOverload, what: str) -> None:
@@ -81,5 +138,5 @@ def no_backward(op: torch._ops.OpOverload, what: str) -> None:
                              "torch.inference_mode()")
         return below_autograd(op, *args)
 
-    _LIB.impl(op._opname, kernel, "Autograd")
+    _LIB.impl(_name(op), kernel, "Autograd")
 

@@ -17,7 +17,9 @@ and the plain backward.
 :func:`metapool_block` (``tcct::metapool_block``) is the eval block's
 whole token pass around the mixer (``norm1``, the mixer, the residual add,
 ``norm2``) as one launch of the same forward kernel with flags; it has no
-backward.
+backward.  Its ``out`` overload (``tcct::metapool_block.out``, the
+arguments then ``y`` and ``n2``) launches the same kernel into given
+outputs.
 :func:`metapool_block_shard` (``tcct::metapool_block_shard``) is the same
 site on a width shard of the token grid, its row ends' neighbours taken
 from two exchanged halo columns.
@@ -176,7 +178,9 @@ def _norms(*affine) -> bool:
     return all(given)
 
 
-def _block_cuda(x, w1, b1, w2, b2, eps: float, residual: bool):
+def _block_cuda(x, w1, b1, w2, b2, eps: float, residual: bool, y=None, n2=None):
+    """The site's launch, into ``y`` and ``n2`` where they are given (the
+    ``out`` overload)."""
     norms = _norms(w1, b1, w2, b2)
     what = "metapool_block"
     _check_tokens(x, what)
@@ -188,8 +192,12 @@ def _block_cuda(x, w1, b1, w2, b2, eps: float, residual: bool):
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     x = x.contiguous()
     w1, b1, w2, b2 = (t.contiguous() if t is not None else None for t in (w1, b1, w2, b2))
-    y = torch.empty_like(x)
-    n2 = torch.empty_like(x) if norms else x.new_empty(0)
+    if y is None:
+        y = torch.empty_like(x)
+        n2 = torch.empty_like(x) if norms else x.new_empty(0)
+    else:
+        for t in (y, n2) if norms else (y,):
+            library.check_out(what, t, x.shape, x)
     if x.numel() == 0:
         return y, n2
     flags = (_NORMS if norms else 0) | (_RESIDUAL if residual else 0)
@@ -220,6 +228,8 @@ _block_op = library.define(
     "metapool_block(Tensor x, Tensor? w1, Tensor? b1, Tensor? w2, Tensor? b2, float eps, "
     "bool residual) -> (Tensor, Tensor)", cpu=_block_cpu, cuda=_block_cuda, fake=_block_fake)
 library.no_backward(_block_op, "metapool_block")
+library.define_out(_block_op, "Tensor(a!) y, Tensor(b!) n2", cuda=_block_cuda,
+                   outputs=_block_fake)
 
 
 def metapool_block(x: torch.Tensor, w1: Optional[torch.Tensor] = None,

@@ -23,14 +23,18 @@ The spans the program records (``infer/predictor.py``, ``models/ftc.py``):
 - ``serve.volume`` (``scans``): ``predict_volume``, the request's root;
 - ``serve.batch`` (``rows``, the real B-scans of the batch): one turn of
   ``predict_scans``' loop, holding ``serve.copy_in`` (the tail's padding and
-  the uint8 copy to the device), ``serve.dispatch`` (the host enqueueing the
-  forward, the cast and the argmax) and, on a mesh, ``serve.gather``;
+  the uint8 copy to the device), ``serve.dispatch`` (``replayed``: whether
+  the batch was replayed from its bucket's CUDA graphs, ``infer/graphs.py``;
+  the host enqueueing the forward, the cast and the argmax), on a mesh
+  ``serve.gather``, then the batch's maps copied into the volume's;
 - ``serve.maps_back``: the wait for the device and the copy of the class
   maps to the host; ``serve.postprocess``: the resize to ``native_hw``;
 - inside ``serve.dispatch``, an FTC model's ``model.cnn`` (the CrossCNN
   branch, or the fused block kernel's), ``model.vit`` (MPViT and its
   projections), ``model.fusion`` (the CNN projections and the fusion) and
-  ``model.decoder`` (the head, the up-blocks and the aux heads).
+  ``model.decoder`` (the head, the up-blocks and the aux heads); a replayed
+  batch opens them around the graphs and ``tcct::`` calls that ran in them
+  when its bucket was captured.
 
 Times are stamped with ``time.perf_counter_ns()`` and given by :func:`drain`
 in Unix nanoseconds, through one ``(time.time_ns(), perf_counter_ns())``
@@ -57,6 +61,11 @@ from typing import List, NamedTuple, Optional
 import torch
 
 _on = False
+# while a capture notes the spans' borders (borders()): the capturing thread
+# and the function it is handed each span's name with
+_hook: Optional[tuple] = None
+# tracing on, or borders noted: span() does more than return NO_SPAN
+_active = False
 
 # the most spans the buffer keeps between two drains (about 20 MB of them)
 CAPACITY = 100_000
@@ -124,30 +133,56 @@ class _Open:
 
 def span(name: str, **attrs):
     """A context manager that records ``name`` with ``attrs`` while tracing
-    is on; :data:`NO_SPAN` while it is off."""
-    if not _on:
+    is on; :data:`NO_SPAN` while it is off.  Inside :func:`borders`, on its
+    thread, the context that :func:`borders` was handed for ``name``."""
+    if not _active:
         return NO_SPAN
     if torch.compiler.is_compiling():
         return NO_SPAN
+    hook = _hook
+    if hook is not None and hook[0] == threading.get_ident():
+        return hook[1](name)
+    if not _on:
+        return NO_SPAN
     return _Open(name, attrs)
+
+
+@contextlib.contextmanager
+def borders(record):
+    """While inside, on this thread, ``span(name)`` returns ``record(name)``
+    (a context manager) whether tracing is on or off, and records nothing:
+    a capture (``infer/graphs.py``) notes where the spans open and close,
+    to open them around its replays.  Other threads' spans are as before."""
+    global _hook, _active
+    _hook, _active = (threading.get_ident(), record), True
+    try:
+        yield
+    finally:
+        _hook, _active = None, _on
 
 
 def enable() -> None:
     """Turn tracing on.  The clock pair that :func:`drain` converts with
     is read here, where tracing was off."""
-    global _on
+    global _on, _active
     if not _on:
         a = perf_counter_ns()
         unix = time.time_ns()
         _state.offset_ns = unix - (a + perf_counter_ns()) // 2
         _state.dropped = 0
-    _on = True
+    _on = _active = True
 
 
 def disable() -> None:
     """Turn tracing off; what was recorded stays until :func:`drain`."""
-    global _on
+    global _on, _active
     _on = False
+    _active = _hook is not None
+# while a capture notes the spans' borders (borders()): the capturing thread
+# and the function it is handed each span's name with
+_hook: Optional[tuple] = None
+# tracing on, or borders noted: span() does more than return NO_SPAN
+_active = False
 
 
 def dropped() -> int:

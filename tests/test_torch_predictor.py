@@ -69,6 +69,32 @@ def test_predictor_padding_is_inert(calibrated):
     assert VolumePredictor(m, GEO, 4, torch.float32, "cpu").predict_scans(vol[:0]).shape == (0, 64, 96)
 
 
+def _eager_maps(pred, vol):
+    """``vol``'s maps through ``pred._forward``, batch by batch, the tail
+    padded with zeros."""
+    bs, n = pred.batch_size, len(vol)
+    padded = np.concatenate([vol, np.zeros((-n % bs,) + vol.shape[1:], vol.dtype)])
+    return np.concatenate([pred._forward(torch.from_numpy(padded[i: i + bs])).numpy()
+                           for i in range(0, len(padded), bs)])[:n]
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_predictor_off_the_card_never_captures(calibrated, mesh):
+    """The CPU, and a one-rank gloo ('data',) mesh, serve every batch
+    eagerly: no tape is captured, and the maps (a padded tail included) are
+    the eager forward's, batch by batch."""
+    from tcct_tpu_torch.parallel.mesh import DataMesh
+
+    m, _, _, vol = calibrated
+    dmesh = DataMesh(("data",), {"data": 1}, 1, 0, None, torch.device("cpu"), "gloo") if mesh \
+        else None
+    pred = VolumePredictor(m, GEO, batch_size=4, dtype=torch.float32, device="cpu", mesh=dmesh)
+    for _ in range(2):
+        np.testing.assert_array_equal(pred.predict_scans(vol), _eager_maps(pred, vol))
+    assert pred.stats == {"captures": 0, "tapes": {}, "replayed": 0, "eager": 4}
+    assert pred._tapes == {}
+
+
 def test_load_predictor_duke_bucket_cpu():
     """The serving entry point at duke's full bucket and full width, seeded
     random weights, on the CPU path."""

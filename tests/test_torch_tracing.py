@@ -4,6 +4,7 @@ request, ``predict_volume`` records one request of the documented shape
 without changing its maps, the drained times sit on ``torch.profiler``'s
 Chrome-trace clock, and ``torch.export`` traces through them."""
 
+import contextlib
 import json
 import math
 import os
@@ -114,6 +115,35 @@ def test_spans_nest_by_parent_and_share_the_request():
         <= first.end_ns
 
 
+@pytest.mark.parametrize("on", [False, True])
+def test_borders_hand_this_threads_spans_to_the_hook(on):
+    """Inside ``borders(record)`` this thread's ``span(name)`` is
+    ``record(name)`` whether tracing is on or off, and records nothing;
+    another thread's spans are as before; after it tracing is as it was."""
+    if on:
+        tracing.enable()
+    seen, other = [], []
+
+    def record(name):
+        seen.append(name)
+        return contextlib.nullcontext()
+
+    with tracing.borders(record):
+        with tracing.span("model.cnn", rows=1):
+            with tracing.span("model.vit"):
+                pass
+        t = threading.Thread(target=lambda: other.append(tracing.span("serve.batch")))
+        t.start()
+        t.join()
+    assert seen == ["model.cnn", "model.vit"]
+    assert (other[0] is tracing.NO_SPAN) is not on
+    assert tracing.drain() == []
+    assert (tracing.span("serve.batch") is tracing.NO_SPAN) is not on
+    with tracing.span("serve.batch"):
+        pass
+    assert [s.name for s in tracing.drain()] == (["serve.batch"] if on else [])
+
+
 def test_drain_empties_and_gives_unix_nanoseconds():
     tracing.enable()
     before = time.time_ns()
@@ -195,6 +225,7 @@ def test_predict_volume_is_one_request(model, n, bs):
         sections = _children(spans, dispatch)
         assert [s.name for s in sections] == MODEL_SECTIONS
         assert dispatch.start_ns <= sections[0].start_ns and sections[-1].end_ns <= dispatch.end_ns
+        assert dispatch.attrs == {"replayed": False}  # the CPU serves every batch eagerly
     assert len(spans) == 1 + math.ceil(n / bs) * (3 + len(MODEL_SECTIONS)) + 1
 
 
