@@ -87,10 +87,13 @@ class Capture:
     ``shaped``.  The driver sets ``paced_units`` and ``paced_s`` (the
     untraced window's batches or steps and seconds), ``flops_per_unit`` (the
     reference's operations a unit) and ``peak_flops`` (the card's dense
-    rate)."""
+    rate); ``run.py`` sets the run's ``cell``, ``seed`` and ``device``."""
 
     def __init__(self, light: Trace, shaped: Trace):
         self.light, self.shaped = light, shaped
+        self.cell: Optional[dict] = None
+        self.seed: Optional[int] = None
+        self.device: Optional[str] = None
         self.units = light.units
         self.window_s = light.window_s
         self.busy_s = light.busy_s

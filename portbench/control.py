@@ -74,7 +74,7 @@ def main() -> int:
 
         build_all()
     drv = harness.driver(cell["traffic_file"]["driver"])
-    fn = serve_readings if cell["traffic_file"]["driver"] == "volumes" else train_readings
+    fn = serve_readings if getattr(drv, "SERVES_VOLUMES", False) else train_readings
     seeds = [(int(s), False) for s in args.seeds.split(",") if s]
     seeds += [(int(s), True) for s in args.control_seeds.split(",") if s]
     for seed, low in seeds:

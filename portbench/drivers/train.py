@@ -27,18 +27,19 @@ import time
 import torch
 import torch.nn.functional as F
 
-from portbench import scans
-from portbench.reference import control, costs, model as ref_model, train as ref_train
+from portbench import harness, scans
+from portbench.reference import control, costs, train as ref_train
 
 STREAM_SCANS, STREAM_WEIGHTS, STREAM_STEP = 1, 2, 3
+SERVES_VOLUMES = False
 B1 = 0.9
 # the decoder's leaves: the U-decoder, its head and the four logit heads
 DECODER = ("base.dec", "base.head", "base.aux", "base.t32")
 
 
-def reference_model(cell: dict, seed: int, device, nc: int) -> ref_model.RegNet:
+def reference_model(cell: dict, seed: int, device, nc: int):
     t = cell["traffic_file"]
-    ref = ref_model.RegNet(cell["config_file"], nc, t["variant"]).to(device)
+    ref = cell["reference"].RegNet(cell["config_file"], nc, t["variant"]).to(device)
     scans.fill_weights(ref, scans.generator(seed, STREAM_WEIGHTS, device))
     return ref.train()
 
@@ -60,7 +61,7 @@ def build(cell: dict, seed: int, device):
     model = RegNet(get_model(cfg["net"], nc, variant=t["variant"],
                              drop_path_rate=cfg["drop_path_rate"], mixer=cfg["mixer"]),
                    out_channels=nc)
-    model.load_state_dict(reference_model(cell, seed, device, nc).state_dict())
+    harness.load_weights(model, reference_model(cell, seed, device, nc).state_dict())
     opt = AdamW(t["lr"], weight_decay=t["weight_decay"], clip_norm=t["clip"])
     tc = TrainConfig(ds=t["ds"], udh=t["udh"], reg=t["reg"], augment=t["augment"],
                      dtype=getattr(torch, t["dtype"]), n_class=nc, crop_hw=tuple(t["hw"]))
@@ -110,14 +111,14 @@ def flops_per_step(cell: dict, nc: int) -> float:
     global batch (FlopCounterMode on the meta device)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    t = cell["traffic_file"]
+    t, rm = cell["traffic_file"], cell["reference"]
     with torch.device("meta"):
-        ref = ref_model.RegNet(cell["config_file"], nc, t["variant"]).train()
+        ref = rm.RegNet(cell["config_file"], nc, t["variant"]).train()
         img = torch.empty((t["batch"],) + tuple(t["hw"]) + (3,))
         true = torch.empty((t["batch"],) + tuple(t["hw"]) + (nc,))
-    params = list(ref_model.trained_parameters(ref).values())
+    params = list(rm.trained_parameters(ref).values())
     with FlopCounterMode(display=False) as fc:
-        total = ref_train.train_loss(ref, img, true, ref_model.Ctx(train=True))
+        total = ref_train.train_loss(ref, img, true, rm.Ctx(train=True))
         torch.autograd.grad(total, params, allow_unused=True)
     return float(fc.get_total_flops())
 
@@ -216,11 +217,12 @@ def reference_steps(cell: dict, seed: int, device, first: dict, imgs, labs, nc: 
     t = cell["traffic_file"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = ref_model.RegNet(cell["config_file"], nc, t["variant"]).to(device).train()
+    ref = cell["reference"].RegNet(cell["config_file"], nc, t["variant"]).to(device).train()
     ref.load_state_dict(first["state0"])
     low = {"f32": (None, None, torch.float32), "bf16": (None, None, torch.bfloat16),
            "control": (control.fp8, control.fp8_grad, torch.bfloat16)}[mode]
-    tr = ref_train.Trainer(ref, t["lr"], t["weight_decay"], t["clip"], *low)
+    tr = ref_train.Trainer(ref, t["lr"], t["weight_decay"], t["clip"], *low,
+                           trained=cell["reference"].trained_parameters)
     gen = torch.Generator(device=device)
     out = {"losses": [], "grads1": None}
     for i in range(len(first["gens"])):

@@ -23,10 +23,11 @@ import time
 import numpy as np
 import torch
 
-from portbench import scans
-from portbench.reference import control, costs, model as ref_model
+from portbench import harness, scans
+from portbench.reference import control, costs
 
 STREAM_SCANS, STREAM_WEIGHTS = 1, 2
+SERVES_VOLUMES = True
 
 
 def build(cell: dict, seed: int, device):
@@ -48,7 +49,7 @@ def build(cell: dict, seed: int, device):
     model = RegNet(get_model(cfg["net"], nc, variant=t["variant"],
                              drop_path_rate=cfg["drop_path_rate"], mixer=cfg["mixer"]),
                    out_channels=nc)
-    model.load_state_dict(weights)
+    harness.load_weights(model, weights)
     pred = VolumePredictor(model, geo, batch_size=t["batch"], dtype=getattr(torch, t["dtype"]),
                            device=device, cnn_impl=t["cnn_impl"])
     pool = imgs.cpu().numpy().reshape((t["pool"], t["scans"]) + imgs.shape[1:])
@@ -58,21 +59,21 @@ def build(cell: dict, seed: int, device):
 def reference_weights(cell: dict, seed: int, device, nc: int, calib) -> dict:
     """The benchmark's weights: seeded (``scans.fill_weights``), the
     BatchNorm statistics calibrated on the uint8 NHWC batch ``calib`` in f32
-    (``reference.model.calibrate``), all rounded to the serving type.  A
-    state dict of f32 tensors on the host."""
-    t = cell["traffic_file"]
+    (the cell's reference's ``calibrate``), all rounded to the serving type.
+    A state dict of f32 tensors on the host."""
+    t, rm = cell["traffic_file"], cell["reference"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = ref_model.RegNet(cell["config_file"], nc, t["variant"]).to(device)
+    ref = rm.RegNet(cell["config_file"], nc, t["variant"]).to(device)
     scans.fill_weights(ref, scans.generator(seed, STREAM_WEIGHTS, device))
-    ref_model.calibrate(ref, calib.permute(0, 3, 1, 2).float() / 255.0)
+    rm.calibrate(ref, calib.permute(0, 3, 1, 2).float() / 255.0)
     dt = getattr(torch, t["dtype"])
     return {k: (v.to(dt).float() if v.is_floating_point() else v).cpu()
             for k, v in ref.state_dict().items()}
 
 
-def reference(cell: dict, weights: dict, device, nc: int) -> ref_model.RegNet:
-    ref = ref_model.RegNet(cell["config_file"], nc, cell["traffic_file"]["variant"])
+def reference(cell: dict, weights: dict, device, nc: int):
+    ref = cell["reference"].RegNet(cell["config_file"], nc, cell["traffic_file"]["variant"])
     ref.load_state_dict(weights)
     return ref.to(device).eval()
 
@@ -123,12 +124,12 @@ def flops_per_batch(cell: dict, nc: int) -> float:
     the meta device)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    t = cell["traffic_file"]
+    t, rm = cell["traffic_file"], cell["reference"]
     with torch.device("meta"):
-        ref = ref_model.RegNet(cell["config_file"], nc, t["variant"]).eval()
+        ref = rm.RegNet(cell["config_file"], nc, t["variant"]).eval()
         x = torch.empty((t["batch"], 3) + tuple(t["hw"]))
     with FlopCounterMode(display=False) as fc, torch.no_grad():
-        ref.base.run(x, ref_model.Ctx())
+        ref.base.run(x, rm.Ctx())
     return float(fc.get_total_flops())
 
 
@@ -138,11 +139,14 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: flo
     from portbench import capture
 
     t = cell["traffic_file"]
+    t_build = time.perf_counter()
     pred, pool, nc, weights = build(cell, seed, device)
     if fault is not None:
         fault(pred)
     cuda = pred.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t_warm = time.perf_counter()
     for k in range(2):  # every shape the window uses: whole and padded batches
         pred.predict_volume(pool[k % len(pool)])
     flops = flops_per_batch(cell, nc) if trace else None
@@ -150,6 +154,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: flo
     gc.collect()
     gc.freeze()
     setup_s = time.perf_counter() - t_start
+    print(f"portbench: set-up {setup_s:.3f} s: imports, the card and the kernels "
+          f"{t_build - t_start:.3f}, weights, pool and model {t_warm - t_build:.3f}, "
+          f"warm-up {t_start + setup_s - t_warm:.3f}", file=sys.stderr)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     served = Served(t["sample_volumes"], seed)
@@ -188,12 +195,12 @@ def check(cell: dict, device, pool, sample: list, nc: int, weights: dict, mode=N
     (``map_gap_mean``).  ``mode`` puts the reference computed in bf16
     (``'bf16'``) or the control (``'control'``, bf16 with fp8 convolutions and
     linear layers) in the served maps' place."""
-    t = cell["traffic_file"]
+    t, rm = cell["traffic_file"], cell["reference"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ref = reference(cell, weights, device, nc)
     low = None if mode is None else copy.deepcopy(ref).to(torch.bfloat16)
-    ctx_low = ref_model.Ctx(control.fp8 if mode == "control" else None)
+    ctx_low = rm.Ctx(control.fp8 if mode == "control" else None)
     gap = gsum = miss = 0.0
     s1 = s2 = n = 0.0
     with torch.no_grad():
@@ -202,7 +209,7 @@ def check(cell: dict, device, pool, sample: list, nc: int, weights: dict, mode=N
             for b in range(0, vol.shape[0], t["batch"]):
                 x = torch.from_numpy(vol[b:b + t["batch"]]).to(device)
                 x = x.permute(0, 3, 1, 2).float() / 255.0
-                logits = ref.base.run(x, ref_model.Ctx())[0].double()  # [b, C, H, W]
+                logits = ref.base.run(x, rm.Ctx())[0].double()  # [b, C, H, W]
                 if low is None:
                     got = torch.from_numpy(maps[b:b + t["batch"]]).to(device).long()
                 else:

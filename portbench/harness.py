@@ -6,6 +6,8 @@ A cell is an entry of ``workloads`` in ``BENCHMARK.json``.  Its files are
 found by name under ``portbench/``:
 
 - ``configs/<config>.json`` - the model's sizes as they are run;
+  ``reference`` names the module ``reference/<reference>.py`` of its plain
+  reference (``model`` where the key is absent);
 - ``traffic/<traffic>.json`` - the traffic mix: ``driver`` names a module of
   ``drivers/``, the rest are that driver's parameters;
 - ``limits/<workload>.json`` - the limit of each number the correctness
@@ -13,10 +15,32 @@ found by name under ``portbench/``:
 - ``metrics/<metric>.py`` - one reader per per-layer metric (or one that
   metrics differing only in their last dotted part share): ``read(capture)``
   returns the value, or None where the capture holds nothing to read.
+  ``run.py`` hands each capture the run's ``cell``, ``seed`` and ``device``,
+  for readers that rebuild the program (``spans.py``).
+
+A reference module (``load_cell`` puts it in the cell as ``reference``) is
+plain PyTorch that imports nothing of the program; it may import from the
+other modules of ``reference/`` (a variant of ``model.py`` is a small file).
+It offers what the drivers call:
+
+- ``RegNet(cfg, n_class, variant)`` - the model, every state-dict name the
+  program's (``load_weights`` raises where they differ); ``.base.run(x,
+  ctx)`` runs its forward on NCHW ``x`` and returns ``(logits, ...)``;
+- ``Ctx(quant=None, train=False, generator=None, quant_grad=None)`` - what a
+  forward shares with its layers (the control's roundings, batch statistics);
+- ``calibrate(model, x)`` - sets every BatchNorm's running statistics to
+  those of its input in one train-mode forward of ``x``;
+- for a train cell, ``trained_parameters(model)`` - the parameters a step
+  moves, by name; ``reference/train.py`` builds ``model.py``'s ``Ctx``, so
+  such a module keeps that one.
+
+A driver that serves volumes says so (``SERVES_VOLUMES = True``): its traced
+runs get the span passes, and ``control.py`` reads its cells as serving.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import math
@@ -53,6 +77,7 @@ def load_cell(workload: str) -> dict:
         raise CellError(f"no workload {workload!r} in BENCHMARK.json; have {sorted(cells)}")
     cell = dict(cells[workload])
     cell["config_file"] = _json(os.path.join(BENCH_DIR, "configs", cell["config"] + ".json"))
+    cell["reference"] = reference(cell["config_file"].get("reference", "model"))
     cell["traffic_file"] = _json(os.path.join(BENCH_DIR, "traffic", cell["traffic"] + ".json"))
     cell["limits"] = _json(os.path.join(BENCH_DIR, "limits", workload + ".json"))
     cell["end_to_end"] = [m for m in bench["end_to_end"]
@@ -62,6 +87,28 @@ def load_cell(workload: str) -> dict:
                          if workload in m.get("workloads", [workload] if m["moves"] in e2e
                                               else [])]
     return cell
+
+
+def reference(name: str):
+    """The module ``reference/<name>.py``, imported as
+    ``portbench.reference.<name>``."""
+    if not name.isidentifier() or not os.path.isfile(
+            os.path.join(BENCH_DIR, "reference", name + ".py")):
+        raise CellError(f"no reference module reference/{name}.py")
+    return importlib.import_module(f"portbench.reference.{name}")
+
+
+def load_weights(model, weights: dict) -> None:
+    """``model.load_state_dict(weights)``, where their names agree; else a
+    :class:`CellError` naming the first of the model's names that
+    ``weights`` lacks and of those it has beyond them."""
+    have, want = set(weights), set(model.state_dict())
+    if have != want:
+        missing, unexpected = sorted(want - have), sorted(have - want)
+        raise CellError(
+            f"the reference's weights do not fit the program's model: {len(missing)} missing "
+            f"(first {missing[:3]}), {len(unexpected)} unexpected (first {unexpected[:3]})")
+    model.load_state_dict(weights)
 
 
 def reader(name: str):
@@ -94,11 +141,21 @@ def fix_caches() -> None:
     """Every build and kernel cache at a fixed directory inside the
     checkout, so that only a cell's first run there compiles.  The
     program's own kernels build into ``build/tcct_tpu_torch/`` beside its
-    package."""
+    package.
+
+    Python's bytecode too: where the interpreter may not write it beside
+    the sources (``PYTHONDONTWRITEBYTECODE``, a read-only install), every
+    run would compile PyTorch's 2,000-odd modules from source again, some
+    seconds of set-up that follow the host's load.  It goes to
+    ``build/portbench_cache/pycache`` from the first import after this
+    call, in this process and in those it starts."""
     cache = os.path.join(ROOT, "build", "portbench_cache")
     for var, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
-                     ("CUDA_CACHE_PATH", "cuda")):
+                     ("CUDA_CACHE_PATH", "cuda"), ("PYTHONPYCACHEPREFIX", "pycache")):
         os.environ[var] = os.path.join(cache, sub)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    sys.dont_write_bytecode = False
 
 
 def few_threads() -> None:

@@ -169,13 +169,15 @@ class Trainer:
     statistics, AdamW's moments, stepped on whole batches.  With ``dtype``
     other than f32 each step computes on a copy of the model in that type
     (the image too), its gradients and statistics going back to the f32
-    state: the control's mixed precision."""
+    state: the control's mixed precision.  ``trained`` gives the parameters
+    a step moves (the model's reference module's ``trained_parameters``)."""
 
     def __init__(self, model: RegNet, lr=1e-4, weight_decay=2e-4, clip=12.0, quant=None,
-                 quant_grad=None, dtype=torch.float32):
+                 quant_grad=None, dtype=torch.float32, trained=trained_parameters):
         self.model = model
         self.quant, self.quant_grad, self.dtype = quant, quant_grad, dtype
-        self.params = trained_parameters(model)
+        self.trained = trained
+        self.params = trained(model)
         self.names = list(self.params)
         self.opt = AdamW([self.params[k] for k in self.names], lr, weight_decay, clip)
 
@@ -187,7 +189,7 @@ class Trainer:
         work = self.model
         if self.dtype != torch.float32:
             work = copy.deepcopy(self.model).to(self.dtype)
-        params = trained_parameters(work)
+        params = self.trained(work)
         total = train_loss(work, img.to(self.dtype), true, ctx)
         grads = torch.autograd.grad(total, [params[k] for k in self.names], allow_unused=True)
         grads = [torch.zeros_like(self.params[k]) if g is None else g.float()

@@ -43,10 +43,10 @@ def main(argv=None) -> int:
     harness.few_threads()
     try:
         cell = harness.load_cell(args.workload)
+        line = run_cell(cell, args.seed, args.seconds, bool(args.trace), T_START)
     except harness.CellError as e:
         print(f"portbench: {e}", file=sys.stderr)
         return 1
-    line = run_cell(cell, args.seed, args.seconds, bool(args.trace), T_START)
     if line is None:
         return 1
     found = harness.forbidden_modules()
@@ -75,6 +75,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
         build_all()
     drv = harness.driver(cell["traffic_file"]["driver"])
     out = drv.run(cell, seed, seconds, trace, device, t_start, fault=fault)
+    if out["capture"] is not None:  # what readers that rebuild the program take
+        out["capture"].cell, out["capture"].seed, out["capture"].device = cell, seed, device
     checks = harness.compare(out["readings"], cell["limits"])
     outcome = {"e2e": out["e2e"], "capture": out["capture"], "checks": checks,
                "correct": harness.passed(checks) and out["failed"] == 0,

@@ -26,17 +26,18 @@ the captures of ``capture.py``, which run with it off:
   ``serve.*`` span open over it, or the client where none is
   (``edge_idle_ms_per_volume``: what lies outside ``serve.dispatch``).
 
-A reader is handed the capture alone (``harness.per_layer``), and
-``drivers/volumes.py`` frees its predictor before the readers run.  So the
-first reader of these metrics makes both passes in a fresh process
-(``python3 portbench/spans.py``, one that has never run the profiler, whose
-hooks slow every later launch of a process that has), which builds the
-predictor anew with ``drivers/volumes.py``'s own ``build`` from the cell and
-the seed that the run's command line names (``run.py --workload <cell>
---seed <n>``), and leaves them on the capture (``capture.spans``) for the
-others.  Both processes print the cell and seed the passes measured.  A
-capture with no device activity, a program without the tracer or a command
-line that names no serving cell leaves every reading out.
+A reader is handed the capture (``harness.per_layer``), on which the run has
+set its ``cell``, ``seed`` and ``device``; the driver has freed its
+predictor before the readers run.  So the first reader of these metrics
+makes both passes in a fresh process (``python3 portbench/spans.py``, one
+that has never run the profiler, whose hooks slow every later launch of a
+process that has), given the cell, seed and device as arguments, which
+builds the predictor anew with the ``build`` of the cell's own driver, and
+leaves the passes on the capture (``capture.spans``) for the others.  Both
+processes print the cell and seed the passes measured.  A capture with no
+device activity or no cell, a cell whose driver serves no volumes
+(``SERVES_VOLUMES``), or a program without the tracer leaves every reading
+out.
 """
 
 from __future__ import annotations
@@ -83,12 +84,10 @@ class DeviceEvent(NamedTuple):
 
 
 class SpanPasses(NamedTuple):
-    """What the two passes of ``workload`` from ``seed`` recorded: the span
-    pass's spans and seconds a volume, the spanned capture's spans and
-    device events (all of the capture's), and the readings."""
+    """What a cell's two passes recorded: the span pass's spans and seconds
+    a volume, the spanned capture's spans and device events (all of the
+    capture's), and the readings."""
 
-    workload: str
-    seed: int
     host: list
     volume_s: List[float]
     spanned: list
@@ -103,7 +102,7 @@ def reading(capture, key: str) -> Optional[float]:
     if capture is None or not capture.light.device:
         return None
     if not hasattr(capture, "spans"):
-        capture.spans = _passes_of_this_run()
+        capture.spans = passes_of_the_run(capture)
         if capture.spans is not None:
             capture.spans = at_the_windows_pace(capture.spans, capture)
     return None if capture.spans is None else capture.spans.readings.get(key)
@@ -127,31 +126,29 @@ def at_the_windows_pace(got: SpanPasses, capture) -> SpanPasses:
                + r["host_maps_back_ms_per_volume"])
     pass_ms = sum(got.volume_s) * 1e3 / len(got.volume_s)
     window_ms = capture.paced_s / capture.paced_units * per * 1e3
-    print(f"portbench: span pass of {got.workload} seed {got.seed}: {vols} volumes, "
-          f"{pass_ms:.2f} ms a volume against the window's {window_ms:.2f}; dispatch, copy-in "
-          f"and maps back {host_ms:.2f} ms a volume, {100 * host_ms / pass_ms:.1f} % of the "
-          f"pass's volume; host readings at the pass's pace: "
+    print(f"portbench: span pass of {capture.cell['name']} seed {capture.seed}: {vols} "
+          f"volumes, {pass_ms:.2f} ms a volume against the window's {window_ms:.2f}; dispatch, "
+          f"copy-in and maps back {host_ms:.2f} ms a volume, {100 * host_ms / pass_ms:.1f} % of "
+          f"the pass's volume; host readings at the pass's pace: "
           + json.dumps({k: round(r[k], 4) for k in HOST}), file=sys.stderr)
     return got._replace(readings=dict(r, **{k: r[k] * window_ms / pass_ms for k in HOST}))
 
 
-def _passes_of_this_run() -> Optional[SpanPasses]:
-    if importlib.util.find_spec("tcct_tpu_torch.utils.tracing") is None:
-        return None  # a program without the tracer
-    p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--workload")
-    p.add_argument("--seed", type=int)
-    args, _ = p.parse_known_args(sys.argv[1:])
-    if args.workload is None or args.seed is None:
+def passes_of_the_run(capture) -> Optional[SpanPasses]:
+    """The span passes of the cell, seed and device that the run set on
+    ``capture`` (:func:`run_passes`); None where it set no cell, where the
+    cell's driver serves no volumes, or where the program has no tracer."""
+    cell = capture.cell
+    if cell is None or importlib.util.find_spec("tcct_tpu_torch.utils.tracing") is None:
         return None
     from portbench import harness
 
-    if harness.load_cell(args.workload)["traffic_file"]["driver"] != "volumes":
+    if not getattr(harness.driver(cell["traffic_file"]["driver"]), "SERVES_VOLUMES", False):
         return None
     try:
-        return run_passes(args.workload, args.seed, "cuda")
+        return run_passes(cell["name"], capture.seed, capture.device)
     except (subprocess.SubprocessError, OSError) as e:
-        print(f"portbench: the span passes of {args.workload} seed {args.seed} failed "
+        print(f"portbench: the span passes of {cell['name']} seed {capture.seed} failed "
               f"({e}): their metrics are left out", file=sys.stderr)
         return None
 
@@ -174,25 +171,24 @@ def run_passes(workload: str, seed: int, device) -> SpanPasses:
             got = json.load(f)
     finally:
         os.unlink(path)
-    return SpanPasses(got["workload"], got["seed"], [Span(*s) for s in got["host"]],
-                      got["volume_s"],
+    return SpanPasses([Span(*s) for s in got["host"]], got["volume_s"],
                       [Span(*s) for s in got["spanned"]],
                       [DeviceEvent(*d) for d in got["device"]], got["readings"])
 
 
 def passes(cell: dict, seed: int, device) -> SpanPasses:
-    """Build the cell's predictor from ``seed``, warm it up and make the
-    span pass (:data:`SPAN_PASS_S` seconds, at least ``capture_volumes``
-    volumes) and the spanned light capture of ``capture_volumes`` volumes
-    and one more, whose spans are left out of the readings (a capture can
-    lose its last ms of device records, and the first events of that volume
-    end the last idle stretch of the ones before)."""
+    """Build the cell's predictor from ``seed`` with its driver's ``build``,
+    warm it up and make the span pass (:data:`SPAN_PASS_S` seconds, at least
+    ``capture_volumes`` volumes) and the spanned light capture of
+    ``capture_volumes`` volumes and one more, whose spans are left out of the
+    readings (a capture can lose its last ms of device records, and the first
+    events of that volume end the last idle stretch of the ones before)."""
     import torch
 
     from portbench import harness
     from tcct_tpu_torch.utils import tracing
 
-    pred, pool, _, _ = harness.driver("volumes").build(cell, seed, device)
+    pred, pool, _, _ = harness.driver(cell["traffic_file"]["driver"]).build(cell, seed, device)
     sync = torch.cuda.synchronize if pred.device.type == "cuda" else (lambda: None)
     n = cell["traffic_file"]["capture_volumes"]
 
@@ -232,7 +228,7 @@ def passes(cell: dict, seed: int, device) -> SpanPasses:
     if device:
         d = dict(diagnostics(spans, device), in_volume_share=in_volume_share(every, device))
         print("portbench: spans: " + json.dumps(d), file=sys.stderr)
-    return SpanPasses(cell["name"], seed, host, volume_s, spans, device, out)
+    return SpanPasses(host, volume_s, spans, device, out)
 
 
 def _profiled(unit, sync):
@@ -524,12 +520,13 @@ def diagnostics(spans, device: Sequence[DeviceEvent]) -> dict:
 
 
 def main(argv=None) -> int:
-    """``python3 portbench/spans.py --workload <cell> --seed <n> --out
-    <file>``: the cell's span passes, written to ``<file>`` as JSON."""
+    """``python3 portbench/spans.py --workload <cell> --seed <n> --device
+    <device> --out <file>``: the cell's span passes, written to ``<file>`` as
+    JSON (the arguments :func:`run_passes` hands the process)."""
     p = argparse.ArgumentParser(description=main.__doc__)
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", required=True)
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

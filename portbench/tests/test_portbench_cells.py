@@ -33,6 +33,7 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 @pytest.mark.parametrize("workload,trace", [("stc_tt.duke-volumes", False),
                                             ("stc_tt.duke-volumes", True),
+                                            ("stc_tt.duke-volumes-fused", False),
                                             ("stc_tt.goals-train", False),
                                             ("stc_tt.goals-train", True)])
 def test_cell_runs_and_is_correct(tiny_root, workload, trace):
@@ -85,6 +86,88 @@ def test_cell_added_by_files_alone(tiny_root):
     assert traced["metrics"] == {"captured_units.serve": {"value": 2, "unit": "batches"}}
 
 
+def _add_config(root, name, base, cell=None, **keys):
+    """A configuration ``name``: ``base``'s file with ``keys`` changed, and
+    its ``BENCHMARK.json`` entry; with ``cell``, a cell of it on ``cell``'s
+    traffic mix, limits and metrics.  Returns the cell's name."""
+    b = os.path.join(root, "portbench")
+    with open(os.path.join(b, "configs", base + ".json")) as f:
+        cfg = json.load(f)
+    cfg.update(keys, name=name)
+    with open(os.path.join(b, "configs", name + ".json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append(dict(bench["configs"][0], name=name,
+                                 file=f"portbench/configs/{name}.json"))
+    workload = None
+    if cell is not None:
+        traffic = cell.split(".", 1)[1]
+        workload = f"{name}.{traffic}"
+        shutil.copy(os.path.join(b, "limits", cell + ".json"),
+                    os.path.join(b, "limits", workload + ".json"))
+        bench["workloads"].append({"name": workload, "config": name, "traffic": traffic,
+                                   "chips": 1, "why": "a test cell"})
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if cell in m.get("workloads", []):
+                m["workloads"].append(workload)
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    return workload
+
+
+# A reference module added as a file: reference/model.py's model, noting
+# each one it builds, so that a test sees which reference a run used.
+SEEN_REFERENCE = '''"""reference/model.py's model, noting each one it builds."""
+
+from . import model
+from .model import Ctx, calibrate, trained_parameters  # noqa: F401
+
+BUILT = []
+
+
+class RegNet(model.RegNet):
+    def __init__(self, cfg, n_class, variant):
+        super().__init__(cfg, n_class, variant)
+        BUILT.append(cfg["name"])
+'''
+
+
+def test_cell_with_its_own_reference_added_by_files_alone(tiny_root):
+    """A configuration that names its own reference module, both added as
+    files: the run builds the reference from that module and is correct."""
+    with open(os.path.join(tiny_root, "portbench", "reference", "seen.py"), "w") as f:
+        f.write(SEEN_REFERENCE)
+    workload = _add_config(tiny_root, "tt_seen", "stc_tt", "stc_tt.duke-volumes",
+                           reference="seen")
+    line = run_tiny(workload)
+    assert line["correct"], line["checks"]
+    from portbench.reference import model, seen
+
+    assert seen.BUILT == ["tt_seen", "tt_seen"]  # the weights' model and the check's
+    assert not hasattr(model, "BUILT")
+
+
+def test_missing_reference_module_is_a_cell_error(tiny_root):
+    from portbench import harness
+
+    workload = _add_config(tiny_root, "tt_nowhere", "stc_tt", "stc_tt.duke-volumes",
+                           reference="nowhere")
+    with pytest.raises(harness.CellError, match="reference/nowhere.py"):
+        harness.load_cell(workload)
+
+
+def test_program_model_the_reference_lacks_is_a_cell_error(tiny_root):
+    """stc_st's model with factorized attention has weights (its attention's
+    qkv and proj) that the MetaPool reference lacks: the build names them."""
+    from portbench import harness
+
+    workload = _add_config(tiny_root, "st_factor", "stc_st", "stc_st.duke-volumes",
+                           mixer="factor")
+    with pytest.raises(harness.CellError, match=r"att\.qkv"):
+        run_tiny(workload)
+
+
 def _altered_answer(pred):
     """The fault of a serving cell: an answer altered where it is produced,
     the first B-scan's class map of each batch shifted by one class."""
@@ -110,6 +193,7 @@ def _half_batch(step, opt):
 
 
 @pytest.mark.parametrize("workload,fault", [("stc_tt.duke-volumes", _altered_answer),
+                                            ("stc_tt.duke-volumes-fused", _altered_answer),
                                             ("stc_tt.goals-train", _unchanged_state),
                                             ("stc_tt.goals-train", _half_batch)])
 def test_broken_timed_path_is_not_correct(tiny_root, workload, fault):

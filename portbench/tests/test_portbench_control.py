@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import pytest
 
-SEPARATES = {"stc_tt.duke-volumes": "map_gap_mean", "stc_tt.goals-train": "decoder_grad_error"}
+SEPARATES = {"stc_tt.duke-volumes": "map_gap_mean", "stc_tt.duke-volumes-fused": "map_gap_mean",
+             "stc_tt.goals-train": "decoder_grad_error"}
 
 
 @pytest.fixture
@@ -33,7 +34,7 @@ def test_control_fails_the_limits(bf16_root, workload):
 
     cell = harness.load_cell(workload)
     drv = harness.driver(cell["traffic_file"]["driver"])
-    fn = control.serve_readings if workload.endswith("volumes") else control.train_readings
+    fn = control.serve_readings if drv.SERVES_VOLUMES else control.train_readings
     out = fn(drv, cell, 5, "cpu", True)
     assert not harness.passed(harness.compare(out["control"], cell["limits"])), out["control"]
     number = SEPARATES[workload]

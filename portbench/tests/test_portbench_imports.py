@@ -45,6 +45,21 @@ def test_reference_imports_nothing_of_the_program():
     assert not bad
 
 
+def test_every_reference_module_is_checked():
+    """Each configuration's reference module (``model`` by default) is a
+    file under ``reference/`` that the import checks above read."""
+    import json
+
+    ref = os.path.join(BENCH, "reference")
+    read = {p for p in _sources() if p.startswith(ref + os.sep)}
+    assert read == {os.path.join(ref, f) for f in os.listdir(ref) if f.endswith(".py")}
+    cdir = os.path.join(BENCH, "configs")
+    for f in os.listdir(cdir):
+        with open(os.path.join(cdir, f)) as fh:
+            name = json.load(fh).get("reference", "model")
+        assert os.path.join(ref, name + ".py") in read, (f, name)
+
+
 def test_the_check_sees_a_forbidden_module(monkeypatch):
     import sys
 

@@ -78,15 +78,16 @@ def test_host_readings_at_the_windows_pace(capsys):
     batch a volume): every host reading doubles; the device ones stay."""
     from portbench.spans import SpanPasses, at_the_windows_pace, host_readings
 
-    got = SpanPasses("stc_tt.duke-volumes", SEED, SPANS, [0.0001, 0.0001], [], [],
+    got = SpanPasses(SPANS, [0.0001, 0.0001], [], [],
                      dict(host_readings(SPANS), cnn_device_ms_per_batch=4.0))
-    capture = SimpleNamespace(paced_s=0.002, paced_units=10)
+    capture = SimpleNamespace(paced_s=0.002, paced_units=10, seed=SEED,
+                              cell={"name": "stc_tt.duke-volumes"})
     paced = at_the_windows_pace(got, capture).readings
     assert paced == pytest.approx({"host_dispatch_ms_per_batch": 0.053,
                                    "host_copy_in_ms_per_batch": 0.015,
                                    "host_maps_back_ms_per_volume": 0.060,
                                    "cnn_device_ms_per_batch": 4.0})
-    assert f"seed {SEED}" in capsys.readouterr().err
+    assert f"stc_tt.duke-volumes seed {SEED}" in capsys.readouterr().err
     assert at_the_windows_pace(got, SimpleNamespace(paced_s=0.0, paced_units=0)) is got
 
 
@@ -175,8 +176,10 @@ def test_device_events_pair_launches_by_correlation():
 
 
 def test_readers_leave_out_what_they_cannot_read(tiny_root, monkeypatch):
-    """No capture, a capture without device activity, a program without the
-    tracer, or a command line that names no cell: every reader gives None."""
+    """No capture, a capture without device activity, a capture the run
+    handed no cell, a cell whose driver serves no volumes, or a program
+    without the tracer: every reader gives None, whatever the command line
+    names."""
     import importlib.util
 
     from portbench import harness, spans
@@ -189,15 +192,19 @@ def test_readers_leave_out_what_they_cannot_read(tiny_root, monkeypatch):
     empty = SimpleNamespace(light=SimpleNamespace(device=[]))
     assert [r(None) for r in readers] == [None] * 8
     assert [r(empty) for r in readers] == [None] * 8
-    monkeypatch.setattr(sys, "argv", ["run.py"])
-    busy = SimpleNamespace(light=SimpleNamespace(device=[("k", 0.0, 1.0, "kernel", None)]))
+    monkeypatch.setattr(sys, "argv", ["run.py", "--workload", "stc_tt.duke-volumes",
+                                      "--seed", "1", "--trace", "1"])
+    light = SimpleNamespace(device=[("k", 0.0, 1.0, "kernel", None)])
+    busy = SimpleNamespace(light=light, cell=None, seed=None, device=None)
     assert [r(busy) for r in readers] == [None] * 8 and busy.spans is None
+    train = SimpleNamespace(light=light, cell=harness.load_cell("stc_tt.goals-train"), seed=1,
+                            device="cpu")
+    assert spans.reading(train, names[0]) is None and train.spans is None
     real = importlib.util.find_spec
     monkeypatch.setattr(importlib.util, "find_spec",
                         lambda name, *a: None if name.endswith(".tracing") else real(name, *a))
-    monkeypatch.setattr(sys, "argv", ["run.py", "--workload", "stc_tt.duke-volumes",
-                                      "--seed", "1"])
-    again = SimpleNamespace(light=busy.light)
+    again = SimpleNamespace(light=light, cell=harness.load_cell("stc_tt.duke-volumes"), seed=1,
+                            device="cpu")
     assert spans.reading(again, names[0]) is None and again.spans is None
 
 
@@ -217,7 +224,6 @@ def test_span_passes_of_a_tiny_cell(tiny_root, monkeypatch):
     assert all(v > 0 for v in got.readings.values())
     assert got.device == []
     t = cell["traffic_file"]
-    assert (got.workload, got.seed) == ("stc_tt.duke-volumes", SEED)
     assert sum(got.volume_s) >= spans.SPAN_PASS_S
     for pass_spans, least in ((got.host, len(got.volume_s)), (got.spanned, t["capture_volumes"])):
         vols = [s for s in pass_spans if s.name == "serve.volume"]
@@ -225,6 +231,62 @@ def test_span_passes_of_a_tiny_cell(tiny_root, monkeypatch):
         batches = [s for s in pass_spans if s.name == "serve.batch"]
         assert sum(b.attrs["rows"] for b in batches) == len(vols) * t["scans"]
         assert {s.request_id for s in pass_spans} == {v.request_id for v in vols}
+
+
+# A driver added as a file: drivers/volumes.py, writing the cell, seed and
+# device of each build to built.txt in the benchmark's root.
+NOTING_DRIVER = '''"""drivers/volumes.py, noting each build in built.txt."""
+
+import os
+
+from portbench import harness
+
+_volumes = harness.driver("volumes")
+SERVES_VOLUMES = True
+
+
+def build(cell, seed, device):
+    with open(os.path.join(harness.ROOT, "built.txt"), "a") as f:
+        f.write(f"{cell['name']} {seed} {device}\\n")
+    return _volumes.build(cell, seed, device)
+'''
+
+
+def test_span_passes_follow_the_handed_cell(tiny_root, monkeypatch):
+    """A traced run's readers make the passes of the cell, seed and device
+    the run set on the capture, built by that cell's own driver, in their
+    own process; the command line of the process is not read."""
+    import json
+
+    from portbench import harness, spans
+
+    b = os.path.join(tiny_root, "portbench")
+    with open(os.path.join(b, "drivers", "noting.py"), "w") as f:
+        f.write(NOTING_DRIVER)
+    with open(os.path.join(b, "traffic", "duke-volumes.json")) as f:
+        t = dict(json.load(f), driver="noting")
+    with open(os.path.join(b, "traffic", "noted-volumes.json"), "w") as f:
+        json.dump(t, f)
+    with open(os.path.join(b, "limits", "stc_tt.duke-volumes.json")) as f:
+        limits = f.read()
+    with open(os.path.join(b, "limits", "stc_tt.noted-volumes.json"), "w") as f:
+        f.write(limits)
+    with open(os.path.join(tiny_root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["workloads"].append({"name": "stc_tt.noted-volumes", "config": "stc_tt",
+                               "traffic": "noted-volumes", "chips": 1, "why": "a test cell"})
+    with open(os.path.join(tiny_root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join([tiny_root, REPO]))
+    monkeypatch.setattr(sys, "argv", ["run.py", "--workload", "stc_st.duke-volumes",
+                                      "--seed", "1", "--trace", "1"])
+    capture = SimpleNamespace(light=SimpleNamespace(device=[("k", 0.0, 1.0, "kernel", None)]),
+                              cell=harness.load_cell("stc_tt.noted-volumes"), seed=SEED,
+                              device="cpu", paced_s=1.0, paced_units=3)
+    assert harness.reader("host_dispatch_ms_per_batch.serve")(capture) > 0
+    assert harness.reader("cnn_device_ms_per_batch.serve")(capture) is None  # no device events
+    with open(os.path.join(tiny_root, "built.txt")) as f:
+        assert f.read() == f"stc_tt.noted-volumes {SEED} cpu\n"
 
 
 def test_a_drifting_device_clock_is_placed_by_the_launches():
