@@ -18,9 +18,10 @@ segments:
   stays a host op with its shapes in a profiler's trace and its kernel
   writes the outputs that the next segment reads;
 - at every span's entry and exit (``utils/tracing.py::borders``), whether
-  tracing is on or off: at replay the span is opened and closed there, so
-  each segment's ``cudaGraphLaunch`` lies in the ``model.*`` span its ops
-  ran in eagerly (with tracing off the span does nothing).
+  tracing is on or off: at replay the span is opened, with the attributes
+  it had, and closed there, so each segment's ``cudaGraphLaunch`` lies in
+  the ``model.*`` and ``mixer.*`` spans its ops ran in eagerly (with
+  tracing off the span does nothing).
 
 The segments replay in capture order, as graphs that share a pool must.
 Replayed, a batch runs the eager forward's kernels on the same inputs in
@@ -32,8 +33,9 @@ overload cannot be captured.
 
 from __future__ import annotations
 
+import collections
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -47,7 +49,8 @@ class Tape:
     batch's shape), the static output ``out`` (the uint8 maps, overwritten
     by each replay), and the steps of a replay.  ``segments``: the graphs;
     ``tcct_calls``: the eager ``tcct::`` calls; ``segment_spans``: for each
-    graph, in replay order, the names of the spans open around it."""
+    graph, in replay order, the names of the spans open around it;
+    ``spans``: how many times a replay opens each span, by name."""
 
     def __init__(self, x: torch.Tensor, out: torch.Tensor, rec: "_Recorder"):
         self.x, self.out = x, out
@@ -56,6 +59,7 @@ class Tape:
         self.segments = len(rec.graphs)
         self.tcct_calls = rec.calls
         self.segment_spans: List[Tuple[str, ...]] = rec.segment_spans
+        self.spans: Dict[str, int] = dict(rec.span_counts)
 
     @torch.inference_mode()
     def replay(self) -> torch.Tensor:
@@ -86,6 +90,7 @@ class _Recorder(TorchDispatchMode):
         self.calls = 0
         self.names: List[str] = []  # the spans open at capture
         self.segment_spans: List[Tuple[str, ...]] = []
+        self.span_counts: collections.Counter = collections.Counter()
         self.spans: list = []  # the spans a replay has open
 
     def open(self) -> None:
@@ -136,8 +141,8 @@ class _Recorder(TorchDispatchMode):
         self.calls += 1
         return got
 
-    def border(self, name: str) -> "_Border":
-        return _Border(self, name)
+    def border(self, name: str, attrs: dict) -> "_Border":
+        return _Border(self, name, attrs)
 
 
 def _aliases(got, args) -> bool:
@@ -151,18 +156,20 @@ def _aliases(got, args) -> bool:
 
 class _Border:
     """A span's entry and exit as a capture notes them: each closes the open
-    segment and adds the span's opening (closing) to the replay's steps."""
+    segment and adds the span's opening (with its attributes) or closing to
+    the replay's steps."""
 
-    def __init__(self, rec: _Recorder, name: str):
-        self.rec, self.name = rec, name
+    def __init__(self, rec: _Recorder, name: str, attrs: dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
 
     def __enter__(self):
-        rec, name = self.rec, self.name
+        rec, name, attrs = self.rec, self.name, self.attrs
         rec.close()
         rec.names.append(name)
+        rec.span_counts[name] += 1
 
         def enter():
-            s = tracing.span(name)
+            s = tracing.span(name, **attrs)
             s.__enter__()
             rec.spans.append(s)
 

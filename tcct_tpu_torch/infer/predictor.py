@@ -62,8 +62,9 @@ class VolumePredictor:
     1), whose ``stats`` count the halo exchanges and the all-reduces.
 
     ``stats``: ``captures`` (tapes captured), ``tapes`` (for each bucket,
-    the batch's shape, its tape's ``segments`` and ``tcct_calls``), and the
-    batches ``replayed`` from a tape and served ``eager``."""
+    the batch's shape, its tape's ``segments``, ``tcct_calls`` and
+    ``spans``: the spans a replay opens, by name), and the batches
+    ``replayed`` from a tape and served ``eager``."""
 
     def __init__(self, model: torch.nn.Module, geo: DatasetGeometry, batch_size: int = 8,
                  dtype: torch.dtype = torch.bfloat16, device="cuda", cnn_impl: str = "plain",
@@ -127,7 +128,8 @@ class VolumePredictor:
         maps, tape = graphs.capture(self._forward, x_u8)
         self._tapes[tuple(x_u8.shape)] = tape
         self.stats["tapes"][tuple(x_u8.shape)] = {"segments": tape.segments,
-                                                  "tcct_calls": tape.tcct_calls}
+                                                  "tcct_calls": tape.tcct_calls,
+                                                  "spans": tape.spans}
         self.stats["captures"] += 1
         return maps
 

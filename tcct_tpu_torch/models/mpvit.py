@@ -23,6 +23,10 @@ The einsums and softmaxes run in the compute dtype, as JAX's do.  Every
 depthwise 3x3 of the branch runs the depthwise kernel through
 ``layers.Conv2d``.
 
+Off a width shard, each call of an attention mixer (with its CRPE) is a
+``mixer.attention`` span (``utils/tracing.py``); the MetaPool mixers record
+none.
+
 With the MetaPool mixers the CRPE convs (at the reference's split) and
 with every mixer the classification head exist for state-dict
 compatibility with the reference and are never run.  In train mode the
@@ -54,6 +58,7 @@ from tcct_tpu_torch.ops.kernels.metapool import (
     metapool_tokens,
 )
 from tcct_tpu_torch.ops.pool import metapool_spatial, metapool_spatial_shard
+from tcct_tpu_torch.utils.tracing import span
 
 MIXERS = ("metapool", "metapool_pallas", "metapool2d", "factor", "hydra")
 CRPE_MIXERS = ("factor", "hydra")  # the mixers that run the CRPE
@@ -289,7 +294,11 @@ class MHCABlock(nn.Module):
             B, _, C = x.shape
             lh, rh = shard.halos(x.reshape(B, size[0], size[1], C), 1, 1)
             return metapool_spatial_shard(x, size, lh, rh, *shard.level(size[1]))
-        return self.att(x, size, self.crpe)
+        if self.width_shard is not None:
+            return self.att(x, size, self.crpe)
+        with span("mixer.attention", tokens=x.shape[1], dim=x.shape[2],
+                  heads=self.att.num_heads):
+            return self.att(x, size, self.crpe)
 
     def _site_shard(self, x, size):
         """The serving site on a width shard: (y, n2) of the rank's tokens."""

@@ -7,7 +7,8 @@ it opened inside (``parent_id``), the request it belongs to
 request) and the few attributes its caller gave.  Spans are kept in memory
 until :func:`drain` takes them, at most :data:`CAPACITY` of them: a server
 that keeps tracing on drains regularly (about 58 spans a 61-scan volume at
-batch 8), and :func:`dropped` counts the spans a full buffer did not keep.
+batch 8, 362 with MPViT-Small's attention mixers), and :func:`dropped`
+counts the spans a full buffer did not keep.
 
 Serving with spans::
 
@@ -18,7 +19,8 @@ Serving with spans::
     spans = tracing.drain()   # the recorded spans; the buffer is emptied
     tracing.disable()
 
-The spans the program records (``infer/predictor.py``, ``models/ftc.py``):
+The spans the program records (``infer/predictor.py``, ``models/ftc.py``,
+``models/mpvit.py``):
 
 - ``serve.volume`` (``scans``): ``predict_volume``, the request's root;
 - ``serve.batch`` (``rows``, the real B-scans of the batch): one turn of
@@ -34,7 +36,10 @@ The spans the program records (``infer/predictor.py``, ``models/ftc.py``):
   projections), ``model.fusion`` (the CNN projections and the fusion) and
   ``model.decoder`` (the head, the up-blocks and the aux heads); a replayed
   batch opens them around the graphs and ``tcct::`` calls that ran in them
-  when its bucket was captured.
+  when its bucket was captured;
+- inside ``model.vit``, ``mixer.attention`` (``tokens``, ``dim``, ``heads``):
+  each call of an attention token mixer (``factor``, ``hydra``: the mixer
+  and its CRPE), off a width shard; the MetaPool mixers record none.
 
 Times are stamped with ``time.perf_counter_ns()`` and given by :func:`drain`
 in Unix nanoseconds, through one ``(time.time_ns(), perf_counter_ns())``
@@ -62,7 +67,7 @@ import torch
 
 _on = False
 # while a capture notes the spans' borders (borders()): the capturing thread
-# and the function it is handed each span's name with
+# and the function it is handed each span's name and attributes with
 _hook: Optional[tuple] = None
 # tracing on, or borders noted: span() does more than return NO_SPAN
 _active = False
@@ -134,14 +139,15 @@ class _Open:
 def span(name: str, **attrs):
     """A context manager that records ``name`` with ``attrs`` while tracing
     is on; :data:`NO_SPAN` while it is off.  Inside :func:`borders`, on its
-    thread, the context that :func:`borders` was handed for ``name``."""
+    thread, the context that :func:`borders` was handed for ``name`` and
+    ``attrs``."""
     if not _active:
         return NO_SPAN
     if torch.compiler.is_compiling():
         return NO_SPAN
     hook = _hook
     if hook is not None and hook[0] == threading.get_ident():
-        return hook[1](name)
+        return hook[1](name, attrs)
     if not _on:
         return NO_SPAN
     return _Open(name, attrs)
@@ -149,10 +155,11 @@ def span(name: str, **attrs):
 
 @contextlib.contextmanager
 def borders(record):
-    """While inside, on this thread, ``span(name)`` returns ``record(name)``
-    (a context manager) whether tracing is on or off, and records nothing:
-    a capture (``infer/graphs.py``) notes where the spans open and close,
-    to open them around its replays.  Other threads' spans are as before."""
+    """While inside, on this thread, ``span(name, **attrs)`` returns
+    ``record(name, attrs)`` (a context manager) whether tracing is on or
+    off, and records nothing: a capture (``infer/graphs.py``) notes where
+    the spans open and close, to open them with their attributes around
+    its replays.  Other threads' spans are as before."""
     global _hook, _active
     _hook, _active = (threading.get_ident(), record), True
     try:
@@ -178,11 +185,6 @@ def disable() -> None:
     global _on, _active
     _on = False
     _active = _hook is not None
-# while a capture notes the spans' borders (borders()): the capturing thread
-# and the function it is handed each span's name with
-_hook: Optional[tuple] = None
-# tracing on, or borders noted: span() does more than return NO_SPAN
-_active = False
 
 
 def dropped() -> int:

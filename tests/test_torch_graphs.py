@@ -3,7 +3,8 @@ on the card: replayed maps bit for bit the eager forward's, the ``tcct::``
 calls of a replay the eager ones, each replayed segment inside the
 ``model.*`` span its ops ran in, and the maps of back-to-back volumes kept
 apart.  Each test serves two buckets, with a padded tail, in bf16 through
-both CNN branches of ``stc_tt`` and ``stc_st``.  Every test needs a CUDA card
+both CNN branches of ``stc_tt`` and ``stc_st``, and ``stc_st`` with factorized
+attention.  Every test needs a CUDA card
 and the CUDA toolkit: without them each one skips.  Run on a GPU machine
 with ``python -m pytest --noconftest tests/test_torch_graphs.py -q``."""
 
@@ -25,6 +26,11 @@ from tcct_tpu_torch.utils import tracing
 pytestmark = pytest.mark.gpu
 
 CASES = [("stc_tt", "plain"), ("stc_tt", "fused"), ("stc_st", "plain"), ("stc_st", "fused")]
+SECTIONS = ("model.cnn", "model.vit", "model.fusion", "model.decoder")
+# each case's tape: (segments, tcct:: calls), the same in both buckets; the
+# attention mixer's spans add none to these models
+TAPES = {("stc_tt", "plain"): (18, 16), ("stc_tt", "fused"): (22, 21),
+         ("stc_st", "plain"): (59, 91), ("stc_st", "fused"): (63, 96)}
 BUCKETS = [(64, 96), (96, 160)]  # (H, W)
 BS, N = 4, 10  # a volume: two whole batches and a tail of 2
 
@@ -36,9 +42,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _predictor(net, impl):
+def _predictor(net, impl, mixer="metapool"):
     return load_predictor("duke", net=net, cnn_impl=impl, batch_size=BS, dtype=torch.bfloat16,
-                          device="cuda", seed=0)
+                          device="cuda", seed=0, mixer=mixer)
 
 
 def _volume(hw, seed):
@@ -73,9 +79,39 @@ def test_replayed_maps_are_the_eager_maps(cuda, net, impl):
     for hw in BUCKETS:
         tape = _tape(pred, hw)
         assert st["tapes"][(BS,) + hw + (3,)] == {"segments": tape.segments,
-                                                  "tcct_calls": tape.tcct_calls}
-        assert {n for names in tape.segment_spans for n in names} == {
-            "model.cnn", "model.vit", "model.fusion", "model.decoder"}
+                                                  "tcct_calls": tape.tcct_calls,
+                                                  "spans": tape.spans}
+        assert (tape.segments, tape.tcct_calls) == TAPES[net, impl]
+        assert tape.spans == dict.fromkeys(SECTIONS, 1)
+        assert {n for names in tape.segment_spans for n in names} == set(SECTIONS)
+
+
+def test_factor_attention_replays_the_eager_maps(cuda, tmp_path):
+    """MPViT-Small with its own mixer, factorized attention and the CRPE
+    (``stc_st``, ``mixer='factor'``): replayed maps bit for bit the eager
+    forward's in both buckets; each replay opens one ``mixer.attention``
+    span a block, 38, with the block's tokens, channels and heads, around
+    the graphs and ``tcct::`` calls of its mixer."""
+    pred = _predictor("stc_st", "plain", mixer="factor")
+    for hw in BUCKETS:
+        for seed in (1, 2):
+            vol = _volume(hw, seed)
+            np.testing.assert_array_equal(pred.predict_scans(vol), _eager_maps(pred, vol))
+    assert pred.stats["captures"] == 2 and pred.stats["replayed"] == 2 * 2 * 3 - 2
+    for hw in BUCKETS:
+        tape = _tape(pred, hw)
+        assert tape.spans == dict(dict.fromkeys(SECTIONS, 1), **{"mixer.attention": 38})
+        assert pred.stats["tapes"][(BS,) + hw + (3,)]["spans"] == tape.spans
+        x = _batches(_volume(hw, 7))[0]
+        tape.x.copy_(x)
+        spans, _, graph_launches = _traced(tape.replay, tmp_path)
+        att = [s for s in spans if s.name == "mixer.attention"]
+        grid = [(-(-hw[0] // 2 ** k)) * (-(-hw[1] // 2 ** k)) for k in (1, 2, 3, 4)]
+        assert [(s.attrs["tokens"], s.attrs["dim"], s.attrs["heads"]) for s in att] == \
+            [(grid[0], 64, 8)] * 2 + [(grid[1], 128, 8)] * 9 + [(grid[2], 216, 8)] * 18 \
+            + [(grid[3], 288, 8)] * 9
+        inside = [any(a.start_ns <= t <= a.end_ns for a in att) for t in graph_launches]
+        assert inside == ["mixer.attention" in names for names in tape.segment_spans]
 
 
 def test_back_to_back_volumes_keep_their_maps(cuda):

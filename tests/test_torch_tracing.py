@@ -117,15 +117,16 @@ def test_spans_nest_by_parent_and_share_the_request():
 
 @pytest.mark.parametrize("on", [False, True])
 def test_borders_hand_this_threads_spans_to_the_hook(on):
-    """Inside ``borders(record)`` this thread's ``span(name)`` is
-    ``record(name)`` whether tracing is on or off, and records nothing;
-    another thread's spans are as before; after it tracing is as it was."""
+    """Inside ``borders(record)`` this thread's ``span(name, **attrs)`` is
+    ``record(name, attrs)`` whether tracing is on or off, and records
+    nothing; another thread's spans are as before; after it tracing is as
+    it was."""
     if on:
         tracing.enable()
     seen, other = [], []
 
-    def record(name):
-        seen.append(name)
+    def record(name, attrs):
+        seen.append((name, attrs))
         return contextlib.nullcontext()
 
     with tracing.borders(record):
@@ -135,7 +136,7 @@ def test_borders_hand_this_threads_spans_to_the_hook(on):
         t = threading.Thread(target=lambda: other.append(tracing.span("serve.batch")))
         t.start()
         t.join()
-    assert seen == ["model.cnn", "model.vit"]
+    assert seen == [("model.cnn", {"rows": 1}), ("model.vit", {})]
     assert (other[0] is tracing.NO_SPAN) is not on
     assert tracing.drain() == []
     assert (tracing.span("serve.batch") is tracing.NO_SPAN) is not on
@@ -255,6 +256,86 @@ def test_postprocess_and_fused_cnn_spans(model):
                                                        "serve.postprocess"]
     (dispatch,) = [s for s in spans if s.name == "serve.dispatch"]
     assert [s.name for s in _children(spans, dispatch)] == MODEL_SECTIONS
+
+
+def _block(mixer, dim=64, heads=8):
+    from tcct_tpu_torch.models.mpvit import ConvPosEnc, ConvRelPosEnc, MHCABlock
+
+    crpe = ConvRelPosEnc(dim // heads, ((3, 2), (5, 3), (7, 3)))
+    blk = MHCABlock(dim, 4, ConvPosEnc(dim), crpe, mixer=mixer, num_heads=heads)
+    init_weights(blk, torch.Generator().manual_seed(1))
+    return blk
+
+
+@pytest.mark.parametrize("serving", [True, False])
+@pytest.mark.parametrize("mixer", ["factor", "hydra", "metapool", "metapool2d"])
+def test_attention_mixer_records_one_span(mixer, serving):
+    """An attention mixer's call (the mixer and its CRPE) is one
+    ``mixer.attention`` span with its tokens, channels and heads, served or
+    trained; a MetaPool block records none; the output is the same
+    untraced."""
+    blk = _block(mixer)
+    x = torch.randn(2, 4 * 6, 64, generator=torch.Generator().manual_seed(2))
+    ctx = torch.inference_mode() if serving else contextlib.nullcontext()
+    blk.train(not serving)
+    with ctx:
+        torch.manual_seed(3)
+        want = blk(x, (4, 6))
+        tracing.enable()
+        torch.manual_seed(3)
+        got = blk(x, (4, 6))
+    spans = tracing.drain()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if mixer in ("factor", "hydra"):
+        (s,) = spans
+        assert s.name == "mixer.attention" and s.attrs == {"tokens": 24, "dim": 64, "heads": 8}
+    else:
+        assert spans == []
+
+
+@pytest.mark.parametrize("mixer", ["factor", "hydra"])
+def test_attention_mixer_on_a_width_shard_records_no_span(mixer):
+    """On a width shard (here one rank, whose all-reduces return their
+    input) the attention mixer records no span and serves as it does off
+    the shard."""
+    from types import SimpleNamespace
+
+    blk = _block(mixer).eval()
+    x = torch.randn(2, 4 * 6, 64, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        want = blk(x, (4, 6))
+        blk.width_shard = blk.att.width_shard = SimpleNamespace(all_reduce_=lambda t, op="sum": t)
+        tracing.enable()
+        got = blk(x, (4, 6))
+    assert tracing.drain() == []
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_factor_predictor_spans_every_block():
+    """MPViT-Small with factorized attention: each dispatch's
+    ``model.vit`` holds one ``mixer.attention`` span for each of its 38
+    blocks, stage by stage (2, 9, 18, 9 blocks on the 16x16, 8x8, 4x4 and
+    2x2 token grids of a 32x32 scan), and the maps are the untraced maps."""
+    m = RegNet(get_model("stc_st", NC, variant="infer", mixer="factor"), out_channels=NC)
+    init_weights(m, torch.Generator().manual_seed(0))
+    pred = VolumePredictor(m.eval(), GEO, batch_size=2, dtype=torch.float32, device="cpu")
+    vol = _volume(3, seed=2)
+    untraced = pred.predict_volume(vol)
+    tracing.enable()
+    traced = pred.predict_volume(vol)
+    spans = tracing.drain()
+    np.testing.assert_array_equal(traced, untraced)
+    by_id = {s.span_id: s for s in spans}
+    dispatches = [s for s in spans if s.name == "serve.dispatch"]
+    assert len(dispatches) == 2
+    for d in dispatches:
+        (vit,) = [s for s in _children(spans, d) if s.name == "model.vit"]
+        att = [s for s in spans if s.name == "mixer.attention"
+               and vit.start_ns <= s.start_ns <= s.end_ns <= vit.end_ns]
+        assert all(by_id[s.parent_id] is vit for s in att)
+        stages = [(s.attrs["tokens"], s.attrs["dim"], s.attrs["heads"]) for s in att]
+        assert stages == [(256, 64, 8)] * 2 + [(64, 128, 8)] * 9 + [(16, 216, 8)] * 18 \
+            + [(4, 288, 8)] * 9
 
 
 def test_drained_start_is_on_the_profilers_clock(tmp_path):
